@@ -1,0 +1,92 @@
+"""Weight bridge: a JAX-package variables tree -> this package's state dict.
+
+Inverts the JAX package's models/convert.py, whose flax names were chosen
+to mirror the reference torch module paths:
+
+  ("model_8", "cv1", "conv", "kernel")      -> "model.8.cv1.conv.weight"
+  ("model_105", "m_kpt_0_3", "conv", ...)   -> "model.105.m_kpt.0.3.conv..."
+
+Rules:
+  * a trailing run of "_<digits>" in a path component splits off as
+    ".<digits>" components (the inverse of convert.py's numeric merge)
+  * conv kernels HWIO (kh, kw, I/g, O) -> OIHW (O, I/g, kh, kw)
+  * BN params scale/bias -> weight/bias; batch_stats mean/var ->
+    running_mean/running_var; num_batches_tracked is added as 0
+  * implicit-knowledge params (C,) -> (1, C, 1, 1)
+
+The result loads with `load_state_dict(strict=True)` into the YoloFace of
+the same spec, as a reference checkpoint's state dict does.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_NUMERIC_TAIL = re.compile(r"^(.*?)((?:_\d+)*)$")
+
+
+def _split_component(name: str) -> str:
+    base, tail = _NUMERIC_TAIL.match(name).groups()
+    return ".".join([base] + [d for d in tail.split("_") if d])
+
+
+def _leaves(tree: Mapping[str, Any], prefix=()) -> Iterator[
+        Tuple[Tuple[str, ...], Any]]:
+    for key in tree.keys():
+        node = tree[key]
+        if hasattr(node, "keys"):
+            yield from _leaves(node, prefix + (key,))
+        else:
+            yield prefix + (key,), node
+
+
+def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
+    """("model_8", "cv1", "conv", "kernel") -> "model.8.cv1.conv.weight"
+    (the leaf is renamed by `jax_to_state_dict`)."""
+    return ".".join(_split_component(p) for p in path)
+
+
+def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
+    """{"params": ..., "batch_stats": ...} of numpy-convertible arrays ->
+    torch state dict (float32 tensors on the CPU)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key: str, value):
+        if key in out:
+            raise ValueError(f"two JAX leaves map to {key!r}")
+        out[key] = value
+
+    for path, value in _leaves(variables["params"]):
+        v = np.asarray(value, np.float32)
+        module = flax_path_to_torch_key(path[:-1])
+        leaf = path[-1]
+        if leaf == "kernel":
+            if v.ndim != 4:
+                raise ValueError(f"unhandled kernel shape {v.shape} at "
+                                 f"{path}")
+            put(f"{module}.weight", torch.from_numpy(
+                np.ascontiguousarray(v.transpose(3, 2, 0, 1))))
+        elif leaf == "scale":
+            put(f"{module}.weight", torch.from_numpy(v.copy()))
+        elif leaf == "bias":
+            put(f"{module}.bias", torch.from_numpy(v.copy()))
+        elif leaf == "implicit":
+            put(f"{module}.implicit",
+                torch.from_numpy(v.reshape(1, -1, 1, 1).copy()))
+        else:
+            raise ValueError(f"unhandled leaf {leaf!r} at {path}")
+    for path, value in _leaves(variables.get("batch_stats", {})):
+        v = np.asarray(value, np.float32)
+        module = flax_path_to_torch_key(path[:-1])
+        leaf = {"mean": "running_mean", "var": "running_var"}.get(path[-1])
+        if leaf is None:
+            raise ValueError(f"unhandled batch stat {path[-1]!r} at {path}")
+        put(f"{module}.{leaf}", torch.from_numpy(v.copy()))
+        if leaf == "running_mean":
+            put(f"{module}.num_batches_tracked",
+                torch.tensor(0, dtype=torch.long))
+    return out

@@ -1,0 +1,175 @@
+"""The graph-executing model: runs a ModelSpec's node list with
+from-routing, ending in the detection head.
+
+Counterpart of the JAX package's models/model.py (and of the reference
+models/yolo.py Model.forward_once). The top-level modules live in
+`self.model` as an nn.ModuleList, so state-dict keys read
+`model.{i}.<submodule>...` exactly as in the reference checkpoints.
+
+This slice's executor covers the ops of yolov7-w6-face and
+yolov7-tiny-face; any other op raises NotImplementedError naming it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from face_detection_multi_scale_tpu_torch.models import layers as L
+from face_detection_multi_scale_tpu_torch.models.head import (
+    DetectionHead, det_bias_prior, reshape_level)
+from face_detection_multi_scale_tpu_torch.models.spec import (
+    HEAD_OPS, ModelSpec, Node)
+
+
+def resolve_act(spec: ModelSpec, node_args, default=True):
+    """Effective activation for a node: a trailing string activation arg
+    (tiny cfg rows) or the model-level override (models/yolo.py:502-504)."""
+    if node_args and isinstance(node_args[-1], str) and \
+            node_args[-1] in ("leaky", "relu", "silu", "none"):
+        return node_args[-1]
+    if spec.act is not None:
+        return spec.act
+    return default
+
+
+def build_node_block(spec: ModelSpec, node: Node) -> nn.Module:
+    """The torch module for one parametric node."""
+    op, args, c1, c2 = node.op, node.args, node.c1, node.c2
+    if node.n_resolved > 1:
+        raise NotImplementedError(
+            f"op {op!r} repeated {node.n_resolved}x is not ported yet")
+    if op == "Conv":
+        k = args[1] if len(args) > 1 else 1
+        k = tuple(int(v) for v in k) if isinstance(k, (list, tuple)) \
+            else int(k)
+        s = int(args[2]) if len(args) > 2 else 1
+        p = args[3] if len(args) > 3 else None
+        g = int(args[4]) if len(args) > 4 and not isinstance(args[4], str) \
+            else 1
+        return L.ConvBN(c1, c2, k, s, p=p, g=g, act=resolve_act(spec, args))
+    if op == "DWConv":
+        k = int(args[1]) if len(args) > 1 else 1
+        s = int(args[2]) if len(args) > 2 else 1
+        return L.DWConvBN(c1, c2, k, s, act=resolve_act(spec, args))
+    if op == "SPPCSPC":
+        return L.SPPCSPC(c1, c2)
+    raise NotImplementedError(f"op {op!r} is not ported to the torch "
+                              "executor yet")
+
+
+STATELESS_OPS = {"Concat", "Upsample", "MP", "SP", "SPF", "ReOrg"}
+
+
+def apply_stateless_op(op: str, args, inp):
+    """Execute one parameter-free graph op on NCHW tensors. `inp` is the
+    routed input (a list for multi-input ops)."""
+    if op == "Concat":
+        return torch.cat(inp, dim=1)
+    if op == "Upsample":
+        return L.upsample2x_nearest(inp)
+    if op == "MP":
+        k = int(args[0]) if args else 2
+        return L.max_pool(inp, k, k, 0)
+    if op == "SP":
+        k = int(args[0]) if args else 3
+        s = int(args[1]) if len(args) > 1 else 1
+        return L.max_pool(inp, k, s, k // 2)
+    if op == "SPF":
+        k = int(args[0]) if args else 3
+        x = inp
+        for _ in range((k - 1) // 2):
+            x = L.max_pool(x, 3, 1, 1)
+        return x
+    if op == "ReOrg":
+        return L.reorg(inp)
+    raise NotImplementedError(f"stateless op {op!r}")
+
+
+class Stateless(nn.Module):
+    """A parameter-free node, kept as a module so that node i is
+    `self.model[i]` for every i, as in the reference."""
+
+    def __init__(self, node: Node):
+        super().__init__()
+        self.op, self.args = node.op, node.args
+
+    def forward(self, inp):
+        return apply_stateless_op(self.op, self.args, inp)
+
+
+class YoloFace(nn.Module):
+    """YOLOv7-face model over a resolved ModelSpec.
+
+    forward takes float NHWC images (the JAX package's layout), runs NCHW
+    inside and returns the per-level raw maps as (bs, na, ny, nx, no), the
+    training-mode output contract of the reference head
+    (models/yolo.py:273-274). `models.head.decode` gives inference rows.
+    """
+
+    def __init__(self, spec: ModelSpec):
+        super().__init__()
+        self.spec = spec.resolve()
+        mods = []
+        for node in self.spec.nodes:
+            if node.op in HEAD_OPS:
+                variant = {"Detect": "detect", "IDetect": "idetect",
+                           "IKeypoint": "ikeypoint"}[node.op]
+                mods.append(DetectionHead(self.spec, variant,
+                                          self.spec.head_in_ch))
+            elif node.op in STATELESS_OPS:
+                mods.append(Stateless(node))
+            else:
+                mods.append(build_node_block(self.spec, node))
+        self.model = nn.ModuleList(mods)
+        self._save = set(self.spec.save)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        spec = self.spec
+        x = x.permute(0, 3, 1, 2)
+        saved: List[Optional[torch.Tensor]] = []
+        for i, (node, m) in enumerate(zip(spec.nodes, self.model)):
+            if isinstance(node.f, int):
+                inp = x if node.f == i - 1 else saved[node.f]
+            else:
+                inp = [x if j == i - 1 else saved[j] for j in node.f]
+            if node.op in HEAD_OPS:
+                return [reshape_level(r, spec.na, spec.no) for r in m(inp)]
+            x = m(inp)
+            saved.append(x if i in self._save else None)
+        raise RuntimeError("spec has no detection head as its last node")
+
+
+@torch.no_grad()
+def init_weights(model: YoloFace, generator: torch.Generator) -> YoloFace:
+    """Seeded random init that follows the JAX init where it matters:
+    conv kernels lecun-normal (flax's default: truncated normal, fan-in
+    variance), conv biases zero except the head's det-bias priors, BN at
+    identity statistics, ImplicitA ~ N(0, 0.02) and ImplicitM ~
+    1 + N(0, 0.02). Draws come from `generator` on the CPU, so the same
+    seed gives the same weights on every device."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Conv2d):
+            w = torch.empty(mod.weight.shape)
+            fan_in = w[0].numel()
+            # flax lecun_normal: truncated to +-2 std, rescaled so the
+            # truncated distribution keeps variance 1/fan_in
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                  generator=generator)
+            mod.weight.copy_(w * (math.sqrt(1.0 / fan_in)
+                                  / .87962566103423978))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, L.ImplicitA):
+            mod.implicit.copy_(torch.empty(mod.implicit.shape).normal_(
+                0.0, 0.02, generator=generator))
+        elif isinstance(mod, L.ImplicitM):
+            mod.implicit.copy_(1.0 + torch.empty(mod.implicit.shape).normal_(
+                0.0, 0.02, generator=generator))
+    head = model.model[-1]
+    for lvl, conv in enumerate(head.m):
+        conv.bias.copy_(det_bias_prior(model.spec, lvl))
+    return model

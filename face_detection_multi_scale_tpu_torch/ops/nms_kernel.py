@@ -1,0 +1,144 @@
+"""Greedy-NMS keep mask: the hand-written CUDA kernel and its plain version.
+
+`nms_keep` replaces the JAX package's ops/pallas_nms.py::_kernel_seq
+(reached through `nms_keep_pallas`). Source: csrc/nms_keep.cu, CUDA C++
+for sm_90a, compiled by nvcc at first use into `BUILD_DIR` and bound with
+ctypes.
+
+What bounds it on the card: operations, not bytes. Each candidate costs
+18 bytes of traffic, while the greedy scan needs one f32 IoU (about 12
+operations) per pair of a candidate and an earlier keeper. The kernel
+therefore recomputes IoU from shared memory and never stores the K x K
+matrix: one block per image walks the score-ordered candidates tile by
+tile, clears a tile against the final keeps of earlier tiles (staged
+through shared memory one earlier tile at a time, testing set keep bits
+only), then resolves the tile's own triangle in order with one warp. See
+the source for the layout.
+
+On a CPU tensor `nms_keep` runs `nms_keep_plain`, the same function by
+the fixpoint of the JAX package's `nms_keep_matrix`; on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+from face_detection_multi_scale_tpu_torch.ops.boxes import box_iou
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "nms_keep.cu"
+BUILD_DIR = _PKG / "_build"
+# -fmad=false: (area_i + area_j) - iw*ih must not contract into an FMA, or
+# the last bit of the IoU differs from the plain version
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+
+def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
+                   iou_thres: float) -> torch.Tensor:
+    """Plain PyTorch keep mask. boxes (B, K, 4) f32 sorted by descending
+    score, valid (B, K) bool -> keep (B, K) bool.
+
+    The fixpoint of `nms_keep_matrix`: sup[i, j] = IoU(i, j) > thr for a
+    valid higher-ranked j < i; iterate keep = valid & ~any_j(sup & keep)
+    until nothing changes. It equals sequential greedy NMS. Materializes
+    the (B, K, K) matrix, so it is the reference, not a fast path."""
+    k = boxes.shape[1]
+    idx = torch.arange(k, device=boxes.device)
+    sup = ((box_iou(boxes, boxes) > iou_thres)
+           & (idx[None, :] < idx[:, None]) & valid[:, None, :])
+    keep = valid
+    for _ in range(k):
+        new = valid & ~(sup & keep[:, None, :]).any(dim=-1)
+        if torch.equal(new, keep):
+            break
+        keep = new
+    return keep
+
+
+def build() -> Path:
+    """Compile csrc/nms_keep.cu with nvcc (once per source and flags) and
+    return the shared library's path."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tag = hashlib.sha256(SOURCE.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libnms_keep_{tag}.so"
+    if lib.exists():
+        return lib
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
+                           "toolkit to build the NMS kernel")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [str(Path(CUDA_HOME) / "bin" / "nvcc"), *NVCC_FLAGS, "-o",
+           str(tmp), str(SOURCE)]
+    done = subprocess.run(cmd, capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({done.returncode}):\n"
+                           f"{done.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    fn = lib.fdms_nms_keep
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
+             iou_thres: float) -> torch.Tensor:
+    """Batched greedy-NMS keep mask. boxes (B, K, 4) float32 contiguous,
+    sorted by descending score; valid (B, K) bool. Returns keep (B, K)
+    bool in the same order. CPU tensors: the plain version. CUDA tensors:
+    the kernel, for any K (no tiling constraint). `nms_keep.launches`
+    counts kernel launches."""
+    if boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
+    if tuple(valid.shape) != tuple(boxes.shape[:2]):
+        raise ValueError(f"valid {tuple(valid.shape)} does not match boxes "
+                         f"{tuple(boxes.shape)}")
+    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"need float32 boxes and bool valid, got "
+                        f"{boxes.dtype} and {valid.dtype}")
+    if boxes.device != valid.device:
+        raise ValueError(f"boxes on {boxes.device}, valid on {valid.device}")
+    if boxes.device.type == "cpu":
+        return nms_keep_plain(boxes, valid, iou_thres)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"unsupported device {boxes.device}")
+    if not (boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("boxes and valid must be contiguous")
+    if boxes.data_ptr() % 16:
+        raise ValueError("boxes must be 16-byte aligned")
+    b, k = valid.shape
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    if b == 0 or k == 0:
+        return keep
+    if b >= 2 ** 31 or k >= 2 ** 31:
+        raise ValueError(f"shape {tuple(boxes.shape)} too large")
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    err = _library().fdms_nms_keep(
+        boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+        float(iou_thres), boxes.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"nms_keep kernel launch failed: CUDA error {err}")
+    nms_keep.launches += 1
+    return keep
+
+
+nms_keep.launches = 0
