@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and hold its kernels
+"""Drive the PyTorch port's main paths on one CUDA card and hold its kernels
 against their plain PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases, each fatal on failure (nothing is caught to carry on):
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1
-  2. build: nvcc compiles every kernel of the path from the checkout
-  3. kernels vs plain, bit for bit, on the card: nms_keep (the CUDA
-     greedy-NMS keep mask) on the CPU tests' cases, the serving point
-     (B=16, K=4096), the eval point (B=2, K=16384), ragged K, invalid tails,
-     long suppression chains, duplicate and zero-area boxes
+  2. build: nvcc compiles every kernel from the checkout, one process per
+     source, all started together; seconds per source
+  3. keep-mask kernels vs plain, bit for bit, on the card: nms_keep (seq,
+     the serving kernel) and its fixpoint version on the CPU tests' cases,
+     the serving point (B=16, K=4096), the eval point (B=2, K=16384),
+     ragged K, invalid tails, long suppression chains, duplicate and
+     zero-area boxes
   4. path w6: FaceDetector("yolov7-w6-face") at full width, seeded random
      weights, serves a few requests of 8 synthetic 640x640 frames through
      run_network with the launch counters reset just before and read just
@@ -19,17 +21,31 @@ Phases, each fatal on failure (nothing is caught to carry on):
      match a CPU forward on 2 frames within atol 5e-3 / rtol 1e-3 on the
      decoded rows (the decoded-row tolerance of the CPU parity tests)
   5. path tiny: the same for yolov7-tiny-face
-  6. one JSON line with every kernel's launches, error, times and bound
-  7. the last line: {"ok": true, "device": {...}}
+  6. fused_elan vs plain: the kernel on the inputs the w6 and tiny fused
+     paths hand each E-ELAN group at b8@640 (captured in one forward), held
+     against reference_elan through cuDNN with TF32 off within a
+     scale-relative 1e-5 (max |diff| / max |plain|, the JAX suite's bound,
+     tests/test_fused_elan.py); per group: kernel, plain, library and bound
+     times and the kernel's route
+  7. path w6-fused: FaceDetector("yolov7-w6-face", fuse_elan=True), the
+     same weights and requests as phase 4: 11 fused_elan launches and one
+     nms_keep launch per request; decoded rows within the phase 4
+     tolerance of the unfused card forward and of the CPU forward; its
+     Detections equal the CPU postprocess of its rows. Then once more with
+     fuse_elan="pre:" (5 groups absorb their downsample conv)
+  8. path tiny-fused: the same for tiny, 8 launches per request
+  9. one JSON line with every kernel's launches, error, times and bound
+ 10. the last line: {"ok": true, "device": {...}}
 
-Kernel times are CUDA-event averages after warm-up, at the inputs the w6
-path hands the kernel. bound_ms is the larger of bytes / 3.35 TB/s and
-operations / 67 TFLOP/s (H100 SXM f32 peak without tensor cores), counting
-what this run's data needs (see `nms_bound`).
+Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
+of bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM f32 peak without
+tensor cores), counting what this run's data needs (`nms_bound`,
+`elan_cost`).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import subprocess
 import time
@@ -37,7 +53,10 @@ import time
 import numpy as np
 import torch
 
-from face_detection_multi_scale_tpu_torch.infer.detector import FaceDetector
+from face_detection_multi_scale_tpu_torch.infer.detector import (
+    FaceDetector, full_fp32)
+from face_detection_multi_scale_tpu_torch.models import fused as FUSED
+from face_detection_multi_scale_tpu_torch.ops import elan_kernel as E
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
 
@@ -49,6 +68,8 @@ REQUESTS = 4
 SIZE = 640
 MAX_CANDIDATES = 4096  # the serving default; w6@640 has N = 25,500 rows
 ROW_TOL = dict(atol=5e-3, rtol=1e-3)
+ELAN_REL_TOL = 1e-5
+GROUPS = {"yolov7-w6-face": 11, "yolov7-tiny-face": 8}
 
 
 def check(ok: bool, what: str) -> None:
@@ -108,10 +129,23 @@ def nms_bound(keep: torch.Tensor, valid: torch.Tensor):
                                  else "bytes")
 
 
-def check_kernel_cases() -> int:
-    """Phase 3: nms_keep vs nms_keep_plain, bit for bit. Returns the
-    largest |kernel - plain| over every case (0 when they agree) and the
-    number of rows that differ."""
+def build_all() -> None:
+    """Phase 2: one nvcc per source, started together."""
+    def timed(mod):
+        t0 = time.perf_counter()
+        mod.build()
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        secs = dict(zip(("nms_keep.cu", "fused_elan.cu"),
+                        pool.map(timed, (K, E))))
+    print("build: " + ", ".join(f"{n} {s:.2f} s" for n, s in secs.items()))
+
+
+def check_kernel_cases():
+    """Phase 3: nms_keep and its fixpoint version vs nms_keep_plain, bit for
+    bit. Returns, per version, the largest |kernel - plain| over every case
+    (0 when they agree) and the number of rows that differ."""
     cases = [  # (b, k, thr, frac_valid, degenerate)
         (2, 1024, .5, 1., False), (1, 2048, .3, 1., False),
         (3, 1024, .7, 1., False), (1, 1024, .5, .4, False),
@@ -122,43 +156,61 @@ def check_kernel_cases() -> int:
         (2, 1, .5, 1., False), (3, 300, .5, .7, True),
         (2, 1000, .9, .5, True), (2, 4095, .5, .9, True),   # ragged K
         (1, 4096, .9, 1., True)]                        # long chains
-    worst = mismatches = 0
+    stats = {v: [0, 0] for v in K.KERNEL_VERSIONS}
     for n, (b, k, thr, frac, degen) in enumerate(cases):
         boxes, valid = candidates(b, k, seed=1000 + n, frac_valid=frac,
                                   degenerate=degen)
-        got = K.nms_keep(boxes, valid, thr)
-        torch.cuda.synchronize()
         want = K.nms_keep_plain(boxes, valid, thr)
-        err = int((got.int() - want.int()).abs().max())
-        worst = max(worst, err)
-        mismatches += int((got != want).sum())
-        print(f"nms_keep B={b} K={k} thr={thr} valid={frac} "
-              f"degenerate={degen}: kept {int(want.sum())}, "
-              f"mismatches {int((got != want).sum())}")
-        check(err == 0, f"nms_keep differs from its plain version at "
-                        f"B={b} K={k} thr={thr}")
-        check(not bool(got[~valid].any()), "an invalid row was kept")
+        for version in K.KERNEL_VERSIONS:
+            got = K.nms_keep(boxes, valid, thr, kernel_version=version)
+            torch.cuda.synchronize()
+            err = int((got.int() - want.int()).abs().max())
+            bad = int((got != want).sum())
+            stats[version][0] = max(stats[version][0], err)
+            stats[version][1] += bad
+            print(f"nms_keep[{version}] B={b} K={k} thr={thr} valid={frac} "
+                  f"degenerate={degen}: kept {int(want.sum())}, "
+                  f"mismatches {bad}")
+            check(err == 0, f"nms_keep[{version}] differs from its plain "
+                            f"version at B={b} K={k} thr={thr}")
+            check(not bool(got[~valid].any()), "an invalid row was kept")
     boxes, valid = candidates(16, 4096, seed=7)
-    ms = cuda_ms(lambda: K.nms_keep(boxes, valid, 0.5), 50)
+    for version in K.KERNEL_VERSIONS:
+        ms = cuda_ms(lambda: K.nms_keep(boxes, valid, 0.5,
+                                        kernel_version=version), 20)
+        print(f"nms_keep[{version}] B=16 K=4096 synthetic: kernel "
+              f"{ms:.4f} ms")
     plain = cuda_ms(lambda: K.nms_keep_plain(boxes, valid, 0.5), 5)
-    print(f"nms_keep B=16 K=4096 synthetic: kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms")
-    return worst, mismatches
+    print(f"nms_keep_plain B=16 K=4096 synthetic: {plain:.4f} ms")
+    return stats
 
 
 def same_detections(a: NMS.Detections, b: NMS.Detections) -> bool:
     return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
 
 
-def drive_path(name: str, smi: str, seed: int):
-    """Phases 4/5 for one zoo model. Returns (launches in the served run,
-    the kernel's inputs from the first request)."""
-    rng = np.random.default_rng(seed)
-    frames = rng.integers(0, 256, (REQUESTS, BATCH, SIZE, SIZE, 3),
-                          dtype=np.uint8)
+def rows_within(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{what}: bad rows")
+    err = (got - want).abs()
+    lim = ROW_TOL["atol"] + ROW_TOL["rtol"] * want.abs()
+    print(f"{what}, decoded rows {tuple(got.shape)}, max |diff| "
+          f"{float(err.max()):.3g}, worst diff/limit "
+          f"{float((err / lim).max()):.3g}")
+    check(bool((err <= lim).all()), f"{what} beyond {ROW_TOL}")
+
+
+def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
+               fuse_elan=False, requests=None, ref=None):
+    """Phases 4/5/7/8 for one zoo model. `ref` holds the unfused phase's
+    card and CPU rows on 2 frames; without it the CPU forward is run here.
+    Returns (seq launches, fused launches, the keep mask's inputs from the
+    first request, the rows on 2 frames: card and CPU, the detector)."""
+    tag = name if not fuse_elan else f"{name} fuse_elan={fuse_elan!r}"
+    requests = requests or REQUESTS
     det = FaceDetector(name, img_sizes=(SIZE,), conf_thres=0.5,
                        iou_thres=0.5, max_candidates=MAX_CANDIDATES,
-                       seed=seed, device="cuda")
+                       seed=seed, fuse_elan=fuse_elan, device="cuda")
     # a gate low enough that the busiest frame overfills K: random weights
     # put conf near 1e-3 at stride 8 and near 0.25 on the rows that the
     # reference's anchor-major view fills from the kpt conv
@@ -168,29 +220,38 @@ def drive_path(name: str, smi: str, seed: int):
     det.warmup(SIZE, BATCH)
 
     K.nms_keep.launches = 0
+    E.fused_elan.launches = 0
     times, n_gated = [], []
-    for r in range(REQUESTS):
+    for r in range(requests):
         t0 = time.perf_counter()
         dets = det.run_network(frames[r])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         check(dets.boxes.shape == (BATCH, min(det.max_det,
                                                det.max_candidates), 4),
-              f"{name}: Detections shape {tuple(dets.boxes.shape)}")
+              f"{tag}: Detections shape {tuple(dets.boxes.shape)}")
         check(all(bool(torch.isfinite(t).all()) for t in dets[:4]),
-              f"{name}: non-finite detections")
+              f"{tag}: non-finite detections")
         n_gated += dets.n_gated.cpu().tolist()
-    launches = K.nms_keep.launches
-    check(launches == REQUESTS, f"{name}: nms_keep launched {launches} "
-                                f"times for {REQUESTS} engine calls")
-    print(f"{name}: conf_thres {det.conf_thres:.6g}, n_gated {n_gated}, "
+    launches, fused = K.nms_keep.launches, E.fused_elan.launches
+    check(launches == requests, f"{tag}: nms_keep launched {launches} "
+                                f"times for {requests} engine calls")
+    want_fused = GROUPS[name] * requests if fuse_elan else 0
+    check(fused == want_fused, f"{tag}: fused_elan launched {fused} times "
+                               f"for {requests} engine calls, want "
+                               f"{want_fused}")
+    if fuse_elan:
+        pres = sum(b.pre is not None for b in det._elan_blocks)
+        print(f"{tag}: {len(det._elan_blocks)} fused groups ({pres} with an "
+              f"absorbed pre conv)")
+    print(f"{tag}: conf_thres {det.conf_thres:.6g}, n_gated {n_gated}, "
           f"max_candidates {det.max_candidates}, kept per image "
           f"{dets.valid.sum(1).cpu().tolist()}, nms_keep launches "
-          f"{launches} in {REQUESTS} requests")
+          f"{launches}, fused_elan launches {fused} in {requests} requests")
     check(max(n_gated) > det.max_candidates,
-          f"{name}: no image filled K = {det.max_candidates}")
+          f"{tag}: no image filled K = {det.max_candidates}")
     ms = [t * 1e3 for t in times]
-    print(f"{name} run_network b{BATCH}@{SIZE} on {smi}: ms/batch "
+    print(f"{tag} run_network b{BATCH}@{SIZE} on {smi}: ms/batch "
           f"{[round(m, 3) for m in ms]}, median {np.median(ms):.3f}, "
           f"img/s {BATCH / np.median(times):.1f}")
 
@@ -202,33 +263,144 @@ def drive_path(name: str, smi: str, seed: int):
     dets_card = det.postprocess(rows)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    print(f"{name}: forward+decode {1e3 * (t1 - t0):.3f} ms, postprocess "
+    print(f"{tag}: forward+decode {1e3 * (t1 - t0):.3f} ms, postprocess "
           f"{1e3 * (t2 - t1):.3f} ms (host clock, synchronized)")
 
     # the card's postprocess == the CPU postprocess of the same rows
     dets_cpu = det.postprocess(rows.cpu())
     check(same_detections(dets_card, dets_cpu),
-          f"{name}: card Detections differ from the CPU postprocess")
-    print(f"{name}: card Detections == CPU postprocess of the card's rows")
+          f"{tag}: card Detections differ from the CPU postprocess")
+    print(f"{tag}: card Detections == CPU postprocess of the card's rows")
 
     # the card's float32 forward vs a CPU forward with the same weights
-    cpu = FaceDetector(name, img_sizes=(SIZE,), seed=seed, device="cpu")
     rows_card = det.forward_rows(frames[0][:2]).cpu()
-    rows_cpu = cpu.forward_rows(frames[0][:2])
-    check(rows_card.shape == rows_cpu.shape and
-          bool(torch.isfinite(rows_card).all()), f"{name}: bad rows")
-    err = (rows_card - rows_cpu).abs()
-    lim = ROW_TOL["atol"] + ROW_TOL["rtol"] * rows_cpu.abs()
-    print(f"{name}: card vs CPU forward, decoded rows {tuple(rows_card.shape)}"
-          f", max |diff| {float(err.max()):.3g}, worst diff/limit "
-          f"{float((err / lim).max()):.3g}")
-    check(bool((err <= lim).all()), f"{name}: card forward differs from "
-                                    f"the CPU forward beyond {ROW_TOL}")
+    if ref is None:
+        cpu = FaceDetector(name, img_sizes=(SIZE,), seed=seed, device="cpu")
+        rows_cpu = cpu.forward_rows(frames[0][:2])
+    else:
+        rows_unfused, rows_cpu = ref
+        rows_within(rows_card, rows_unfused, f"{tag}: vs the unfused card "
+                                             f"forward")
+    rows_within(rows_card, rows_cpu, f"{tag}: card vs CPU forward")
 
     _, _, _, nms_boxes, valid, _, _ = NMS._gather_candidates_planar(
         rows, nc=det.spec.nc, conf_thres=det.conf_thres,
         k=min(det.max_candidates, rows.shape[1]))
-    return launches, (nms_boxes.contiguous(), valid, det.iou_thres)
+    return (launches, fused, (nms_boxes.contiguous(), valid, det.iou_thres),
+            (rows_card, rows_cpu), det)
+
+
+def capture_groups(det: FaceDetector, frames: np.ndarray):
+    """The (x, weights, shape) that each fused_elan call of one forward
+    receives."""
+    calls = []
+    real = FUSED.fused_elan
+
+    def record(x, weights, shape):
+        calls.append((x.clone(), weights, shape))
+        return real(x, weights, shape)
+
+    FUSED.fused_elan = record
+    try:
+        det.forward_rows(frames)
+    finally:
+        FUSED.fused_elan = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def elan_cost(x: torch.Tensor, weights, shape, out_hw):
+    """(flops, bytes) the group must do and move: x, weights and out once;
+    2 FLOPs per multiply-add of each conv over the group's output size."""
+    b, (h, w) = x.shape[0], out_hw
+    macs = 2 * shape.cin * shape.ccv + 9 * shape.ccv * shape.cch + \
+        (shape.n_chain - 1) * 9 * shape.cch ** 2 + \
+        shape.concat_width * shape.cout
+    if shape.has_pre:
+        macs += 9 * shape.pre_cin * shape.cin
+    flops = 2 * b * h * w * macs
+    nbytes = 4 * (x.numel() + sum(t.numel() for t in weights)
+                  + b * shape.cout * h * w)
+    return flops, nbytes
+
+
+def unfused_group(model, blk, x):
+    """The same group through the port's own unfused modules (cuDNN): the
+    library yardstick of the fused kernel, never called by the port."""
+    if blk.pre is not None:
+        x = model.model[blk.pre](x)
+    out = {blk.a: model.model[blk.a](x), blk.b: model.model[blk.b](x)}
+    cur = out[blk.b]
+    for c in blk.chain:
+        cur = model.model[c](cur)
+        out[c] = cur
+    cat = model.model[blk.concat]([out[j] for j in
+                                   model.spec.nodes[blk.concat].f])
+    return model.model[blk.trans](cat)
+
+
+@torch.inference_mode()
+def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
+                 timed: bool):
+    """Phase 6 for one fused detector: each group's kernel vs plain on the
+    captured inputs; with `timed`, the kernel, plain, library and bound
+    times. Returns the worst abs and relative errors and the time sums."""
+    calls = capture_groups(det, frames)
+    check(len(calls) == len(det._elan_blocks),
+          f"captured {len(calls)} groups, want {len(det._elan_blocks)}")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    worst_abs = worst_rel = 0.0
+    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "t_bytes": 0.0,
+            "t_ops": 0.0}
+    for blk, (x, ws, shape) in zip(det._elan_blocks, calls):
+        # NaN in the block the allocator hands the kernel's output next,
+        # so an output the kernel failed to write cannot pass
+        h, w = x.shape[2] // shape.pre_stride, x.shape[3] // shape.pre_stride
+        torch.full((x.shape[0], shape.cout, h, w), float("nan"),
+                   device=x.device)
+        got = E.fused_elan(x, ws, shape)
+        with full_fp32():
+            want = E.reference_elan(x, ws, shape)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()),
+              f"fused_elan left non-finite values at nodes {blk.start}-"
+              f"{blk.trans}")
+        diff = float((got - want).abs().max())
+        rel = diff / float(want.abs().max())
+        worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel, rel)
+        plan = E.elan_plan(shape, x.shape[0], h, w, n_sm)
+        line = (f"fused_elan nodes {blk.start}-{blk.trans} {shape.cin}->"
+                f"{shape.ccv}/{shape.cch}x{shape.n_chain}->{shape.cout}"
+                f"{' pre ' + str(shape.pre_cin) if shape.has_pre else ''} "
+                f"at {x.shape[0]}x{h}x{w}, route {plan['route']} grid "
+                f"{plan['grid']} cluster {plan['cluster']}: max |diff| "
+                f"{diff:.3g}, / max |plain| {rel:.3g}"
+                f"{' (bit-identical)' if torch.equal(got, want) else ''}")
+        if timed:
+            ms = cuda_ms(lambda: E.fused_elan(x, ws, shape), 3)
+            with full_fp32():
+                plain = cuda_ms(lambda: E.reference_elan(x, ws, shape), 3)
+                lib = cuda_ms(lambda: unfused_group(det.model, blk, x), 3)
+            flops, nbytes = elan_cost(x, ws, shape, (h, w))
+            t_b = nbytes / HBM_BYTES_PER_S * 1e3
+            t_o = flops / F32_OPS_PER_S * 1e3
+            for key, v in (("ms", ms), ("plain_ms", plain),
+                           ("library_ms", lib), ("t_bytes", t_b),
+                           ("t_ops", t_o)):
+                sums[key] += v
+            line += (f"; kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
+                     f"{lib:.3f} ms, bound {max(t_b, t_o):.4f} ms "
+                     f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        print(line)
+        check(rel < ELAN_REL_TOL, f"fused_elan differs from reference_elan "
+                                  f"by {rel:.3g} of max |plain| at nodes "
+                                  f"{blk.start}-{blk.trans}")
+    if timed:
+        print(f"fused_elan {det.spec.name} b{BATCH}@{SIZE} on {smi}, sums "
+              f"over {len(calls)} groups: kernel {sums['ms']:.3f} ms, plain "
+              f"{sums['plain_ms']:.3f} ms, library {sums['library_ms']:.3f} "
+              f"ms, bound {max(sums['t_bytes'], sums['t_ops']):.4f} ms")
+    return worst_abs, worst_rel, sums
 
 
 def main() -> None:
@@ -241,36 +413,81 @@ def main() -> None:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
-    t0 = time.perf_counter()
-    K.build()
-    print(f"build: nms_keep {time.perf_counter() - t0:.2f} s")
+    build_all()
+    nms_stats = check_kernel_cases()
 
-    worst, mismatches = check_kernel_cases()
-    launches, (boxes, valid, thr) = drive_path("yolov7-w6-face", smi, 0)
-    drive_path("yolov7-tiny-face", smi, 1)
+    frames = {name: np.random.default_rng(seed).integers(
+        0, 256, (REQUESTS, BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+        for name, seed in (("yolov7-w6-face", 0), ("yolov7-tiny-face", 1))}
+    w6, tiny = "yolov7-w6-face", "yolov7-tiny-face"
+    seq_w6, _, (boxes, valid, thr), ref_w6, _ = drive_path(
+        w6, smi, 0, frames[w6])
+    _, _, _, ref_tiny, _ = drive_path(tiny, smi, 1, frames[tiny], requests=2)
 
+    # phases 6-8: the fused paths, each group checked on its own inputs
+    fused_launches, elan = 0, {"abs": 0.0, "rel": 0.0}
+    elan_sums = None
+    for name, seed, flag, requests, ref in (
+            (w6, 0, True, REQUESTS, ref_w6), (w6, 0, "pre:", 2, ref_w6),
+            (tiny, 1, True, REQUESTS, ref_tiny)):
+        seq, fused, _, _, det = drive_path(name, smi, seed, frames[name],
+                                           fuse_elan=flag, requests=requests,
+                                           ref=ref)
+        check(seq == requests, f"{name}: nms_keep launches {seq}")
+        if name == w6 and flag is True:
+            fused_launches = fused
+        worst_abs, worst_rel, sums = check_groups(
+            det, frames[name][0], smi, timed=flag is True)
+        elan["abs"], elan["rel"] = max(elan["abs"], worst_abs), \
+            max(elan["rel"], worst_rel)
+        if name == w6 and flag is True:
+            elan_sums = sums
+        del det
+        torch.cuda.empty_cache()
+
+    # the keep-mask kernels at the w6 path's own inputs
     keep = K.nms_keep(boxes, valid, thr)
     want = K.nms_keep_plain(boxes, valid, thr)
-    worst = max(worst, int((keep.int() - want.int()).abs().max()))
-    mismatches += int((keep != want).sum())
-    check(worst == 0, "nms_keep differs from its plain version on the "
-                      "w6 path's inputs")
-    ms = cuda_ms(lambda: K.nms_keep(boxes, valid, thr), 50)
-    plain_ms = cuda_ms(lambda: K.nms_keep_plain(boxes, valid, thr), 5)
+    entries = []
     bound_ms, bound_by = nms_bound(keep, valid)
+    plain_ms = cuda_ms(lambda: K.nms_keep_plain(boxes, valid, thr), 5)
+    for version, name, line, launches in (
+            ("seq", "nms_keep", 94, seq_w6),
+            ("fixpoint", "nms_keep_fixpoint", 35, 0)):
+        got = K.nms_keep(boxes, valid, thr, kernel_version=version)
+        err = int((got.int() - want.int()).abs().max())
+        check(err == 0, f"nms_keep[{version}] differs from its plain version "
+                        f"on the w6 path's inputs")
+        ms = cuda_ms(lambda: K.nms_keep(boxes, valid, thr,
+                                        kernel_version=version), 20)
+        worst, mismatches = nms_stats[version]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "face_detection_multi_scale_tpu_torch/csrc/nms_keep.cu",
+            "replaces": f"face_detection_multi_scale_tpu/ops/pallas_nms.py:"
+                        f"{line}",
+            "launches": launches, "max_abs_err": max(worst, err),
+            "mismatches": mismatches, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     b, k = valid.shape
     dense_ms = b * k * k / 2 * OPS_PER_IOU / F32_OPS_PER_S * 1e3
     print(f"nms_keep at the w6 path's inputs B={b} K={k}: kept "
-          f"{int(keep.sum())}, bound {bound_ms:.5f} ms by {bound_by} "
-          f"(all K^2/2 pairs would bound it at {dense_ms:.5f} ms)")
-    print(json.dumps({"kernels": [{
-        "name": "nms_keep", "route": "cuda",
-        "source": "face_detection_multi_scale_tpu_torch/csrc/nms_keep.cu",
-        "replaces": "face_detection_multi_scale_tpu/ops/pallas_nms.py:94",
-        "launches": launches, "max_abs_err": worst,
-        "mismatches": mismatches, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+          f"{int(keep.sum())}, seq {entries[0]['ms']:.4f} ms, fixpoint "
+          f"{entries[1]['ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms by {bound_by} (all K^2/2 pairs would bound it "
+          f"at {dense_ms:.5f} ms)")
+    s = elan_sums
+    entries.append({
+        "name": "fused_elan", "route": "cuda",
+        "source": "face_detection_multi_scale_tpu_torch/csrc/fused_elan.cu",
+        "replaces": "face_detection_multi_scale_tpu/ops/pallas_elan.py:194",
+        "launches": fused_launches, "max_abs_err": elan["abs"],
+        "max_rel_err": elan["rel"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+        "bound_ms": max(s["t_bytes"], s["t_ops"]),
+        "bound_by": "operations" if s["t_ops"] >= s["t_bytes"] else "bytes",
+        "library_ms": s["library_ms"],
+        "per": "sum over the 11 w6 groups of one b8@640 forward"})
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

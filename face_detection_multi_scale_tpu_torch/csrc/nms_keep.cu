@@ -158,7 +158,84 @@ nms_keep_kernel(const float4* __restrict__ boxes,
   }
 }
 
+// The fixpoint version. Replaces
+// face_detection_multi_scale_tpu/ops/pallas_nms.py::_kernel (reached through
+// nms_keep_pallas(kernel_version="fixpoint")): Jacobi sweeps over the whole
+// candidate list,
+//   keep'[i] = valid[i] and no j < i with keep[j] and IoU(i, j) > thr,
+// from keep = valid, until a sweep changes nothing (at most K sweeps, as the
+// TPU kernel bounds its loop). The fixpoint is sequential greedy NMS, so the
+// result equals the seq kernel's. Bounded by operations like the seq kernel,
+// but doing sweeps x K^2/2 IoU tests at worst; the design keeps only the two
+// keep vectors in shared memory (2K bytes), reads the boxes from device
+// memory (cached: every lane of a warp reads the same column j at once), and
+// tests a pair only where keep[j] is set. One block per image.
+__global__ void __launch_bounds__(kTile)
+nms_keep_fixpoint_kernel(const float4* __restrict__ boxes,
+                         const uint8_t* __restrict__ valid,
+                         uint8_t* __restrict__ keep, int k, float thr) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint8_t* s_old = smem;      // keep before the sweep
+  uint8_t* s_new = smem + k;  // keep after it
+  const size_t off = static_cast<size_t>(blockIdx.x) * k;
+  boxes += off;
+  valid += off;
+  keep += off;
+
+  for (int i = threadIdx.x; i < k; i += blockDim.x) s_old[i] = valid[i] != 0;
+  __syncthreads();
+  for (int sweep = 0; sweep < k; ++sweep) {
+    int changed = 0;
+    for (int i = threadIdx.x; i < k; i += blockDim.x) {
+      uint8_t v = valid[i] != 0;
+      if (v) {
+        const float4 me = boxes[i];
+        const float my_area = box_area(me);
+        for (int j = 0; j < i; ++j) {
+          if (!s_old[j]) continue;
+          const float4 c = boxes[j];
+          if (overlaps(me, my_area, c, box_area(c), thr)) {
+            v = 0;
+            break;
+          }
+        }
+      }
+      s_new[i] = v;
+      changed |= v != s_old[i];
+    }
+    changed = __syncthreads_or(changed);  // every s_new written, s_old read
+    if (!changed) break;
+    for (int i = threadIdx.x; i < k; i += blockDim.x) s_old[i] = s_new[i];
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < k; i += blockDim.x) keep[i] = s_old[i];
+}
+
+cudaError_t set_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 }  // namespace
+
+// Launches the fixpoint kernel; the same interface as fdms_nms_keep below.
+extern "C" int fdms_nms_keep_fixpoint(const void* boxes, const void* valid,
+                                      void* keep, int b, int k, float thr,
+                                      int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = 2 * static_cast<size_t>(k);
+  err = set_smem(reinterpret_cast<const void*>(nms_keep_fixpoint_kernel),
+                 smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nms_keep_fixpoint_kernel<<<b, kTile, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
+      static_cast<uint8_t*>(keep), k, thr);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Launches the kernel on `stream` of `device` and returns cudaGetLastError()
 // (0 on success). boxes: (b, k, 4) f32, 16-byte aligned; valid, keep: (b, k)

@@ -2,9 +2,11 @@
 
 Counterpart of the JAX package's infer/detector.py `FaceDetector` (its
 engine at detector.py:338-344 and `run_network` without a mesh):
-uint8 NHWC batch -> /255 -> YoloFace forward with BN folded -> grid
-decode -> fixed-capacity NMS (the keep mask through the CUDA kernel on
-the card) -> Detections, then the host-side inverse letterbox.
+uint8 NHWC batch -> /255 -> YoloFace forward with BN folded (or, with
+`fuse_elan`, the fused-ELAN executor of models/fused.py, as the JAX
+`_forward` at detector.py:270-285) -> grid decode -> fixed-capacity NMS
+(the keep mask through the CUDA kernel on the card) -> Detections, then
+the host-side inverse letterbox.
 
 PyTorch runs eagerly, so there is no per-shape executable to cache.
 Preprocessing (letterbox / pad-to-square) stays on the host in cv2 for
@@ -15,6 +17,7 @@ device, so the upload is uint8.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -26,6 +29,8 @@ from face_detection_multi_scale_tpu_torch.models import zoo
 from face_detection_multi_scale_tpu_torch.models.convert import (
     jax_to_state_dict)
 from face_detection_multi_scale_tpu_torch.models.fuse import fold_bn
+from face_detection_multi_scale_tpu_torch.models.fused import (
+    apply_variant, find_elan_blocks, fused_apply)
 from face_detection_multi_scale_tpu_torch.models.head import decode
 from face_detection_multi_scale_tpu_torch.models.model import (
     YoloFace, init_weights)
@@ -67,6 +72,12 @@ class FaceDetector:
     with neither, weights are the seeded init (`seed`). `fuse` folds BN
     into the convs for serving. `device` defaults to the card and raises
     when there is none.
+
+    `fuse_elan` runs each E-ELAN group as one fused kernel launch
+    (models/fused.py, ops/elan_kernel.py): True with the default kernel,
+    or a variant expression of the JAX package's grammar, optionally
+    prefixed "pre:" to absorb each group's feeding downsample conv
+    (`apply_variant` per block; the layout parts change no numbers).
     """
 
     def __init__(self, model: Union[str, ModelSpec] = "yolov7-w6-face",
@@ -74,7 +85,8 @@ class FaceDetector:
                  conf_thres: float = 0.5, iou_thres: float = 0.5,
                  use_api_preprocess: bool = False, max_det: int = 300,
                  max_candidates: int = 4096, seed: int = 0,
-                 fuse: bool = True, device="cuda"):
+                 fuse: bool = True, fuse_elan: Union[bool, str] = False,
+                 device="cuda"):
         self.device = _device(device)
         spec = zoo.get_spec(model) if isinstance(model, str) else model
         self.spec = spec.resolve()
@@ -87,6 +99,18 @@ class FaceDetector:
         if fuse:
             fold_bn(net)
         self.model = net.eval().to(self.device)
+        self._elan_blocks = []
+        if fuse_elan:
+            expr = fuse_elan if isinstance(fuse_elan, str) else ""
+            absorb = expr.startswith("pre:")
+            expr = expr[4:] if absorb else expr
+            blocks = find_elan_blocks(self.spec, absorb_pre=absorb)
+            if expr:
+                blocks = [dataclasses.replace(
+                    b, shape=apply_variant(b.shape, expr)) for b in blocks]
+            self._elan_blocks = blocks
+        # packed group weights, filled once per block on first use
+        self._elan_weights = {}
 
         self.stride = self.spec.max_stride
         self.img_sizes = [check_img_size(s, self.stride) for s in img_sizes]
@@ -129,7 +153,11 @@ class FaceDetector:
         x = torch.as_tensor(images_u8).to(self.device)
         x = x.to(torch.float32) / 255.0
         with full_fp32():
-            raws = self.model(x)
+            if self._elan_blocks:
+                raws = fused_apply(self.model, x, self._elan_blocks,
+                                   self._elan_weights)
+            else:
+                raws = self.model(x)
         return decode(raws, self.spec)
 
     @torch.inference_mode()

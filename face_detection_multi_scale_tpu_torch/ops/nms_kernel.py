@@ -1,45 +1,45 @@
-"""Greedy-NMS keep mask: the hand-written CUDA kernel and its plain version.
+"""Greedy-NMS keep mask: the hand-written CUDA kernels and their plain version.
 
-`nms_keep` replaces the JAX package's ops/pallas_nms.py::_kernel_seq
-(reached through `nms_keep_pallas`). Source: csrc/nms_keep.cu, CUDA C++
-for sm_90a, compiled by nvcc at first use into `BUILD_DIR` and bound with
-ctypes.
+`nms_keep` replaces the JAX package's two keep-mask kernels, both reached
+through `nms_keep_pallas(kernel_version=...)`:
+  * "seq" (the serving path) replaces ops/pallas_nms.py::_kernel_seq;
+  * "fixpoint" replaces ops/pallas_nms.py::_kernel, the whole-candidate
+    fixpoint sweeps that the JAX package keeps as a cross-check.
+Source: csrc/nms_keep.cu, CUDA C++ for sm_90a, compiled by nvcc at first
+use (ops/cuda_build.py) and bound with ctypes.
 
-What bounds it on the card: operations, not bytes. Each candidate costs
+What bounds them on the card: operations, not bytes. Each candidate costs
 18 bytes of traffic, while the greedy scan needs one f32 IoU (about 12
-operations) per pair of a candidate and an earlier keeper. The kernel
-therefore recomputes IoU from shared memory and never stores the K x K
-matrix: one block per image walks the score-ordered candidates tile by
-tile, clears a tile against the final keeps of earlier tiles (staged
-through shared memory one earlier tile at a time, testing set keep bits
-only), then resolves the tile's own triangle in order with one warp. See
-the source for the layout.
+operations) per pair of a candidate and an earlier keeper. Both kernels
+therefore recompute IoU and never store the K x K matrix. "seq": one
+block per image walks the score-ordered candidates tile by tile, clears a
+tile against the final keeps of earlier tiles (staged through shared
+memory one earlier tile at a time, testing set keep bits only), then
+resolves the tile's own triangle in order with one warp. "fixpoint": one
+block per image runs Jacobi sweeps keep' = valid & ~any_{j<i}(IoU > thr &
+keep_j) over all candidates, the keep vectors in shared memory, until a
+sweep changes nothing. See the source for the layout.
 
 On a CPU tensor `nms_keep` runs `nms_keep_plain`, the same function by
-the fixpoint of the JAX package's `nms_keep_matrix`; on a CUDA tensor it
-launches the kernel or raises.
+the fixpoint of the JAX package's `nms_keep_matrix`, for either version;
+on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 
+from face_detection_multi_scale_tpu_torch.ops import cuda_build
 from face_detection_multi_scale_tpu_torch.ops.boxes import box_iou
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "nms_keep.cu"
-BUILD_DIR = _PKG / "_build"
+SOURCE = cuda_build.CSRC / "nms_keep.cu"
 # -fmad=false: (area_i + area_j) - iw*ih must not contract into an FMA, or
 # the last bit of the IoU differs from the plain version
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = cuda_build.BASE_FLAGS + ("-fmad=false",)
+KERNEL_VERSIONS = ("seq", "fixpoint")
 
 
 def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
@@ -64,49 +64,34 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
-def build() -> Path:
-    """Compile csrc/nms_keep.cu with nvcc (once per source and flags) and
-    return the shared library's path."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libnms_keep_{tag}.so"
-    if lib.exists():
-        return lib
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
-                           "toolkit to build the NMS kernel")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [str(Path(CUDA_HOME) / "bin" / "nvcc"), *NVCC_FLAGS, "-o",
-           str(tmp), str(SOURCE)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({done.returncode}):\n"
-                           f"{done.stderr}")
-    os.replace(tmp, lib)
-    return lib
+def build():
+    """Compile csrc/nms_keep.cu (once per source and flags); returns the
+    shared library's path."""
+    return cuda_build.build(SOURCE, NVCC_FLAGS)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    fn = lib.fdms_nms_keep
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.fdms_nms_keep, lib.fdms_nms_keep_fixpoint):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
-def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
-             iou_thres: float) -> torch.Tensor:
+def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+             kernel_version: str = "seq") -> torch.Tensor:
     """Batched greedy-NMS keep mask. boxes (B, K, 4) float32 contiguous,
     sorted by descending score; valid (B, K) bool. Returns keep (B, K)
     bool in the same order. CPU tensors: the plain version. CUDA tensors:
-    the kernel, for any K (no tiling constraint). `nms_keep.launches`
-    counts kernel launches."""
+    the `kernel_version` kernel ("seq" or "fixpoint", the same result),
+    for any K (no tiling constraint). `nms_keep.launches` counts launches
+    of the seq kernel, `nms_keep.fixpoint_launches` of the fixpoint one."""
+    if kernel_version not in KERNEL_VERSIONS:
+        raise ValueError(f"kernel_version must be one of {KERNEL_VERSIONS}, "
+                         f"got {kernel_version!r}")
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
     if tuple(valid.shape) != tuple(boxes.shape[:2]):
@@ -132,13 +117,20 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor,
     if b >= 2 ** 31 or k >= 2 ** 31:
         raise ValueError(f"shape {tuple(boxes.shape)} too large")
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    err = _library().fdms_nms_keep(
-        boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
-        float(iou_thres), boxes.device.index, stream)
+    seq = kernel_version == "seq"
+    lib = _library()
+    fn = lib.fdms_nms_keep if seq else lib.fdms_nms_keep_fixpoint
+    err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+             float(iou_thres), boxes.device.index, stream)
     if err != 0:
-        raise RuntimeError(f"nms_keep kernel launch failed: CUDA error {err}")
-    nms_keep.launches += 1
+        raise RuntimeError(f"nms_keep ({kernel_version}) kernel launch "
+                           f"failed: CUDA error {err}")
+    if seq:
+        nms_keep.launches += 1
+    else:
+        nms_keep.fixpoint_launches += 1
     return keep
 
 
 nms_keep.launches = 0
+nms_keep.fixpoint_launches = 0
