@@ -7,7 +7,8 @@ against their plain PyTorch versions.
 Phases, each fatal on failure (nothing is caught to carry on):
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1
   2. build: nvcc compiles every kernel from the checkout, one process per
-     source, all started together; seconds per source
+     source, all started together; seconds per source. fused_elan.cu
+     builds while phases 3-5, which do not need it, run
   3. keep-mask kernels vs plain, bit for bit, on the card: nms_keep (seq,
      the serving kernel) and its fixpoint version on the CPU tests' cases,
      the serving point (B=16, K=4096), the eval point (B=2, K=16384),
@@ -16,7 +17,8 @@ Phases, each fatal on failure (nothing is caught to carry on):
   4. path w6: FaceDetector("yolov7-w6-face") at full width, seeded random
      weights, serves a few requests of 8 synthetic 640x640 frames through
      run_network with the launch counters reset just before and read just
-     after; its Detections must equal the port's CPU postprocess of the
+     after (one seq nms_keep launch a request; the fixpoint kernel, a
+     cross-check entry point, must not launch); its Detections must equal the port's CPU postprocess of the
      card's decoded rows exactly, and its float32 forward (TF32 off) must
      match a CPU forward on 2 frames within atol 5e-3 / rtol 1e-3 on the
      decoded rows (the decoded-row tolerance of the CPU parity tests)
@@ -70,6 +72,12 @@ MAX_CANDIDATES = 4096  # the serving default; w6@640 has N = 25,500 rows
 ROW_TOL = dict(atol=5e-3, rtol=1e-3)
 ELAN_REL_TOL = 1e-5
 GROUPS = {"yolov7-w6-face": 11, "yolov7-tiny-face": 8}
+T_START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """The seconds since the imports, after `what`."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {what}", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -129,17 +137,21 @@ def nms_bound(keep: torch.Tensor, valid: torch.Tensor):
                                  else "bytes")
 
 
-def build_all() -> None:
-    """Phase 2: one nvcc per source, started together."""
+def start_builds(pool):
+    """Phase 2: one nvcc per source, all started together; returns a
+    future per kernel module, each giving the build's seconds."""
     def timed(mod):
         t0 = time.perf_counter()
         mod.build()
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        secs = dict(zip(("nms_keep.cu", "fused_elan.cu"),
-                        pool.map(timed, (K, E))))
-    print("build: " + ", ".join(f"{n} {s:.2f} s" for n, s in secs.items()))
+    return {mod: pool.submit(timed, mod) for mod in (K, E)}
+
+
+def built(builds, mod) -> None:
+    """Wait for `mod`'s build (a failed build raises here)."""
+    secs = builds[mod].result()
+    print(f"build: {mod.SOURCE.name} {secs:.2f} s")
 
 
 def check_kernel_cases():
@@ -175,9 +187,9 @@ def check_kernel_cases():
                             f"version at B={b} K={k} thr={thr}")
             check(not bool(got[~valid].any()), "an invalid row was kept")
     boxes, valid = candidates(16, 4096, seed=7)
-    for version in K.KERNEL_VERSIONS:
+    for version, iters in (("seq", 20), ("fixpoint", 3)):
         ms = cuda_ms(lambda: K.nms_keep(boxes, valid, 0.5,
-                                        kernel_version=version), 20)
+                                        kernel_version=version), iters)
         print(f"nms_keep[{version}] B=16 K=4096 synthetic: kernel "
               f"{ms:.4f} ms")
     plain = cuda_ms(lambda: K.nms_keep_plain(boxes, valid, 0.5), 5)
@@ -204,8 +216,9 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
                fuse_elan=False, requests=None, ref=None):
     """Phases 4/5/7/8 for one zoo model. `ref` holds the unfused phase's
     card and CPU rows on 2 frames; without it the CPU forward is run here.
-    Returns (seq launches, fused launches, the keep mask's inputs from the
-    first request, the rows on 2 frames: card and CPU, the detector)."""
+    Returns (the launch counts of the requests: seq, fixpoint and fused,
+    the keep mask's inputs from the first request, the rows on 2 frames:
+    card and CPU, the detector)."""
     tag = name if not fuse_elan else f"{name} fuse_elan={fuse_elan!r}"
     requests = requests or REQUESTS
     det = FaceDetector(name, img_sizes=(SIZE,), conf_thres=0.5,
@@ -219,7 +232,7 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
     det.conf_thres = float(conf[:, 3 * MAX_CANDIDATES // 2].max())
     det.warmup(SIZE, BATCH)
 
-    K.nms_keep.launches = 0
+    K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
     E.fused_elan.launches = 0
     times, n_gated = [], []
     for r in range(requests):
@@ -234,8 +247,11 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
               f"{tag}: non-finite detections")
         n_gated += dets.n_gated.cpu().tolist()
     launches, fused = K.nms_keep.launches, E.fused_elan.launches
+    fixpoint = K.nms_keep.fixpoint_launches
     check(launches == requests, f"{tag}: nms_keep launched {launches} "
                                 f"times for {requests} engine calls")
+    check(fixpoint == 0, f"{tag}: the fixpoint keep-mask kernel launched "
+                         f"{fixpoint} times; serving runs the seq kernel")
     want_fused = GROUPS[name] * requests if fuse_elan else 0
     check(fused == want_fused, f"{tag}: fused_elan launched {fused} times "
                                f"for {requests} engine calls, want "
@@ -247,7 +263,8 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
     print(f"{tag}: conf_thres {det.conf_thres:.6g}, n_gated {n_gated}, "
           f"max_candidates {det.max_candidates}, kept per image "
           f"{dets.valid.sum(1).cpu().tolist()}, nms_keep launches "
-          f"{launches}, fused_elan launches {fused} in {requests} requests")
+          f"{launches}, fixpoint launches {fixpoint}, fused_elan launches "
+          f"{fused} in {requests} requests")
     check(max(n_gated) > det.max_candidates,
           f"{tag}: no image filled K = {det.max_candidates}")
     ms = [t * 1e3 for t in times]
@@ -267,10 +284,11 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
           f"{1e3 * (t2 - t1):.3f} ms (host clock, synchronized)")
 
     # the card's postprocess == the CPU postprocess of the same rows
+    stamp(f"{tag}: requests done")
     dets_cpu = det.postprocess(rows.cpu())
     check(same_detections(dets_card, dets_cpu),
           f"{tag}: card Detections differ from the CPU postprocess")
-    print(f"{tag}: card Detections == CPU postprocess of the card's rows")
+    stamp(f"{tag}: card Detections == CPU postprocess of the card's rows")
 
     # the card's float32 forward vs a CPU forward with the same weights
     rows_card = det.forward_rows(frames[0][:2]).cpu()
@@ -286,7 +304,9 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
     _, _, _, nms_boxes, valid, _, _ = NMS._gather_candidates_planar(
         rows, nc=det.spec.nc, conf_thres=det.conf_thres,
         k=min(det.max_candidates, rows.shape[1]))
-    return (launches, fused, (nms_boxes.contiguous(), valid, det.iou_thres),
+    stamp(f"path {tag} done")
+    counts = {"seq": launches, "fixpoint": fixpoint, "fused": fused}
+    return (counts, (nms_boxes.contiguous(), valid, det.iou_thres),
             (rows_card, rows_cpu), det)
 
 
@@ -413,16 +433,23 @@ def main() -> None:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
-    build_all()
+    # fused_elan.cu builds while the keep-mask phases and the unfused paths,
+    # which do not need it, run
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    builds = start_builds(pool)
+    built(builds, K)
     nms_stats = check_kernel_cases()
+    stamp("keep-mask cases done")
 
     frames = {name: np.random.default_rng(seed).integers(
         0, 256, (REQUESTS, BATCH, SIZE, SIZE, 3), dtype=np.uint8)
         for name, seed in (("yolov7-w6-face", 0), ("yolov7-tiny-face", 1))}
     w6, tiny = "yolov7-w6-face", "yolov7-tiny-face"
-    seq_w6, _, (boxes, valid, thr), ref_w6, _ = drive_path(
+    counts_w6, (boxes, valid, thr), ref_w6, _ = drive_path(
         w6, smi, 0, frames[w6])
-    _, _, _, ref_tiny, _ = drive_path(tiny, smi, 1, frames[tiny], requests=2)
+    _, _, ref_tiny, _ = drive_path(tiny, smi, 1, frames[tiny], requests=2)
+    built(builds, E)
+    pool.shutdown()
 
     # phases 6-8: the fused paths, each group checked on its own inputs
     fused_launches, elan = 0, {"abs": 0.0, "rel": 0.0}
@@ -430,12 +457,11 @@ def main() -> None:
     for name, seed, flag, requests, ref in (
             (w6, 0, True, REQUESTS, ref_w6), (w6, 0, "pre:", 2, ref_w6),
             (tiny, 1, True, REQUESTS, ref_tiny)):
-        seq, fused, _, _, det = drive_path(name, smi, seed, frames[name],
-                                           fuse_elan=flag, requests=requests,
-                                           ref=ref)
-        check(seq == requests, f"{name}: nms_keep launches {seq}")
+        counts, _, _, det = drive_path(name, smi, seed, frames[name],
+                                       fuse_elan=flag, requests=requests,
+                                       ref=ref)
         if name == w6 and flag is True:
-            fused_launches = fused
+            fused_launches = counts["fused"]
         worst_abs, worst_rel, sums = check_groups(
             det, frames[name][0], smi, timed=flag is True)
         elan["abs"], elan["rel"] = max(elan["abs"], worst_abs), \
@@ -444,6 +470,7 @@ def main() -> None:
             elan_sums = sums
         del det
         torch.cuda.empty_cache()
+        stamp(f"groups of {name} fuse_elan={flag!r} checked")
 
     # the keep-mask kernels at the w6 path's own inputs
     keep = K.nms_keep(boxes, valid, thr)
@@ -451,15 +478,15 @@ def main() -> None:
     entries = []
     bound_ms, bound_by = nms_bound(keep, valid)
     plain_ms = cuda_ms(lambda: K.nms_keep_plain(boxes, valid, thr), 5)
-    for version, name, line, launches in (
-            ("seq", "nms_keep", 94, seq_w6),
-            ("fixpoint", "nms_keep_fixpoint", 35, 0)):
+    for version, name, line, launches, iters in (
+            ("seq", "nms_keep", 94, counts_w6["seq"], 20),
+            ("fixpoint", "nms_keep_fixpoint", 35, counts_w6["fixpoint"], 3)):
         got = K.nms_keep(boxes, valid, thr, kernel_version=version)
         err = int((got.int() - want.int()).abs().max())
         check(err == 0, f"nms_keep[{version}] differs from its plain version "
                         f"on the w6 path's inputs")
         ms = cuda_ms(lambda: K.nms_keep(boxes, valid, thr,
-                                        kernel_version=version), 20)
+                                        kernel_version=version), iters)
         worst, mismatches = nms_stats[version]
         entries.append({
             "name": name, "route": "cuda",
@@ -487,6 +514,7 @@ def main() -> None:
         "bound_by": "operations" if s["t_ops"] >= s["t_bytes"] else "bytes",
         "library_ms": s["library_ms"],
         "per": "sum over the 11 w6 groups of one b8@640 forward"})
+    stamp("kernel times done")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -68,6 +68,10 @@ struct Params {
   const float* wc[kMaxChain];
   const float* bc[kMaxChain];
   long long ws_stride;
+  // float offsets of a team's workspace regions, laid out by the wrapper
+  // (ops/elan_kernel.py::workspace_layout): x (pre only), b, a (if a
+  // member), y1..yn, each holding its window
+  long long off_x, off_b, off_a, off_y[kMaxChain];
   int batch, h, w, cin, ccv, cch, cout, n_chain, pre_cin, pre_stride, act;
   int n_members, tile_h, tile_w, use_smem, cluster;
   int members[kMaxMembers];  // -2 = a, -1 = b, k >= 0 = y_{k+1}
@@ -290,16 +294,12 @@ __global__ void __launch_bounds__(kThreads) fused_elan_kernel(const Params P) {
   bool has_a = false;
   for (int m = 0; m < P.n_members; ++m) has_a |= P.members[m] == -2;
 
-  // the team's workspace, in this order (ops/elan_kernel.py::elan_plan
-  // sizes it the same way): [x (pre only)] [b] [a (if a member)] [y1..yn]
-  float* xbuf = ws;
-  float* bbuf = xbuf + (has_pre ? static_cast<long long>(P.cin) * EH * EW : 0);
-  float* abuf = bbuf + static_cast<long long>(P.ccv) * EH * EW;
+  // the team's workspace regions, where the wrapper put them
+  float* xbuf = ws + P.off_x;
+  float* bbuf = ws + P.off_b;
+  float* abuf = ws + P.off_a;
   float* ybuf[kMaxChain];
-  ybuf[0] = abuf + (has_a ? static_cast<long long>(P.ccv) * TH * TW : 0);
-  for (int kk = 1; kk < P.n_chain; ++kk)
-    ybuf[kk] = ybuf[kk - 1] +
-               static_cast<long long>(P.cch) * (EH - 2 * kk) * (EW - 2 * kk);
+  for (int kk = 0; kk < P.n_chain; ++kk) ybuf[kk] = ws + P.off_y[kk];
 
   for (long long tile = team; tile < n_tiles; tile += n_teams) {
     const int n = static_cast<int>(tile / per_img);
@@ -385,8 +385,8 @@ __global__ void __launch_bounds__(kThreads) fused_elan_kernel(const Params P) {
 // bp (null without pre), wa, ba, wb, bb, wt, bt, then n_chain pairs
 // (w_k, b_k). ints: batch, h, w, cin, ccv, cch, cout, n_chain, pre_cin,
 // pre_stride, act, tile_h, tile_w, use_smem, grid, smem_bytes, ws_stride,
-// cluster,
-// n_members, then the n_members member ids (-2 = a, -1 = b, k = y_{k+1}).
+// cluster, n_members, then the n_members member ids (-2 = a, -1 = b,
+// k = y_{k+1}), then the workspace offsets: x, b, a, y1..y_{n_chain}.
 // grid is a multiple of cluster (at most 8, the portable cluster size).
 extern "C" int fdms_fused_elan(void* const* ptrs, const long long* ints,
                                int device, void* stream) {
@@ -433,6 +433,11 @@ extern "C" int fdms_fused_elan(void* const* ptrs, const long long* ints,
   }
   for (int m = 0; m < P.n_members; ++m)
     P.members[m] = static_cast<int>(ints[19 + m]);
+  const long long* off = ints + 19 + P.n_members;
+  P.off_x = off[0];
+  P.off_b = off[1];
+  P.off_a = off[2];
+  for (int kk = 0; kk < P.n_chain; ++kk) P.off_y[kk] = off[3 + kk];
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(fused_elan_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

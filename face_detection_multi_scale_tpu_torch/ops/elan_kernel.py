@@ -42,7 +42,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -157,26 +157,29 @@ def _member_id(m: str) -> int:
     return -3
 
 
-def _workspace_floats(shape: ElanShape, th: int, tw: int) -> int:
-    """Floats of one tile's workspace, carved as csrc/fused_elan.cu does:
-    [x (pre only)] [b] [a (if a member)] [y1..yn], each over its window
-    (the tile plus the halo still ahead of it)."""
+def workspace_layout(shape: ElanShape, th: int, tw: int
+                     ) -> Tuple[List[int], int]:
+    """The one layout of a th x tw tile's workspace, which the kernel takes
+    as given: the float offsets of its regions x (the pre conv's output;
+    empty without pre), b, a (empty unless a member), y1..yn, and the
+    total floats. Each region holds its window: x and b the tile plus the
+    halo n_chain, y_k the tile plus n_chain - k, a the bare tile."""
     p = shape.halo
     eh, ew = th + 2 * p, tw + 2 * p
-    floats = shape.ccv * eh * ew
-    if shape.has_pre:
-        floats += shape.cin * eh * ew
-    if "a" in shape.members:
-        floats += shape.ccv * th * tw
-    for k in range(1, shape.n_chain + 1):
-        floats += shape.cch * (eh - 2 * k) * (ew - 2 * k)
-    return floats
+    sizes = [shape.cin * eh * ew if shape.has_pre else 0,
+             shape.ccv * eh * ew,
+             shape.ccv * th * tw if "a" in shape.members else 0]
+    sizes += [shape.cch * (eh - 2 * k) * (ew - 2 * k)
+              for k in range(1, shape.n_chain + 1)]
+    offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+    return offsets, sum(sizes)
 
 
 def elan_plan(shape: ElanShape, batch: int, h: int, w: int,
-              n_sm: int) -> Dict[str, int]:
-    """How the kernel runs one group at (batch, h, w): the tile, the
-    workspace floats per tile, the route, the cluster size and the grid.
+              n_sm: int) -> Dict[str, object]:
+    """How the kernel runs one group at (batch, h, w): the tile, its
+    workspace layout (offsets and floats), the route, the cluster size and
+    the grid.
 
     Route "workspace": the workspace in device memory, one slice per team
     of `cluster` blocks that split each conv of a tile between them. Tiles
@@ -192,13 +195,13 @@ def elan_plan(shape: ElanShape, batch: int, h: int, w: int,
     def n_tiles(th: int, tw: int) -> int:
         return batch * (-(-h // th)) * (-(-w // tw))
 
-    floats = _workspace_floats(shape, TILE, TILE)
+    offsets, floats = workspace_layout(shape, TILE, TILE)
     if (floats * 4 <= SMEM_LIMIT and n_tiles(WS_TILE, WS_TILE) < n_sm
             <= n_tiles(TILE, TILE)):
         n = n_tiles(TILE, TILE)
-        return {"tile_h": TILE, "tile_w": TILE, "floats": floats,
-                "n_tiles": n, "route": "smem", "cluster": 1, "teams": n,
-                "grid": n}
+        return {"tile_h": TILE, "tile_w": TILE, "offsets": offsets,
+                "floats": floats, "n_tiles": n, "route": "smem",
+                "cluster": 1, "teams": n, "grid": n}
     if max(h, w) <= SMALL_IMAGE:
         th, tw = max(h, 1), max(w, 1)
     elif max(h, w) <= 2 * SMALL_IMAGE:
@@ -209,10 +212,10 @@ def elan_plan(shape: ElanShape, batch: int, h: int, w: int,
     blocks = BLOCKS_PER_SM * n_sm
     cluster = max(1, min(8, -(-blocks // n)))
     teams = max(1, min(n, blocks // cluster))
-    return {"tile_h": th, "tile_w": tw,
-            "floats": _workspace_floats(shape, th, tw), "n_tiles": n,
-            "route": "workspace", "cluster": cluster, "teams": teams,
-            "grid": teams * cluster}
+    offsets, floats = workspace_layout(shape, th, tw)
+    return {"tile_h": th, "tile_w": tw, "offsets": offsets, "floats": floats,
+            "n_tiles": n, "route": "workspace", "cluster": cluster,
+            "teams": teams, "grid": teams * cluster}
 
 
 @functools.cache
@@ -320,7 +323,8 @@ def fused_elan(x: torch.Tensor, weights: Sequence[torch.Tensor],
             plan["floats"] * 4 if use_smem else 0,
             0 if use_smem else plan["floats"], plan["cluster"],
             len(shape.members),
-            *(_member_id(m) for m in shape.members)]
+            *(_member_id(m) for m in shape.members),
+            *plan["offsets"]]
     c_ptrs = (ctypes.c_void_p * len(ptr))(*ptr)
     c_ints = (ctypes.c_longlong * len(ints))(*ints)
     stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -153,9 +153,35 @@ def test_elan_plan_routes():
     small = TE.elan_plan(tiny[4].shape, 8, 40, 40, 132)
     assert small["route"] == "smem" and small["grid"] == 200
     assert small["floats"] * 4 <= TE.SMEM_LIMIT
+    assert (small["offsets"], small["floats"]) == TE.workspace_layout(
+        tiny[4].shape, 8, 8)
     ragged = TE.elan_plan(w6[0].shape, 1, 24, 41, 132)
     assert (ragged["tile_h"], ragged["tile_w"]) == (16, 16)
     assert ragged["n_tiles"] == 2 * 3 and ragged["grid"] == 6 * 8
+
+
+@pytest.mark.parametrize("tile", [(8, 8), (16, 16), (10, 7)])
+def test_workspace_layout(tile):
+    """The regions the kernel writes, one after another with no gap or
+    overlap, each as large as the window csrc/fused_elan.cu computes into
+    it: x and b over the tile plus the halo n_chain, a over the tile, y_k
+    over the tile plus n_chain - k."""
+    th, tw = tile
+    shapes = [b.shape for name in ("yolov7-w6-face", "yolov7-tiny-face")
+              for pre in (False, True)
+              for b in TF.find_elan_blocks(TZ.get_spec(name), pre)]
+    shapes.append(TE.ElanShape(cin=8, ccv=8, cch=4, cout=8, n_chain=4,
+                               members=("y3", "b")))
+    for shape in shapes:
+        offsets, total = TE.workspace_layout(shape, th, tw)
+        p = shape.n_chain
+        want = [shape.cin * (th + 2 * p) * (tw + 2 * p) * shape.has_pre,
+                shape.ccv * (th + 2 * p) * (tw + 2 * p),
+                shape.ccv * th * tw * ("a" in shape.members)]
+        want += [shape.cch * (th + 2 * (p - k)) * (tw + 2 * (p - k))
+                 for k in range(1, p + 1)]
+        assert len(offsets) == 3 + p
+        assert np.diff(offsets + [total]).tolist() == want, shape
 
 
 @pytest.mark.parametrize("absorb_pre", [False, True])
