@@ -13,7 +13,15 @@ Phases, each fatal on failure (nothing is caught to carry on):
      the serving kernel) and its fixpoint version on the CPU tests' cases,
      the serving point (B=16, K=4096), the eval point (B=2, K=16384),
      ragged K, invalid tails, long suppression chains, duplicate and
-     zero-area boxes
+     zero-area boxes; the fixpoint kernel's launches in the kernels line
+     are this phase's, the one that drives it (every path checks that it
+     launches 0 times there)
+  3b. probe_mm: the matmul-layout probe tool's measurement
+     (tools/probe_mm.measure, its entry point) for each variant at the JAX
+     geometry and 512 cells, the launch counter zeroed before and read
+     after; each variant within a scale-relative 1e-4 of its plain version
+     (float32 sums over 6k-54k rows in another order); kernel, plain,
+     library and bound times
   4. path w6: FaceDetector("yolov7-w6-face") at full width, seeded random
      weights, serves a few requests of 8 synthetic 640x640 frames through
      run_network with the launch counters reset just before and read just
@@ -23,6 +31,14 @@ Phases, each fatal on failure (nothing is caught to carry on):
      match a CPU forward on 2 frames within atol 5e-3 / rtol 1e-3 on the
      decoded rows (the decoded-row tolerance of the CPU parity tests)
   5. path tiny: the same for yolov7-tiny-face
+  5b. path w6-tta: the TTA pyramid, FaceDetector("yolov7-w6-face",
+     img_sizes=(640, 3840), use_device_preprocess=True) at full width with
+     phase 4's seeded weights, `detect_multi_scale` on 2 synthetic 1080x1920
+     BGR frames (384x640 and 2176x3840 letterboxed): the device preprocess
+     within 1e-5 of the same on the CPU; each scale's Detections equal to
+     the CPU postprocess of the card's rows; the merge's keep indices equal
+     to the CPU merge's on the same rows; per image 3 nms_keep launches (2
+     scales + the merge), 0 fixpoint, 0 fused_elan; ms per image by part
   6. fused_elan vs plain: the kernel on the inputs the w6 and tiny fused
      paths hand each E-ELAN group at b8@640 (captured in one forward), held
      against reference_elan through cuDNN with TF32 off within a
@@ -41,8 +57,8 @@ Phases, each fatal on failure (nothing is caught to carry on):
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM f32 peak without
-tensor cores), counting what this run's data needs (`nms_bound`,
-`elan_cost`).
+tensor cores; 989 TFLOP/s dense bf16 for probe_mm), counting what this
+run's data needs (`nms_bound`, `elan_cost`, `probe_mm.cost`).
 """
 
 from __future__ import annotations
@@ -55,12 +71,14 @@ import time
 import numpy as np
 import torch
 
+from face_detection_multi_scale_tpu_torch.infer import device_preprocess as DP
 from face_detection_multi_scale_tpu_torch.infer.detector import (
     FaceDetector, full_fp32)
 from face_detection_multi_scale_tpu_torch.models import fused as FUSED
 from face_detection_multi_scale_tpu_torch.ops import elan_kernel as E
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
+from face_detection_multi_scale_tpu_torch.tools import probe_mm as PM
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -72,6 +90,9 @@ MAX_CANDIDATES = 4096  # the serving default; w6@640 has N = 25,500 rows
 ROW_TOL = dict(atol=5e-3, rtol=1e-3)
 ELAN_REL_TOL = 1e-5
 GROUPS = {"yolov7-w6-face": 11, "yolov7-tiny-face": 8}
+PROBE_CELLS, PROBE_ITERS = 512, 6  # the JAX tool's defaults
+TTA_SIZES = (640, 3840)  # the JAX FaceDetector's default pyramid
+TTA_FRAMES, TTA_HW = 2, (1080, 1920)  # video frames of the production pipeline
 T_START = time.perf_counter()
 
 
@@ -145,7 +166,7 @@ def start_builds(pool):
         mod.build()
         return time.perf_counter() - t0
 
-    return {mod: pool.submit(timed, mod) for mod in (K, E)}
+    return {mod: pool.submit(timed, mod) for mod in (K, PM, E)}
 
 
 def built(builds, mod) -> None:
@@ -157,7 +178,10 @@ def built(builds, mod) -> None:
 def check_kernel_cases():
     """Phase 3: nms_keep and its fixpoint version vs nms_keep_plain, bit for
     bit. Returns, per version, the largest |kernel - plain| over every case
-    (0 when they agree) and the number of rows that differ."""
+    (0 when they agree) and the number of rows that differ, and the
+    fixpoint kernel's launches in this phase, the one that drives it (no
+    serving path does)."""
+    K.nms_keep.fixpoint_launches = 0
     cases = [  # (b, k, thr, frac_valid, degenerate)
         (2, 1024, .5, 1., False), (1, 2048, .3, 1., False),
         (3, 1024, .7, 1., False), (1, 1024, .5, .4, False),
@@ -194,7 +218,36 @@ def check_kernel_cases():
               f"{ms:.4f} ms")
     plain = cuda_ms(lambda: K.nms_keep_plain(boxes, valid, 0.5), 5)
     print(f"nms_keep_plain B=16 K=4096 synthetic: {plain:.4f} ms")
-    return stats
+    return stats, K.nms_keep.fixpoint_launches
+
+
+def check_probe(smi: str):
+    """Phase 3b: the probe tool's measurement of each variant, the launch
+    counter zeroed just before and read just after. Returns the kernels
+    line's entries."""
+    inputs = PM.make_inputs("cuda")
+    entries = []
+    for variant in PM.VARIANTS:
+        PM.probe_mm.launches = 0
+        row = PM.measure(variant, PROBE_CELLS, PROBE_ITERS, inputs)
+        launches = PM.probe_mm.launches
+        check(launches > 0, f"probe_mm[{variant}] never launched")
+        print(f"probe_mm[{variant}] {PROBE_CELLS} cells on {smi}: kernel "
+              f"{row['total_ms']:.4f} ms ({row['us_per_cell']:.4f} us a "
+              f"cell), plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"by {row['bound_by']}; max |diff| {row['max_abs_diff']:.3g}, "
+              f"/ max |plain| {row['rel_diff']:.3g}; {launches} launches")
+        entries.append({
+            "name": f"probe_mm[{variant}]", "route": "cuda",
+            "source": "face_detection_multi_scale_tpu_torch/csrc/probe_mm.cu",
+            "replaces": "tools/probe_mosaic_mm.py:62",
+            "launches": launches, "max_abs_err": row["max_abs_diff"],
+            "max_rel_err": row["rel_diff"], "ms": row["total_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "per": f"{PROBE_CELLS} cells"})
+    return entries
 
 
 def same_detections(a: NMS.Detections, b: NMS.Detections) -> bool:
@@ -308,6 +361,122 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
     counts = {"seq": launches, "fixpoint": fixpoint, "fused": fused}
     return (counts, (nms_boxes.contiguous(), valid, det.iou_thres),
             (rows_card, rows_cpu), det)
+
+
+def drive_tta(smi: str) -> int:
+    """Phase 5b: the w6 TTA pyramid through detect_multi_scale with device
+    preprocessing. Returns the nms_keep launches of the counted run."""
+    det = FaceDetector("yolov7-w6-face", img_sizes=TTA_SIZES,
+                       max_candidates=MAX_CANDIDATES, seed=0,
+                       use_device_preprocess=True, device="cuda")
+    frames = np.random.default_rng(2).integers(
+        0, 256, (TTA_FRAMES, *TTA_HW, 3), dtype=np.uint8)
+    raw = det.upload(frames[:1])
+    # the gate of phase 4: the small scale gates 1.5 K rows of frame 0
+    x, _ = det.device_input(raw, TTA_SIZES[0], auto=True)
+    rows = det.forward_input(x)
+    conf = (rows[..., 4] * rows[..., 5]).sort(dim=1, descending=True)[0]
+    det.conf_thres = float(conf[0, 3 * MAX_CANDIDATES // 2])
+    for size in TTA_SIZES:
+        x, geom = det.device_input(raw, size, auto=True)
+        want = DP.device_letterbox(torch.from_numpy(frames[:1]), geom)
+        err = float((x.cpu() - want).abs().max())
+        print(f"w6-tta: device preprocess {TTA_HW} -> {geom.out_hw} at "
+              f"{size}: card vs CPU max |diff| {err:.3g}")
+        check(x.shape[1:3] == geom.out_hw and err <= 1e-5,
+              f"w6-tta: device preprocess at {size} differs from the CPU")
+    det.detect_multi_scale(frames[0])  # first-call allocations
+    torch.cuda.synchronize()
+
+    # the main path, with each scale's postprocess and the merge recorded
+    posts, merges = [], []
+    post, merge = det.postprocess, NMS.weighted_nms_merge
+
+    def record_post(rows):
+        dets = post(rows)
+        posts.append((rows, dets))
+        return dets
+
+    def record_merge(merged, *args, **kwargs):
+        keep = merge(merged, *args, **kwargs)
+        merges.append((merged, keep))
+        return keep
+
+    det.postprocess, NMS.weighted_nms_merge = record_post, record_merge
+    K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
+    E.fused_elan.launches = 0
+    outs, ms = [], []
+    try:
+        for frame in frames:
+            t0 = time.perf_counter()
+            out, shape = det.detect_multi_scale(frame)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(out)
+            check(shape == frame.shape, f"w6-tta: img0_shape {shape}")
+    finally:
+        del det.postprocess
+        NMS.weighted_nms_merge = merge
+    seq, fixpoint = K.nms_keep.launches, K.nms_keep.fixpoint_launches
+    fused = E.fused_elan.launches
+    print(f"w6-tta: {TTA_FRAMES} frames, nms_keep launches {seq}, fixpoint "
+          f"{fixpoint}, fused_elan {fused}; detect_multi_scale ms per image "
+          f"{[round(m, 3) for m in ms]} (host clock, synchronized)")
+    want_seq = (len(TTA_SIZES) + 1) * TTA_FRAMES  # every scale + the merge
+    check(seq == want_seq and fixpoint == 0 and fused == 0,
+          f"w6-tta: launches seq {seq}, fixpoint {fixpoint}, fused {fused}; "
+          f"want {want_seq}, 0, 0")
+    check(len(posts) == len(TTA_SIZES) * TTA_FRAMES
+          and len(merges) == TTA_FRAMES, "w6-tta: calls not recorded")
+    for i, (rows, dets) in enumerate(posts):
+        check(same_detections(dets, det.postprocess(rows.cpu())),
+              f"w6-tta: card Detections of call {i} differ from the CPU "
+              f"postprocess")
+        print(f"w6-tta: scale {TTA_SIZES[i % len(TTA_SIZES)]} rows "
+              f"{tuple(rows.shape)}, n_gated {dets.n_gated.tolist()}, kept "
+              f"{int(dets.valid.sum())}; == CPU postprocess")
+    for merged, keep in merges:
+        want = merge(merged, len(TTA_SIZES), det.iou_thres, device="cpu")
+        check(np.array_equal(keep, want), "w6-tta: the merge's keep indices "
+                                          "differ from the CPU merge's")
+        print(f"w6-tta: merge of {len(merged)} rows kept {len(keep)}; == CPU "
+              f"merge")
+    h, w = TTA_HW
+    for out in outs:
+        check(out.shape[1] == 7 and len(out) > 0
+              and bool(np.isfinite(out).all())
+              and bool((out[:, [0, 2]] >= 0).all() and (out[:, [0, 2]] <= w)
+                       .all() and (out[:, [1, 3]] >= 0).all()
+                       and (out[:, [1, 3]] <= h).all())
+              and set(out[:, 6].tolist()) <= {0, 1}, "w6-tta: bad output")
+    print(f"w6-tta: {[len(o) for o in outs]} final detections; "
+          f"truncation_report {det.truncation_report()}")
+
+    # where one image's time goes (frame 0, every part synchronized)
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    raw, t_up = timed(lambda: det.upload(frames[:1]))
+    parts = [f"upload {t_up:.3f}"]
+    for size in TTA_SIZES:
+        (x, _), t_pre = timed(lambda: det.device_input(raw, size, auto=True))
+        rows, t_fwd = timed(lambda: det.forward_input(x))
+        _, t_post = timed(lambda: det.postprocess(rows))
+        parts.append(f"scale {size} {tuple(x.shape[1:3])}: preprocess "
+                     f"{t_pre:.3f}, forward+decode {t_fwd:.3f}, postprocess "
+                     f"{t_post:.3f}")
+    _, t_merge = timed(lambda: merge(merges[0][0], len(TTA_SIZES),
+                                     det.iou_thres, device=det.device))
+    parts.append(f"merge {t_merge:.3f}")
+    print(f"w6-tta per image ms on {smi}: " + "; ".join(parts))
+    del det
+    torch.cuda.empty_cache()
+    stamp("path w6-tta done")
+    return seq
 
 
 def capture_groups(det: FaceDetector, frames: np.ndarray):
@@ -435,11 +604,14 @@ def main() -> None:
 
     # fused_elan.cu builds while the keep-mask phases and the unfused paths,
     # which do not need it, run
-    pool = concurrent.futures.ThreadPoolExecutor(2)
+    pool = concurrent.futures.ThreadPoolExecutor(3)
     builds = start_builds(pool)
     built(builds, K)
-    nms_stats = check_kernel_cases()
+    nms_stats, fixpoint_launches = check_kernel_cases()
     stamp("keep-mask cases done")
+    built(builds, PM)
+    probe_entries = check_probe(smi)
+    stamp("probe_mm done")
 
     frames = {name: np.random.default_rng(seed).integers(
         0, 256, (REQUESTS, BATCH, SIZE, SIZE, 3), dtype=np.uint8)
@@ -448,6 +620,7 @@ def main() -> None:
     counts_w6, (boxes, valid, thr), ref_w6, _ = drive_path(
         w6, smi, 0, frames[w6])
     _, _, ref_tiny, _ = drive_path(tiny, smi, 1, frames[tiny], requests=2)
+    tta_launches = drive_tta(smi)
     built(builds, E)
     pool.shutdown()
 
@@ -480,7 +653,7 @@ def main() -> None:
     plain_ms = cuda_ms(lambda: K.nms_keep_plain(boxes, valid, thr), 5)
     for version, name, line, launches, iters in (
             ("seq", "nms_keep", 94, counts_w6["seq"], 20),
-            ("fixpoint", "nms_keep_fixpoint", 35, counts_w6["fixpoint"], 3)):
+            ("fixpoint", "nms_keep_fixpoint", 35, fixpoint_launches, 3)):
         got = K.nms_keep(boxes, valid, thr, kernel_version=version)
         err = int((got.int() - want.int()).abs().max())
         check(err == 0, f"nms_keep[{version}] differs from its plain version "
@@ -495,6 +668,10 @@ def main() -> None:
                         f"{line}",
             "launches": launches, "max_abs_err": max(worst, err),
             "mismatches": mismatches, "ms": ms, "plain_ms": plain_ms,
+            # launches on the w6 TTA path; on the serving paths the
+            # fixpoint kernel is checked to launch 0 times
+            "tta_launches": tta_launches if version == "seq" else 0,
+            "serving_launches": counts_w6[version],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     b, k = valid.shape
     dense_ms = b * k * k / 2 * OPS_PER_IOU / F32_OPS_PER_S * 1e3
@@ -514,6 +691,7 @@ def main() -> None:
         "bound_by": "operations" if s["t_ops"] >= s["t_bytes"] else "bytes",
         "library_ms": s["library_ms"],
         "per": "sum over the 11 w6 groups of one b8@640 forward"})
+    entries += probe_entries
     stamp("kernel times done")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

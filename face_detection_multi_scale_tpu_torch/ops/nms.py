@@ -11,7 +11,9 @@ Ties: `jax.lax.top_k` puts equal scores in index order; `torch.topk`
 promises no order, so every top-K here is a stable descending sort.
 
 The keep mask is `ops/nms_kernel.nms_keep`: the CUDA kernel for any K on
-a CUDA tensor, its plain version on a CPU tensor.
+a CUDA tensor, its plain version on a CPU tensor. The multi-scale merge
+(`weighted_nms_merge`) takes its keep mask the same way, through
+`nms_keep_matrix`.
 """
 
 from __future__ import annotations
@@ -22,8 +24,7 @@ import numpy as np
 import torch
 
 from face_detection_multi_scale_tpu_torch.ops.boxes import xywh2xyxy
-from face_detection_multi_scale_tpu_torch.ops.nms_kernel import (
-    nms_keep, nms_keep_plain)
+from face_detection_multi_scale_tpu_torch.ops.nms_kernel import nms_keep
 
 MAX_WH = 4096  # class-offset multiplier (reference utils/general.py:518)
 NEG_INF = -1e30
@@ -69,19 +70,23 @@ def _stable_topk(x: torch.Tensor, k: int):
 
 
 def nms_keep_matrix(boxes: torch.Tensor, scores: torch.Tensor,
-                    iou_thres: float):
-    """Plain greedy NMS of one image: (K, 4) xyxy boxes, (K,) scores with
-    invalid rows at <= NEG_INF/2 -> (keep_idx (K,), valid (K,)): the kept
-    indices in descending score order, then zeros. The counterpart of the
-    JAX `nms_keep_matrix` with max_det = K."""
+                    iou_thres: float, max_det: Optional[int] = None):
+    """Exact greedy NMS of one image: (K, 4) xyxy boxes, (K,) scores with
+    invalid rows at <= NEG_INF/2 -> (keep_idx (max_det,), valid
+    (max_det,)): the first `max_det` (default K) kept indices in descending
+    score order, then zeros. The counterpart of the JAX `nms_keep_matrix`;
+    the keep mask is `nms_keep` (the kernel on a CUDA tensor)."""
     k = boxes.shape[0]
+    max_det = k if max_det is None else max_det
+    if not 0 <= max_det <= k:
+        raise ValueError(f"max_det must be in [0, {k}], got {max_det}")
     s, order = torch.sort(scores, descending=True, stable=True)
     valid = s > NEG_INF / 2
-    keep = nms_keep_plain(boxes[order][None], valid[None], iou_thres)[0]
+    keep = nms_keep(boxes[order].float()[None], valid[None], iou_thres)[0]
     pos = torch.where(keep, torch.arange(k, device=boxes.device), k)
     pos_sorted, sel = torch.sort(pos, stable=True)
-    sel_valid = pos_sorted < k
-    keep_idx = torch.where(sel_valid, order[sel], 0).to(torch.int32)
+    sel_valid = pos_sorted[:max_det] < k
+    keep_idx = torch.where(sel_valid, order[sel[:max_det]], 0).to(torch.int32)
     return keep_idx, sel_valid
 
 
@@ -171,3 +176,57 @@ def detections_to_numpy(dets: Detections):
                             classes[i][valid[i]][:, None],
                             extras[i][valid[i]]], axis=1)
             for i in range(boxes.shape[0])]
+
+
+# ---------------------------------------------------------------------------
+# Multi-scale weighted NMS (the TTA merge layer)
+# ---------------------------------------------------------------------------
+
+def scale_weights(boxes: torch.Tensor, scale_idx: torch.Tensor,
+                  num_scales: int) -> torch.Tensor:
+    """Size-vs-scale priors (reference multi_scale_face_detector.py:168-201),
+    in float32 as the JAX version computes them: faces < 32^2 px found at
+    the 2 largest scales x1.2; 32^2..128^2 at the middle scale x1.1;
+    > 128^2 at the 2 smallest scales x1.2."""
+    sizes = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    w = torch.ones_like(sizes)
+    small = sizes < 1024.0
+    medium = (sizes >= 1024.0) & (sizes <= 16384.0)
+    large = sizes > 16384.0
+    w = torch.where(small & (scale_idx >= num_scales - 2), w * 1.2, w)
+    w = torch.where(medium & (scale_idx == num_scales // 2), w * 1.1, w)
+    w = torch.where(large & (scale_idx <= 1), w * 1.2, w)
+    return w
+
+
+def weighted_nms(boxes: torch.Tensor, conf: torch.Tensor,
+                 scale_idx: torch.Tensor, valid: torch.Tensor,
+                 num_scales: int, iou_thres: float, max_det: int):
+    """Cross-scale merge: weight confidences by the scale priors, run one
+    NMS over all scales' boxes (in original-image space), and return
+    (max_det,) indices into the input plus validity. The caller keeps the
+    ORIGINAL (unweighted) rows of the keepers, as the reference does
+    (multi_scale_face_detector.py:203-240)."""
+    w = scale_weights(boxes, scale_idx, num_scales)
+    weighted = torch.where(valid, conf * w, torch.full_like(conf, NEG_INF))
+    return nms_keep_matrix(boxes, weighted, iou_thres, max_det)
+
+
+def weighted_nms_merge(merged, num_scales: int, iou_thres: float,
+                       device="cuda") -> np.ndarray:
+    """Host entry point for the TTA merge: (n, >=7) numpy rows
+    [x1, y1, x2, y2, conf, cls, scale_idx] -> keep indices in descending
+    weighted-score order, the greedy keep on `device` (the kernel on the
+    card).
+
+    The JAX version pads n to a power-of-two bucket (min 128) only to
+    bound its recompiles; the keep set does not depend on the padding,
+    and the kernel takes any K, so this runs at K = n."""
+    n = len(merged)
+    if n == 0:
+        return np.zeros((0,), np.int64)
+    rows = torch.from_numpy(np.asarray(merged, np.float32)).to(device)
+    idx, ok = weighted_nms(rows[:, :4], rows[:, 4], rows[:, 6],
+                           torch.ones(n, dtype=torch.bool, device=rows.device),
+                           num_scales, iou_thres, max_det=n)
+    return idx[ok].cpu().numpy().astype(np.int64)

@@ -9,12 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from face_detection_multi_scale_tpu_torch.infer import device_preprocess as DP
 from face_detection_multi_scale_tpu_torch.infer.detector import (
     FaceDetector, full_fp32)
 from face_detection_multi_scale_tpu_torch.models import zoo
 from face_detection_multi_scale_tpu_torch.models.fused import find_elan_blocks
 from face_detection_multi_scale_tpu_torch.ops import elan_kernel as E
+from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
+from face_detection_multi_scale_tpu_torch.tools import probe_mm as PM
 
 pytestmark = pytest.mark.gpu
 
@@ -206,3 +209,101 @@ def test_fused_engine_on_card_matches_cpu_postprocess(cuda_device):
     for got, want in zip(det.postprocess(rows), det.postprocess(rows.cpu())):
         assert torch.equal(got.cpu(), want)
     assert dets.valid.any()
+
+
+@pytest.mark.parametrize("cells", [1, 133, 512])
+@pytest.mark.parametrize("variant", PM.VARIANTS)
+def test_probe_mm_matches_plain(cuda_device, variant, cells):
+    """The probe kernel vs its plain version within REL_TOL of max |plain|,
+    at the tool's 512 cells and at ragged grids; every row the same."""
+    inputs = PM.make_inputs(cuda_device)
+    launches = PM.probe_mm.launches
+    got = PM.probe_mm(variant, *inputs, cells)
+    torch.cuda.synchronize()
+    assert PM.probe_mm.launches == launches + 1
+    want = PM.probe_mm_plain(variant, *inputs, cells)
+    assert got.shape == want.shape == (cells, PM.N)
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= PM.REL_TOL, rel
+    assert bool((got == got[0]).all())
+
+
+def test_probe_mm_rejects_misaligned_inputs(cuda_device):
+    x, x2, w, w9 = PM.make_inputs(cuda_device)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    with pytest.raises(ValueError):  # 2 bytes off a 16-byte boundary
+        PM.probe_mm("flat", flat[1:].view(x.shape), x2, w, w9, 4)
+
+
+def merge_rows(n, seed):
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 300, (n, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(4, 200, (n, 2))], 1).round()
+    boxes[5::5] = boxes[:len(boxes[5::5])]
+    conf = rng.choice(np.linspace(0.55, 0.9, 8), n)
+    return np.concatenate([boxes, conf[:, None], np.zeros((n, 1)),
+                           rng.integers(0, 2, (n, 1))], 1)
+
+
+@pytest.mark.parametrize("n", [1, 600])
+def test_merge_through_the_kernel_matches_plain(cuda_device, n):
+    """weighted_nms_merge on the card: one seq keep-mask launch, and the
+    keep indices of the CPU merge (the plain keep mask)."""
+    rows = merge_rows(n, seed=n)
+    launches = K.nms_keep.launches
+    got = NMS.weighted_nms_merge(rows, 2, 0.5, device=cuda_device)
+    assert K.nms_keep.launches == launches + 1
+    np.testing.assert_array_equal(
+        got, NMS.weighted_nms_merge(rows, 2, 0.5, device="cpu"))
+
+
+def test_nms_keep_matrix_launches_the_kernel(cuda_device):
+    rows = torch.from_numpy(merge_rows(300, seed=3)).float()
+    launches = K.nms_keep.launches
+    idx, ok = NMS.nms_keep_matrix(rows[:, :4].to(cuda_device),
+                                  rows[:, 4].to(cuda_device), 0.5, 100)
+    assert K.nms_keep.launches == launches + 1
+    want_idx, want_ok = NMS.nms_keep_matrix(rows[:, :4], rows[:, 4], 0.5, 100)
+    assert torch.equal(ok.cpu(), want_ok) and torch.equal(idx.cpu(), want_idx)
+
+
+@pytest.mark.parametrize("hw", [(1080, 1920), (500, 375), (123, 457)])
+def test_device_preprocess_matches_cpu(cuda_device, hw):
+    """Letterbox (auto and square) and the API chain on the card within
+    1e-5 of the same functions on the CPU."""
+    img = torch.from_numpy(np.random.default_rng(hw[0]).integers(
+        0, 256, (1, *hw, 3), dtype=np.uint8))
+    for size in (640, 3840):
+        for auto in (True, False):
+            geom = DP.letterbox_geometry(hw, size, auto=auto, stride=64)
+            got = DP.device_letterbox(img.to(cuda_device), geom).cpu()
+            want = DP.device_letterbox(img, geom)
+            assert got.shape == want.shape == (1, *geom.out_hw, 3)
+            assert float((got - want).abs().max()) <= 1e-5
+        got = DP.device_preprocess_api(img.to(cuda_device), size).cpu()
+        assert float((got - DP.device_preprocess_api(img, size))
+                     .abs().max()) <= 1e-5
+
+
+def test_detect_multi_scale_on_card(cuda_device):
+    """A narrowed tiny pyramid with device preprocessing on the card: one
+    keep-mask launch per scale and one for the merge, and rows of the
+    (n, 7) contract inside the image."""
+    spec = zoo.get_spec("yolov7-tiny-face")
+    spec.width_multiple = 0.25
+    spec._resolved = False
+    det = FaceDetector(spec, img_sizes=(64, 128),
+                       use_device_preprocess=True, device=cuda_device)
+    img = np.random.default_rng(0).integers(0, 256, (90, 120, 3),
+                                            dtype=np.uint8)
+    # a gate that a quarter of the small scale's rows clear
+    x, _ = det.device_input(det.upload(img[None]), 64, auto=True)
+    rows = det.forward_input(x)
+    conf = (rows[..., 4] * rows[..., 5]).flatten().sort(descending=True)[0]
+    det.conf_thres = float(conf[len(conf) // 4])
+    launches = K.nms_keep.launches
+    out, shape = det.detect_multi_scale(img)
+    assert shape == img.shape and out.shape[1] == 7 and len(out) > 0
+    assert K.nms_keep.launches == launches + 3
+    assert (out[:, [0, 2]] <= 120).all() and (out[:, [1, 3]] <= 90).all()
+    assert set(out[:, 6].tolist()) <= {0, 1}
