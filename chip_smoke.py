@@ -44,7 +44,9 @@ Phases, each fatal on failure (nothing is caught to carry on):
      against reference_elan through cuDNN with TF32 off within a
      scale-relative 1e-5 (max |diff| / max |plain|, the JAX suite's bound,
      tests/test_fused_elan.py); per group: kernel, plain, library and bound
-     times and the kernel's route
+     times, the plan's tile, cluster and grid, the recompute share
+     (positions computed / output positions, per conv and for the group)
+     and the kernel's effective TFLOP/s
   7. path w6-fused: FaceDetector("yolov7-w6-face", fuse_elan=True), the
      same weights and requests as phase 4: 11 fused_elan launches and one
      nms_keep launch per request; decoded rows within the phase 4
@@ -56,9 +58,12 @@ Phases, each fatal on failure (nothing is caught to carry on):
  10. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
-of bytes / 3.35 TB/s and operations / 67 TFLOP/s (H100 SXM f32 peak without
-tensor cores; 989 TFLOP/s dense bf16 for probe_mm), counting what this
-run's data needs (`nms_bound`, `elan_cost`, `probe_mm.cost`).
+of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
+does (H100 SXM, dense): 67 TFLOP/s f32 without tensor cores for nms_keep;
+495 / 3 = 165 TFLOP/s for fused_elan, whose f32-accurate products are three
+TF32 tensor-core products a multiply-add (3xTF32; the 67 TFLOP/s SIMT bound
+is printed beside it); 989 TFLOP/s bf16 for probe_mm. Operations count what
+this run's data needs (`nms_bound`, `elan_cost`, `probe_mm.cost`).
 """
 
 from __future__ import annotations
@@ -82,6 +87,7 @@ from face_detection_multi_scale_tpu_torch.tools import probe_mm as PM
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32X3_OPS_PER_S = 495e12 / 3  # 3xTF32: three TF32 products a multiply-add
 OPS_PER_IOU = 12  # 4 min/max, 2 sub, 2 clamp, mul, add, sub, div (+ compare)
 BATCH = 8
 REQUESTS = 4
@@ -540,7 +546,7 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst_abs = worst_rel = 0.0
     sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "t_bytes": 0.0,
-            "t_ops": 0.0}
+            "t_ops": 0.0, "t_simt": 0.0, "flops": 0.0}
     for blk, (x, ws, shape) in zip(det._elan_blocks, calls):
         # NaN in the block the allocator hands the kernel's output next,
         # so an output the kernel failed to write cannot pass
@@ -558,13 +564,15 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
         rel = diff / float(want.abs().max())
         worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel, rel)
         plan = E.elan_plan(shape, x.shape[0], h, w, n_sm)
+        share = E.recompute_share(shape, plan, h, w)
         line = (f"fused_elan nodes {blk.start}-{blk.trans} {shape.cin}->"
                 f"{shape.ccv}/{shape.cch}x{shape.n_chain}->{shape.cout}"
                 f"{' pre ' + str(shape.pre_cin) if shape.has_pre else ''} "
-                f"at {x.shape[0]}x{h}x{w}, route {plan['route']} grid "
-                f"{plan['grid']} cluster {plan['cluster']}: max |diff| "
-                f"{diff:.3g}, / max |plain| {rel:.3g}"
-                f"{' (bit-identical)' if torch.equal(got, want) else ''}")
+                f"at {x.shape[0]}x{h}x{w}, tile {plan['tile_h']}x"
+                f"{plan['tile_w']} grid {plan['grid']} cluster "
+                f"{plan['cluster']}, recompute "
+                + " ".join(f"{c} {v:.3f}" for c, v in share.items())
+                + f": max |diff| {diff:.3g}, / max |plain| {rel:.3g}")
         if timed:
             ms = cuda_ms(lambda: E.fused_elan(x, ws, shape), 3)
             with full_fp32():
@@ -572,23 +580,30 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
                 lib = cuda_ms(lambda: unfused_group(det.model, blk, x), 3)
             flops, nbytes = elan_cost(x, ws, shape, (h, w))
             t_b = nbytes / HBM_BYTES_PER_S * 1e3
-            t_o = flops / F32_OPS_PER_S * 1e3
+            t_o = flops / TF32X3_OPS_PER_S * 1e3
+            t_s = flops / F32_OPS_PER_S * 1e3
             for key, v in (("ms", ms), ("plain_ms", plain),
                            ("library_ms", lib), ("t_bytes", t_b),
-                           ("t_ops", t_o)):
+                           ("t_ops", t_o), ("t_simt", t_s), ("flops", flops)):
                 sums[key] += v
-            line += (f"; kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
-                     f"{lib:.3f} ms, bound {max(t_b, t_o):.4f} ms "
-                     f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+            line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s "
+                     f"effective), plain {plain:.3f} ms, library {lib:.3f} "
+                     f"ms, bound {max(t_b, t_o):.4f} ms at 3xTF32 "
+                     f"({max(t_b, t_s):.4f} at f32 SIMT; {flops / 1e9:.2f} "
+                     f"GFLOP, {nbytes / 1e6:.1f} MB)")
         print(line)
         check(rel < ELAN_REL_TOL, f"fused_elan differs from reference_elan "
                                   f"by {rel:.3g} of max |plain| at nodes "
                                   f"{blk.start}-{blk.trans}")
     if timed:
         print(f"fused_elan {det.spec.name} b{BATCH}@{SIZE} on {smi}, sums "
-              f"over {len(calls)} groups: kernel {sums['ms']:.3f} ms, plain "
-              f"{sums['plain_ms']:.3f} ms, library {sums['library_ms']:.3f} "
-              f"ms, bound {max(sums['t_bytes'], sums['t_ops']):.4f} ms")
+              f"over {len(calls)} groups: kernel {sums['ms']:.3f} ms "
+              f"({sums['flops'] / sums['ms'] / 1e9:.2f} TFLOP/s effective), "
+              f"plain {sums['plain_ms']:.3f} ms, library "
+              f"{sums['library_ms']:.3f} ms, bound "
+              f"{max(sums['t_bytes'], sums['t_ops']):.4f} ms at 3xTF32 "
+              f"(the kernels line's), "
+              f"{max(sums['t_bytes'], sums['t_simt']):.4f} ms at f32 SIMT")
     return worst_abs, worst_rel, sums
 
 
@@ -675,11 +690,22 @@ def main() -> None:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     b, k = valid.shape
     dense_ms = b * k * k / 2 * OPS_PER_IOU / F32_OPS_PER_S * 1e3
+    # the seq kernel's two passes timed apart (the wrapper's launch helpers,
+    # which count nothing)
+    mask = torch.empty(K.mask_words(b, k), dtype=torch.int64,
+                       device=boxes.device)
+    scan_keep = torch.empty_like(keep)
+    pass1 = cuda_ms(lambda: K.launch_mask(boxes, valid, thr, mask), 20)
+    pass2 = cuda_ms(lambda: K.launch_scan(mask, valid, scan_keep), 20)
+    check(torch.equal(scan_keep, want), "nms_keep's passes run apart differ "
+                                        "from the plain version")
+    entries[0].update(pass1_ms=pass1, pass2_ms=pass2, dense_bound_ms=dense_ms)
     print(f"nms_keep at the w6 path's inputs B={b} K={k}: kept "
-          f"{int(keep.sum())}, seq {entries[0]['ms']:.4f} ms, fixpoint "
+          f"{int(keep.sum())}, seq {entries[0]['ms']:.4f} ms (pass 1 "
+          f"{pass1:.4f}, pass 2 {pass2:.4f} apart), fixpoint "
           f"{entries[1]['ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms by {bound_by} (all K^2/2 pairs would bound it "
-          f"at {dense_ms:.5f} ms)")
+          f"{bound_ms:.5f} ms by {bound_by} (all K^2/2 pairs, what pass 1 "
+          f"computes, would bound it at {dense_ms:.5f} ms)")
     s = elan_sums
     entries.append({
         "name": "fused_elan", "route": "cuda",
@@ -689,6 +715,8 @@ def main() -> None:
         "max_rel_err": elan["rel"], "ms": s["ms"], "plain_ms": s["plain_ms"],
         "bound_ms": max(s["t_bytes"], s["t_ops"]),
         "bound_by": "operations" if s["t_ops"] >= s["t_bytes"] else "bytes",
+        "bound_rate": "3xTF32: 495/3 = 165 TFLOP/s, 3.35 TB/s",
+        "simt_bound_ms": max(s["t_bytes"], s["t_simt"]),
         "library_ms": s["library_ms"],
         "per": "sum over the 11 w6 groups of one b8@640 forward"})
     entries += probe_entries

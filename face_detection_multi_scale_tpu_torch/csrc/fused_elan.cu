@@ -7,39 +7,64 @@
 //   y1 = 3x3(b),  yk = 3x3(y_{k-1}) for k = 2..n_chain
 //   out = 1x1(concat(members)),  members a subset of {a, b, y1..yn}
 // with SAME zero padding of every 3x3 (pad 1). Activations are NCHW f32,
-// weights OIHW f32 (torch's layouts), biases (C,). act: silu, leaky 0.1 or
-// relu. Full f32 products and sums (no TF32, no tensor cores).
+// weights OHWI f32 (the wrapper's repack of torch's OIHW), biases (C,).
+// act: silu, leaky 0.1 or relu.
 //
 // What bounds it on the card: operations. The group's arithmetic (about
-// 56 GFLOP per 640x640 w6 image) over f32's 67 TFLOP/s is several times
-// its bytes (x, weights, out once) over 3.35 TB/s. The TPU kernel's point
-// was to keep every intermediate out of device memory; this design does
-// the same per output tile:
+// 56 GFLOP per 640x640 w6 image) is several times its bytes (x, weights,
+// out once) over 3.35 TB/s, at any rate the card offers for f32-accurate
+// products. The fastest such rate is the tensor cores' in 3xTF32: every f32
+// operand v is split into big = tf32(v) and small = tf32(v - big), and a
+// product is big*big + big*small + small*big (the small*small term, below
+// f32's last bit, is dropped): three TF32 products a multiply-add, so a
+// bound of 495 / 3 = 165 TFLOP/s. The design:
 //   * whole groups are computed for TH x TW output tiles (a persistent
 //     loop over (image, tile)); every intermediate is recomputed on the
 //     tile's halo (n_chain pixels for b, shrinking by one per chain conv),
 //     so no tile needs another's data and one launch does the group; only
-//     the halo's points inside the image are computed, and an image of at
-//     most 20 x 20 is one tile (no recompute);
-//   * the intermediates of a tile live in a workspace: the block's dynamic
-//     shared memory when they fit (227 KB), else a private slice of a
-//     scratch buffer in device memory (the wrapper allocates it; the
-//     executor never sees it) shared by a cluster of up to 8 blocks that
-//     split each conv's (position, channel) steps between them and meet at
-//     a cluster barrier after each conv, so groups with few tiles (the
-//     deep, narrow-spatial ones) still spread over the SMs;
-//   * SAME padding: every intermediate is stored as zero outside the image
-//     (TPU: mask_zero after every conv), and every read of the input or of
-//     an intermediate outside the image returns zero, so tiles at the four
-//     borders and ragged last tiles come out as the unfused convs do;
-//   * each conv is an implicit GEMM over K = (input channel, ky, kx) in
-//     OIHW order: a block step covers 128 positions x 64 output channels;
-//     the block gathers 16 K rows of the input window and of the weights
-//     into shared memory (12 KB, beside the workspace), then each thread
-//     accumulates 4 positions x 8 channels (32 f32 accumulators, one fmaf
-//     per K row in K order, the order of the plain convolution's sums).
-// Making it fast (tensor-core f32 emulation or bf16, double-buffered
-// cp.async/TMA staging, warp specialisation) is later work.
+//     the halo's points inside the image are computed. Larger tiles cut
+//     that recompute (PERF.md has the plan's A/B evidence);
+//   * the intermediates of a tile live in a private slice of a workspace in
+//     device memory (the wrapper allocates it; the executor never sees it),
+//     laid out channels innermost (HWC) within each region's window, so one
+//     K chunk of a position is one contiguous run. A cluster of up to 8
+//     blocks shares a slice and splits each conv's (position, channel) block
+//     steps, meeting at a cluster barrier after each conv, so groups with
+//     few tiles (the deep, narrow-spatial ones) still spread over the SMs;
+//   * SAME padding: every intermediate is stored as zero at its window's
+//     points outside the image (TPU: mask_zero after every conv), and every
+//     read of the input outside the image returns zero, so tiles at the
+//     four borders and ragged last tiles come out as the unfused convs do;
+//   * each conv is an implicit GEMM, M = positions, N = output channels,
+//     K = (source, input channel, tap), on the tensor cores: a block step
+//     covers 128 positions x 64 channels, two warpgroups of 64 x 64, each
+//     issuing wgmma m64n64k8 TF32 -> f32 (A from registers, B from shared
+//     memory), three per 3xTF32 product;
+//   * K runs in chunks of 32 channels of one tap of one source, so a chunk's
+//     addressing (tap offset, first channel) is set once per chunk and no
+//     element needs an integer division. Chunks go through a ring of
+//     shared-memory stages filled by cp.async: the next chunks are in
+//     flight while the tensor cores work on chunk k, one block barrier per
+//     chunk, one block an SM. A workspace source and the weights (which the
+//     wrapper hands over as OHWI, a tap's input channels contiguous) are
+//     copied 16 bytes at a time; the group input (NCHW, a chunk's channels
+//     a plane apart, zero-filled outside the image) 4 bytes at a time. A
+//     3x3 conv over a workspace window takes its K order as blocks of 32
+//     channels, then the nine taps, and stages A once a block: the whole
+//     window rows its 128 positions' taps reach (one contiguous run), which
+//     every tap then reads at its own offset, so A crosses from device
+//     memory once, not nine times. The weights land in wgmma's K-major
+//     core-matrix layout, and each thread splits the quads it copied into
+//     big and small parts in place once they land; A is split in registers
+//     as its fragments are loaded;
+//   * the tensor cores' accumulation does not round to nearest, so a
+//     chunk's products (12 wgmma steps into one register tile) are added
+//     into an f32 register tile with ordinary adds, and the next chunk
+//     starts from zero (the lesson of csrc/probe_mm.cu).
+// The result is not bit-identical to a f32 convolution; it is held within
+// 1e-5 of max |plain| per group (tests/test_fused_elan.py's bound).
+// Later work: TMA staging with a producer warp, wider block steps,
+// intermediates in distributed shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -50,15 +75,60 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMP = 4;                 // positions per thread
-constexpr int kMC = 8;                 // output channels per thread
-constexpr int kTileP = 32 * kMP;       // positions per block step
-constexpr int kTileC = kWarps * kMC;   // channels per block step
+constexpr int kBM = 128;  // positions per block step
+constexpr int kBN = 64;   // output channels per block step
+constexpr int kKC = 32;   // K rows per chunk: channels of one tap
+constexpr int kStages = 3;
+// A staging rows ([position][k]) of 36 floats: a warp's fragment loads (8
+// rows x 4 columns) hit 32 banks
+constexpr int kLdA = kKC + 4;
+constexpr int kAFloats = kBM * kLdA;  // a chunk's A stage
+// a 3x3 conv over a workspace window stages A once per 32 channels for all
+// nine taps: the rows of the window the block step's taps reach, up to
+// kHaloPoints points (two such stages)
+constexpr int kHaloPoints = 384;
+constexpr int kHaloFloats = kHaloPoints * kLdA;
+constexpr int kQuads = kKC / 4;                     // 16-byte runs a row
+constexpr int kRowsPerPass = kThreads / kQuads;     // workspace gather
+constexpr int kPasses = kBM / kRowsPerPass;
+// B (64 channels x 32 K rows) in wgmma's K-major layout without swizzle:
+// 8 x 4 core matrices of 8 channels x 4 K rows (128 bytes), channel
+// groups 128 bytes apart (SBO), K quads 1024 bytes apart (LBO); the big
+// parts, then the small parts
+constexpr int kBFloats = kBN * kKC;
+constexpr int kBQuadsPerThread = kBFloats / 4 / kThreads;
+constexpr int kBStageFloats = 2 * kBFloats;
+constexpr int kAAreaFloats = kStages * kAFloats > 2 * kHaloFloats
+                                 ? kStages * kAFloats
+                                 : 2 * kHaloFloats;
+// two warpgroups of m64n64 tiles; each warp stages 8 channels of B
+static_assert(kThreads == 256 && kBM == 128 && kBN == 64 && kKC == 32,
+              "the warp layouts below assume these sizes");
+constexpr int kSmemBytes = 4 * (kStages * kBStageFloats + kAAreaFloats);
 constexpr int kMaxChain = 8;
 constexpr int kMaxMembers = kMaxChain + 2;
 
 enum Act { kSilu = 0, kLeaky = 1, kRelu = 2 };
+
+// The profiling build (-DFDMS_ELAN_PROFILE; tools/elan_profile.py): the
+// first thread of each warpgroup adds the clocks of each phase into its
+// block's slots; the plain build compiles none of it.
+enum Phase {
+  kWait, kSplit, kBarrier, kIssue, kMath, kEpilogue, kSetup, kClusterSync,
+  kTotal, kChunks, kPhases
+};
+#ifdef FDMS_ELAN_PROFILE
+constexpr int kProfBlocks = 1024;
+__device__ unsigned long long g_prof[kProfBlocks][2][kPhases];
+#define PROF_T(t) const long long t = clock64()
+#define PROF_ADD(phase, v)                                       \
+  if ((threadIdx.x & 127) == 0 && blockIdx.x < kProfBlocks)      \
+  g_prof[blockIdx.x][threadIdx.x >> 7][phase] += (v)
+#else
+#define PROF_T(t)
+#define PROF_ADD(phase, v)
+#endif
+#define PROF_SINCE(phase, t) PROF_ADD(phase, clock64() - t)
 
 struct Params {
   const float* x;    // (B, cin, H, W) or, with pre, (B, pre_cin, sH, sW)
@@ -70,27 +140,27 @@ struct Params {
   long long ws_stride;
   // float offsets of a team's workspace regions, laid out by the wrapper
   // (ops/elan_kernel.py::workspace_layout): x (pre only), b, a (if a
-  // member), y1..yn, each holding its window
+  // member), y1..yn, each holding its window, channels innermost
   long long off_x, off_b, off_a, off_y[kMaxChain];
   int batch, h, w, cin, ccv, cch, cout, n_chain, pre_cin, pre_stride, act;
-  int n_members, tile_h, tile_w, use_smem, cluster;
+  int n_members, tile_h, tile_w, cluster;
   int members[kMaxMembers];  // -2 = a, -1 = b, k >= 0 = y_{k+1}
 };
 
-// A conv's input: `p` holds channel planes of a (rows x ld) window whose
-// element (0, 0) is domain point (oy, ox); the domain is dh x dw. `w` points
-// at the OIHW weights of this input's channels, `w_co` floats apart from one
-// output channel to the next. An image source (`bounded`) is read only
-// inside its domain, zero outside; a workspace window always covers every
-// tap its consumer reads and holds zeros outside the domain already, so it
-// is read without bounds checks.
+// A conv's input. An image source is the NCHW input of one image (`plane`
+// floats a channel, rows of `ld`), read inside its dh x dw domain only and
+// as zero outside. A workspace source is an HWC window whose element (0, 0)
+// is domain point (oy, ox), rows of `ld` points, `cin` floats a point; it
+// covers every tap its consumer reads and holds zeros outside the domain
+// already. `w` points at the OHWI weights of this input's channels, `w_co`
+// floats apart from one output channel to the next.
 struct Src {
   const float* p;
   long long plane;
   int oy, ox, ld, dh, dw, cin;
   const float* w;
   long long w_co;
-  bool bounded;
+  bool image;
 };
 
 __device__ __forceinline__ float activate(float v, int act) {
@@ -99,163 +169,478 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v > 0.0f ? v : 0.0f;
 }
 
-// Shared-memory staging of one K chunk of the implicit GEMM: kKC rows of
-// the gathered input (one per (input channel, tap), kTileP positions) and
-// of the weights (kTileC output channels).
-constexpr int kKC = 16;
-struct Stage {
-  float a[kKC][kTileP];
-  float b[kKC][kTileC];
-};
-__shared__ __align__(16) Stage g_st;
+__device__ __forceinline__ unsigned smem_addr(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-// acc[i][j] += sum over k of in(k, position i) * w(channel j, k), k running
-// over the source's (input channel, ky, kx) in OIHW order, one k at a time
-// (the order of the plain convolution's sums). The block gathers kKC rows of
-// the input window and of the weights into shared memory, then each thread
-// runs its 4 positions x 8 channels from there.
-//   lp, ly, lx, lok: the position this thread gathers (its output point,
-//     whether it is a real one);
-//   co0: the first of the 8 channels of this thread's warp, c_out channels.
-template <int K, bool kBounded>
-__device__ __forceinline__ void accumulate(const Src& s, int ly,
-                                           int lx, bool lok, int co0,
-                                           int c_out, int ct0,
-                                           float (&acc)[kMP][kMC]) {
-  constexpr int KK = K * K;
-  const int n_k = s.cin * KK;
-  const int lane = threadIdx.x & 31;
-  const int lp = threadIdx.x % kTileP;           // gather: position
-  const int lk = threadIdx.x / kTileP;           // gather: first k row
-  const int wc = threadIdx.x / (kThreads / kTileC);  // weights: channel
-  const int wk = (threadIdx.x % (kThreads / kTileC)) * (kKC * kTileC / kThreads);
-  const long long base =
-      lok ? static_cast<long long>(ly - s.oy) * s.ld + (lx - s.ox) : 0;
-  const float* wrow = s.w + (ct0 + wc) * s.w_co;
-  const bool wok = ct0 + wc < c_out;
-  for (int k0 = 0; k0 < n_k; k0 += kKC) {
-    __syncthreads();  // the previous chunk's readers are done
+// 4 or 16 bytes from global to shared memory, zeros where !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest `kStages - 2` has landed
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+
+// v rounded to TF32, to nearest with ties away from zero: the bits of
+// cvt.rna.tf32.f32, by an integer add and a mask on the full-rate pipes
+// (the conversion instruction runs at a quarter of their rate)
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = big + small, each TF32 (ops/elan_kernel.py::tf32_split)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - __uint_as_float(big));
+}
+
+// wgmma's shared-memory matrix descriptor, no swizzle: start address,
+// leading (K) and stride (channel group) byte offsets, each >> 4
+__device__ __forceinline__ uint64_t b_desc(const float* p) {
+  return static_cast<uint64_t>((smem_addr(p) >> 4) & 0x3fff) |
+         static_cast<uint64_t>(1024 >> 4) << 16 |
+         static_cast<uint64_t>(128 >> 4) << 32;
+}
+
+// d (+)= A B over 8 K rows for the warpgroup's 64 positions x 64 channels:
+// A from registers (rows 16 warp + gid (+8), K columns tig (+4) of the
+// warp's slice), B through its descriptor; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// Where the K chunks of a conv stand: source, first channel, tap (ky, kx).
+// The K order is sources, then blocks of 32 channels, then taps.
+struct Cursor {
+  int s, ky, kx, ci0;
+};
+
+__device__ __forceinline__ void advance(Cursor& c, const Src* srcs, int n_src,
+                                        int k) {
+  if (++c.kx < k) return;
+  c.kx = 0;
+  if (++c.ky < k) return;
+  c.ky = 0;
+  c.ci0 += kKC;
+  if (c.ci0 < srcs[c.s].cin) return;
+  c.ci0 = 0;
+  if (++c.s == n_src) c.s = 0;  // a rotated order wraps around
+}
+
+// The cursor at chunk `idx` of the conv's K order, once per block step.
+__device__ Cursor cursor_at(const Src* srcs, int n_src, int k, int idx) {
+  Cursor c = {0, 0, 0, 0};
+  for (int s = 0; s < n_src; ++s) {
+    const int n = k * k * ((srcs[s].cin + kKC - 1) / kKC);
+    if (idx < n) {
+      const int tap = idx % (k * k);
+      c = {s, tap / k, tap % k, idx / (k * k) * kKC};
+      break;
+    }
+    idx -= n;
+  }
+  return c;
+}
+
+// The gathering geometry of one block step, set once per step: the tap
+// (0, 0) input point of each position this thread copies, in domain
+// coordinates, and whether the position is a real one. Workspace chunks:
+// kPasses positions (tid / kQuads + kRowsPerPass i) x channels 4 (tid %
+// kQuads) .. +3; image chunks: 2 positions (16 warp + 8 i + lane % 8) x K
+// rows lane / 8 + 4 j.
+struct Gather {
+  int hy[kPasses], hx[kPasses];
+  bool hok[kPasses];
+  int iy[2], ix[2];
+  bool iok[2];
+};
+
+// The weight quads a thread stages: channel 8 warp + lane % 8 and K quads
+// lane / 8 + 4 i, so 8 lanes fill one core matrix (128 contiguous bytes)
+// and a channel's quads are read 64 bytes at a time
+__device__ __forceinline__ int b_channel() {
+  return 8 * (threadIdx.x >> 5) + (threadIdx.x & 7);
+}
+__device__ __forceinline__ int b_quad(int i) {
+  return (threadIdx.x & 31) / 8 + 4 * i;
+}
+// float offset of (channel n, K quad kq) in the B layout
+__device__ __forceinline__ int b_offset(int n, int kq) {
+  return (kq * (kBN / 8) + n / 8) * 32 + (n % 8) * 4;
+}
+
+// The A rows a block step's 3x3 taps reach in a workspace window: from
+// window row r0, n_pts points (whole rows of ld points).
+struct Halo {
+  int r0, n_pts;
+};
+
+// Stage chunk `c` of the block step: B (64 channels x 32 K rows, core
+// matrices) into `sB` and, unless `sA` is null, A into `sA`: with `halo`
+// the block of 32 channels of the region's points ([point][k]), else the
+// chunk's 128 positions x 32 K rows ([position][k]).
+__device__ __forceinline__ void load_chunk(float* sA, float* sB,
+                                           const Src* srcs, const Cursor& c,
+                                           const Gather& g, const Halo* halo,
+                                           int k, int ct0, int c_out) {
+  const int tid = threadIdx.x;
+  const Src& S = srcs[c.s];
+  if (sA == nullptr) {
+    // a tap after the first of a channel block: its A is staged already
+  } else if (halo != nullptr) {
+    // whole rows, so the region is one run of points
+    const float* base =
+        S.p + static_cast<long long>(halo->r0) * S.ld * S.cin + c.ci0;
+    const bool vec =
+        S.cin % 4 == 0 && (reinterpret_cast<uintptr_t>(S.p) & 15) == 0;
+    for (int q = tid; q < halo->n_pts * kQuads; q += kThreads) {
+      const int pnt = q / kQuads, qq = (q % kQuads) * 4;
+      float* dst = sA + pnt * kLdA + qq;
+      const float* src = base + static_cast<long long>(pnt) * S.cin + qq;
+      if (vec && c.ci0 + qq + 4 <= S.cin) {
+        cp_async16(dst, src, true);
+      } else {
 #pragma unroll
-    for (int r = lk; r < kKC; r += kThreads / kTileP) {
-      const int k = k0 + r;
-      float v = 0.0f;
-      if (k < n_k && lok) {
-        const int ci = k / KK, tap = k % KK;
-        const int ky = tap / K, kx = tap % K;
-        if (kBounded) {
-          const int y = ly + ky, x = lx + kx;
-          if (y >= 0 && y < s.dh && x >= 0 && x < s.dw)
-            v = s.p[ci * s.plane + static_cast<long long>(y - s.oy) * s.ld +
-                    (x - s.ox)];
-        } else {
-          v = s.p[ci * s.plane + base + ky * s.ld + kx];
-        }
+        for (int e = 0; e < 4; ++e)
+          dst[e] = c.ci0 + qq + e < S.cin ? __ldcg(src + e) : 0.0f;
       }
-      g_st.a[r][lp] = v;
     }
+  } else if (S.image) {
+    // 8 lanes read 8 neighbouring positions of one channel plane
+    const int lane = tid & 31;
 #pragma unroll
-    for (int r = 0; r < kKC * kTileC / kThreads; ++r) {
-      const int k = k0 + wk + r;
-      g_st.b[wk + r][wc] = (wok && k < n_k) ? __ldg(wrow + k) : 0.0f;
+    for (int i = 0; i < 2; ++i) {
+      const int p = (tid >> 5) * 16 + 8 * i + lane % 8;
+      const int y = g.iy[i] + c.ky, x = g.ix[i] + c.kx;
+      const bool in = g.iok[i] && y >= 0 && y < S.dh && x >= 0 && x < S.dw;
+      const float* base =
+          S.p + (in ? static_cast<long long>(y) * S.ld + x : 0);
+#pragma unroll
+      for (int j = 0; j < kKC / 4; ++j) {
+        const int r = lane / 8 + 4 * j;
+        const int ci = c.ci0 + r;
+        const bool ok = in && ci < S.cin;
+        cp_async4(sA + p * kLdA + r, ok ? base + ci * S.plane : S.p, ok);
+      }
     }
-    __syncthreads();
-    const int n = min(kKC, n_k - k0);
-    for (int r = 0; r < n; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(&g_st.a[r][lane * kMP]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&g_st.b[r][co0]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&g_st.b[r][co0 + 4]);
-      const float av[kMP] = {a.x, a.y, a.z, a.w};
-      const float bv[kMC] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  } else {
+    const int q = (tid % kQuads) * 4;
+    const int ci = c.ci0 + q;
+    const bool vec = S.cin % 4 == 0 && (reinterpret_cast<uintptr_t>(S.p) & 15) == 0;
 #pragma unroll
-      for (int i = 0; i < kMP; ++i)
+    for (int i = 0; i < kPasses; ++i) {
+      const int p = tid / kQuads + kRowsPerPass * i;
+      float* dst = sA + p * kLdA + q;
+      const float* src =
+          S.p + (static_cast<long long>(g.hy[i] + c.ky - S.oy) * S.ld +
+                 (g.hx[i] + c.kx - S.ox)) * S.cin + ci;
+      if (vec && ci + 4 <= S.cin) {
+        cp_async16(dst, g.hok[i] ? src : S.p, g.hok[i]);
+      } else {
+        // channels that are not a whole, aligned quad: plain L2 loads (the
+        // workspace is written by other blocks of the cluster, so never L1)
 #pragma unroll
-        for (int j = 0; j < kMC; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int e = 0; e < 4; ++e)
+          dst[e] = g.hok[i] && ci + e < S.cin ? __ldcg(src + e) : 0.0f;
+      }
     }
   }
+  // weights (OHWI: a tap's input channels contiguous), 16 bytes of a core
+  // matrix row a copy
+  const int n = b_channel();
+  const int co = ct0 + n;
+  const bool cok = co < c_out;
+  const float* wrow =
+      S.w + (cok ? co * S.w_co : 0) + (c.ky * k + c.kx) * S.cin;
+  const bool wvec = S.w_co % 4 == 0 && S.cin % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(S.w) & 15) == 0;
+#pragma unroll
+  for (int i = 0; i < kBQuadsPerThread; ++i) {
+    const int kq = b_quad(i);
+    const int ci = c.ci0 + 4 * kq;
+    float* dst = sB + b_offset(n, kq);
+    if (wvec && ci + 4 <= S.cin) {
+      cp_async16(dst, cok ? wrow + ci : S.w, cok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = cok && ci + e < S.cin;
+        cp_async4(dst + e, ok ? wrow + ci + e : S.w, ok);
+      }
+    }
+  }
+}
+
+// Split the weight quads this thread staged into `sB` (landed) into big
+// parts in place and small parts in the second B region, then make them
+// visible to the tensor cores' reads (the async proxy).
+__device__ __forceinline__ void split_b(float* sB) {
+  const int n = b_channel();
+#pragma unroll
+  for (int i = 0; i < kBQuadsPerThread; ++i) {
+    float4* big = reinterpret_cast<float4*>(sB + b_offset(n, b_quad(i)));
+    float4* small = big + kBFloats / 4;
+    const float4 v = *big;
+    uint32_t b[4], s[4];
+    split_tf32(v.x, b[0], s[0]);
+    split_tf32(v.y, b[1], s[1]);
+    split_tf32(v.z, b[2], s[2]);
+    split_tf32(v.w, b[3], s[3]);
+    *big = make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]),
+                       __uint_as_float(b[2]), __uint_as_float(b[3]));
+    *small = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),
+                         __uint_as_float(s[2]), __uint_as_float(s[3]));
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The products of one staged chunk (its weights split): acc = A(the
+// warpgroup's 64 positions) B over the chunk's 32 K rows, 3xTF32, the
+// small terms first; `a0` and `a1` are this thread's staged A rows gid and
+// gid + 8 of its warp, from column tig. Returns when the tensor cores are
+// done with acc.
+__device__ __forceinline__ void mma_chunk(const float* a0, const float* a1,
+                                          const float* sB, float (&acc)[32]) {
+  uint32_t ab[kKC / 8][4], as[kKC / 8][4];
+#pragma unroll
+  for (int s = 0; s < kKC / 8; ++s) {
+    // a0 (row gid, column tig), a1 row gid + 8, a2/a3 column tig + 4
+    split_tf32(a0[8 * s], ab[s][0], as[s][0]);
+    split_tf32(a1[8 * s], ab[s][1], as[s][1]);
+    split_tf32(a0[8 * s + 4], ab[s][2], as[s][2]);
+    split_tf32(a1[8 * s + 4], ab[s][3], as[s][3]);
+  }
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int s = 0; s < kKC / 8; ++s) {
+    const float* big = sB + 2 * s * (kBN / 8) * 32;
+    wgmma_tf32(acc, as[s], b_desc(big), s > 0);
+    wgmma_tf32(acc, ab[s], b_desc(big + kBFloats), 1);
+    wgmma_tf32(acc, ab[s], b_desc(big), 1);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // One conv stage over the output window (oy, ox, oh x ow) of a domain
 // dh x dw with `c_out` channels: sum over `srcs`, + bias, act. Only the
 // window's points inside the domain are computed. With `dst_ld` > 0 the
-// window is stored whole into `dst` (channel planes of oh x ow), zero at
-// its points outside the domain (the SAME padding its 3x3 consumer reads);
-// with dst_ld == 0 the points are stored into the NCHW image `dst` (planes
-// dh x dw). The (position, channel) steps are dealt out over the `n_ranks`
-// blocks of the cluster; every thread of the block takes part.
-__device__ void conv_stage(const Src* srcs, int n_src, int k, int stride,
-                           const float* bias, int act, int oy, int ox, int oh,
-                           int ow, int dh, int dw, int c_out, float* dst,
-                           int dst_ld, int rank, int n_ranks) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// window is stored whole into `dst` (HWC, rows of oh x ow points, c_out
+// floats a point), zero at its points outside the domain (the SAME padding
+// its 3x3 consumer reads); with dst_ld == 0 the points are stored into the
+// NCHW image `dst` (planes dh x dw). The (position, channel) block steps
+// are dealt out over the `n_ranks` blocks of the cluster; every thread of
+// the block takes part.
+__device__ void conv_stage(float* smem, const Src* srcs, int n_src, int k,
+                           int stride, const float* bias, int act, int oy,
+                           int ox, int oh, int ow, int dh, int dw, int c_out,
+                           float* dst, int dst_ld, int rank, int n_ranks) {
+  PROF_T(t_setup);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
   const int y0 = max(oy, 0), y1 = min(oy + oh, dh);
   const int x0 = max(ox, 0), x1 = min(ox + ow, dw);
   const int in_w = max(x1 - x0, 0);
   const int n_pos = max(y1 - y0, 0) * in_w;
   if (dst_ld > 0 && n_pos < oh * ow) {
     // the window's points outside the domain
-    const long long n = static_cast<long long>(c_out) * oh * ow;
-    for (long long e = rank * kThreads + threadIdx.x; e < n;
-         e += static_cast<long long>(n_ranks) * kThreads) {
-      const int pt = static_cast<int>(e % (oh * ow));
+    for (int pt = rank * kThreads + tid; pt < oh * ow;
+         pt += n_ranks * kThreads) {
       const int gy = oy + pt / ow, gx = ox + pt % ow;
-      if (gy < 0 || gy >= dh || gx < 0 || gx >= dw) dst[e] = 0.0f;
-    }
-  }
-  const int n_pt = (n_pos + kTileP - 1) / kTileP;
-  const int n_ct = (c_out + kTileC - 1) / kTileC;
-  const int pad = k / 2;
-  for (int t = rank; t < n_pt * n_ct; t += n_ranks) {
-    const int pt = t / n_ct, ct = t % n_ct;
-    // the point this thread gathers, and the tap (0, 0) input point of it
-    const int lpos = pt * kTileP + threadIdx.x % kTileP;
-    const bool lok = lpos < n_pos;
-    const int ly = (y0 + (lok ? lpos / in_w : 0)) * stride - pad;
-    const int lx = (x0 + (lok ? lpos % in_w : 0)) * stride - pad;
-    const int ct0 = ct * kTileC, co0 = warp * kMC;
-    float acc[kMP][kMC];
-#pragma unroll
-    for (int i = 0; i < kMP; ++i)
-#pragma unroll
-      for (int j = 0; j < kMC; ++j) acc[i][j] = 0.0f;
-    for (int s = 0; s < n_src; ++s) {
-      const bool b = srcs[s].bounded;
-      if (k == 1 && b)
-        accumulate<1, true>(srcs[s], ly, lx, lok, co0, c_out, ct0, acc);
-      else if (k == 1)
-        accumulate<1, false>(srcs[s], ly, lx, lok, co0, c_out, ct0, acc);
-      else if (b)
-        accumulate<3, true>(srcs[s], ly, lx, lok, co0, c_out, ct0, acc);
-      else
-        accumulate<3, false>(srcs[s], ly, lx, lok, co0, c_out, ct0, acc);
-    }
-#pragma unroll
-    for (int i = 0; i < kMP; ++i) {
-      const int pos = pt * kTileP + lane * kMP + i;
-      if (pos >= n_pos) continue;
-      const int gy = y0 + pos / in_w, gx = x0 + pos % in_w;
-#pragma unroll
-      for (int j = 0; j < kMC; ++j) {
-        const int co = ct0 + co0 + j;
-        if (co >= c_out) continue;
-        const float v = activate(acc[i][j] + bias[co], act);
-        if (dst_ld > 0)
-          dst[static_cast<long long>(co) * oh * ow +
-              static_cast<long long>(gy - oy) * dst_ld + (gx - ox)] = v;
-        else
-          dst[static_cast<long long>(co) * dh * dw +
-              static_cast<long long>(gy) * dw + gx] = v;
+      if (gy < 0 || gy >= dh || gx < 0 || gx >= dw) {
+        float* d = dst + static_cast<long long>(pt) * c_out;
+        for (int c = 0; c < c_out; ++c) d[c] = 0.0f;
       }
     }
   }
+  const int n_pt = (n_pos + kBM - 1) / kBM;
+  const int n_ct = (c_out + kBN - 1) / kBN;
+  const int pad = k / 2, taps = k * k;
+  int n_chunks = 0;
+  for (int s = 0; s < n_src; ++s)
+    n_chunks += taps * ((srcs[s].cin + kKC - 1) / kKC);
+  // a 3x3 conv over one workspace window stages A once for its nine taps
+  // when the rows a block step reaches fit a halo stage
+  const Src& S0 = srcs[0];
+  const bool use_halo =
+      k == 3 && n_src == 1 && stride == 1 && !S0.image && in_w > 0 &&
+      ((kBM + in_w - 1) / in_w + 3) * S0.ld <= kHaloPoints;
+  float* const sA0 = smem + kStages * kBStageFloats;  // the A area
+  PROF_SINCE(kSetup, t_setup);
+  for (int t = rank; t < n_pt * n_ct; t += n_ranks) {
+    PROF_T(t_step);
+    const int pt = t / n_ct, ct = t % n_ct;
+    const int ct0 = ct * kBN;
+    Gather g;
+#pragma unroll
+    for (int i = 0; i < kPasses; ++i) {
+      const int pos = pt * kBM + tid / kQuads + kRowsPerPass * i;
+      g.hok[i] = pos < n_pos;
+      const int p = g.hok[i] ? pos : 0;
+      g.hy[i] = (y0 + p / in_w) * stride - pad;
+      g.hx[i] = (x0 + p % in_w) * stride - pad;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int pos = pt * kBM + (tid >> 5) * 16 + 8 * i + (tid & 7);
+      g.iok[i] = pos < n_pos;
+      const int p = g.iok[i] ? pos : 0;
+      g.iy[i] = (y0 + p / in_w) * stride - pad;
+      g.ix[i] = (x0 + p % in_w) * stride - pad;
+    }
+    // the halo region of this step and, at tap (0, 0), the region points
+    // of this thread's A rows gid and gid + 8
+    Halo halo = {0, 0};
+    int hb[2] = {0, 0};
+    if (use_halo) {
+      const int p_lo = pt * kBM, p_hi = min(p_lo + kBM, n_pos) - 1;
+      halo.r0 = y0 + p_lo / in_w - 1 - S0.oy;
+      halo.n_pts = (p_hi / in_w - p_lo / in_w + 3) * S0.ld;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int pos = p_lo + 16 * warp + gid + 8 * h;
+        const int p = pos < n_pos ? pos : p_lo;
+        hb[h] = (y0 + p / in_w - 1 - S0.oy - halo.r0) * S0.ld +
+                (x0 + p % in_w - 1 - S0.ox);
+      }
+    }
+    float tot[32], acc[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) tot[q] = acc[q] = 0.0f;
+
+    PROF_SINCE(kSetup, t_step);
+    __syncthreads();  // the previous step's readers of the stages are done
+    // the ring: chunk c's weights in B stage c % kStages and its A in A
+    // stage c % kStages, or with the halo the block of 32 channels of
+    // chunks c - c % 9 .. + 8 in halo stage c / 9 % 2, loaded with the
+    // block's first tap; kStages - 1 chunks in flight ahead of the one the
+    // tensor cores work on; one group per chunk (empty past the last), so
+    // a fixed wait count finds chunk c landed. Each block starts at
+    // another block of channels (a sum in another order), so the SMs do
+    // not all read the same weights at once.
+    Cursor ahead = cursor_at(srcs, n_src, k, blockIdx.x % n_chunks / taps *
+                                                 taps);
+    auto issue = [&](int c) {
+      float* sA = nullptr;
+      if (!use_halo)
+        sA = sA0 + (c % kStages) * kAFloats;
+      else if (c % taps == 0)
+        sA = sA0 + (c / taps % 2) * kHaloFloats;
+      load_chunk(sA, smem + (c % kStages) * kBStageFloats, srcs, ahead, g,
+                 use_halo ? &halo : nullptr, k, ct0, c_out);
+      advance(ahead, srcs, n_src, k);
+    };
+    for (int c = 0; c < kStages - 1; ++c) {
+      if (c < n_chunks) issue(c);
+      cp_async_commit();
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      PROF_T(t0);
+      cp_async_wait_ring();
+      PROF_T(t1);
+      float* sB = smem + (c % kStages) * kBStageFloats;
+      split_b(sB);
+      PROF_T(t2);
+      __syncthreads();  // chunk c landed and split; chunk c - 1 is done
+      PROF_T(t3);
+      if (c + kStages - 1 < n_chunks) issue(c + kStages - 1);
+      cp_async_commit();
+      PROF_T(t4);
+      const float *a0, *a1;
+      if (use_halo) {
+        const float* base = sA0 + (c / taps % 2) * kHaloFloats + tig;
+        const int off = (c % taps / 3) * S0.ld + c % 3;
+        a0 = base + (hb[0] + off) * kLdA;
+        a1 = base + (hb[1] + off) * kLdA;
+      } else {
+        a0 = sA0 + (c % kStages) * kAFloats + (16 * warp + gid) * kLdA + tig;
+        a1 = a0 + 8 * kLdA;
+      }
+      mma_chunk(a0, a1, sB, acc);
+#pragma unroll
+      for (int q = 0; q < 32; ++q) tot[q] += acc[q];
+      PROF_ADD(kWait, t1 - t0);
+      PROF_ADD(kSplit, t2 - t1);
+      PROF_ADD(kBarrier, t3 - t2);
+      PROF_ADD(kIssue, t4 - t3);
+      PROF_SINCE(kMath, t4);
+      PROF_ADD(kChunks, 1);
+    }
+    PROF_T(t_epi);
+
+    // epilogue: element 4 j + 2 h + e of the tile is (row 16 warp + gid +
+    // 8 h, column 8 j + 2 tig + e)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pos = pt * kBM + 16 * warp + gid + 8 * h;
+      if (pos >= n_pos) continue;
+      const int gy = y0 + pos / in_w, gx = x0 + pos % in_w;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int co = ct0 + 8 * j + 2 * tig;
+        if (co >= c_out) continue;
+        const bool two = co + 1 < c_out;
+        const float v0 = activate(tot[4 * j + 2 * h] + bias[co], act);
+        const float v1 =
+            two ? activate(tot[4 * j + 2 * h + 1] + bias[co + 1], act) : 0.0f;
+        if (dst_ld > 0) {
+          // HWC: the two channels side by side
+          float* d = dst + (static_cast<long long>(gy - oy) * dst_ld +
+                            (gx - ox)) * c_out + co;
+          if (two && (reinterpret_cast<uintptr_t>(d) & 7) == 0) {
+            *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+          } else {
+            d[0] = v0;
+            if (two) d[1] = v1;
+          }
+        } else {
+          const long long plane = static_cast<long long>(dh) * dw;
+          float* d = dst + co * plane + static_cast<long long>(gy) * dw + gx;
+          d[0] = v0;
+          if (two) d[plane] = v1;
+        }
+      }
+    }
+    PROF_SINCE(kEpilogue, t_epi);
+  }
 }
 
-__device__ __forceinline__ Src window(const float* p, int oy, int ox, int rows,
-                                      int cols, int dh, int dw, int cin,
-                                      const float* w, long long w_co) {
+__device__ __forceinline__ Src window(const float* p, int oy, int ox, int cols,
+                                      int dh, int dw, int cin, const float* w,
+                                      long long w_co) {
   Src s;
   s.p = p;
-  s.plane = static_cast<long long>(rows) * cols;
+  s.plane = 0;
   s.oy = oy;
   s.ox = ox;
   s.ld = cols;
@@ -264,26 +649,38 @@ __device__ __forceinline__ Src window(const float* p, int oy, int ox, int rows,
   s.cin = cin;
   s.w = w;
   s.w_co = w_co;
-  s.bounded = false;
+  s.image = false;
+  return s;
+}
+
+__device__ __forceinline__ Src image(const float* p, int dh, int dw, int cin,
+                                     const float* w, long long w_co) {
+  Src s = window(p, 0, 0, dw, dh, dw, cin, w, w_co);
+  s.plane = static_cast<long long>(dh) * dw;
+  s.image = true;
   return s;
 }
 
 // Every block of the cluster at this point, and their workspace writes
 // visible to each other (release/acquire at cluster scope).
 __device__ __forceinline__ void sync_cluster(int n_ranks) {
+  PROF_T(t);
   if (n_ranks > 1)
     cg::this_cluster().sync();
   else
     __syncthreads();
+  PROF_SINCE(kClusterSync, t);
 }
 
-__global__ void __launch_bounds__(kThreads) fused_elan_kernel(const Params P) {
+__global__ void __launch_bounds__(kThreads)
+fused_elan_kernel(const Params P) {
   extern __shared__ __align__(16) float smem[];
+  PROF_T(t_kernel);
   // a cluster of `n_ranks` blocks shares each tile and its workspace
   const int n_ranks = P.cluster;
   const int rank = static_cast<int>(blockIdx.x) % n_ranks;
   const long long team = blockIdx.x / n_ranks, n_teams = gridDim.x / n_ranks;
-  float* ws = P.use_smem ? smem : P.ws + team * P.ws_stride;
+  float* ws = P.ws + team * P.ws_stride;
   const int TH = P.tile_h, TW = P.tile_w, p = P.n_chain;
   const int EH = TH + 2 * p, EW = TW + 2 * p;  // the b window
   const int H = P.h, W = P.w;
@@ -314,29 +711,27 @@ __global__ void __launch_bounds__(kThreads) fused_elan_kernel(const Params P) {
       const int s = P.pre_stride;
       const float* img = P.x + static_cast<long long>(n) * P.pre_cin *
                                    (static_cast<long long>(H) * s) * (W * s);
-      src[0] = window(img, 0, 0, H * s, W * s, H * s, W * s, P.pre_cin, P.wp,
-                      static_cast<long long>(P.pre_cin) * 9);
-      src[0].bounded = true;
-      conv_stage(src, 1, 3, s, P.bp, P.act, ty - p, tx - p, EH, EW, H, W,
-                 P.cin, xbuf, EW, rank, n_ranks);
+      src[0] = image(img, H * s, W * s, P.pre_cin, P.wp,
+                     static_cast<long long>(P.pre_cin) * 9);
+      conv_stage(smem, src, 1, 3, s, P.bp, P.act, ty - p, tx - p, EH, EW, H,
+                 W, P.cin, xbuf, EW, rank, n_ranks);
       sync_cluster(n_ranks);
-      xs = window(xbuf, ty - p, tx - p, EH, EW, H, W, P.cin, nullptr, P.cin);
+      xs = window(xbuf, ty - p, tx - p, EW, H, W, P.cin, nullptr, P.cin);
     } else {
       const float* img =
           P.x + static_cast<long long>(n) * P.cin * static_cast<long long>(H) * W;
-      xs = window(img, 0, 0, H, W, H, W, P.cin, nullptr, P.cin);
-      xs.bounded = true;
+      xs = image(img, H, W, P.cin, nullptr, P.cin);
     }
 
     // the two 1x1 branches
     src[0] = xs;
     src[0].w = P.wb;
-    conv_stage(src, 1, 1, 1, P.bb, P.act, ty - p, tx - p, EH, EW, H, W, P.ccv,
-               bbuf, EW, rank, n_ranks);
+    conv_stage(smem, src, 1, 1, 1, P.bb, P.act, ty - p, tx - p, EH, EW, H, W,
+               P.ccv, bbuf, EW, rank, n_ranks);
     if (has_a) {
       src[0].w = P.wa;
-      conv_stage(src, 1, 1, 1, P.ba, P.act, ty, tx, TH, TW, H, W, P.ccv, abuf,
-                 TW, rank, n_ranks);
+      conv_stage(smem, src, 1, 1, 1, P.ba, P.act, ty, tx, TH, TW, H, W, P.ccv,
+                 abuf, TW, rank, n_ranks);
     }
     sync_cluster(n_ranks);
 
@@ -345,10 +740,11 @@ __global__ void __launch_bounds__(kThreads) fused_elan_kernel(const Params P) {
       const int o_in = p - kk, o = o_in - 1;
       const int c_in = kk == 0 ? P.ccv : P.cch;
       src[0] = window(kk == 0 ? bbuf : ybuf[kk - 1], ty - o_in, tx - o_in,
-                      TH + 2 * o_in, TW + 2 * o_in, H, W, c_in, P.wc[kk],
+                      TW + 2 * o_in, H, W, c_in, P.wc[kk],
                       static_cast<long long>(c_in) * 9);
-      conv_stage(src, 1, 3, 1, P.bc[kk], P.act, ty - o, tx - o, TH + 2 * o,
-                 TW + 2 * o, H, W, P.cch, ybuf[kk], TW + 2 * o, rank, n_ranks);
+      conv_stage(smem, src, 1, 3, 1, P.bc[kk], P.act, ty - o, tx - o,
+                 TH + 2 * o, TW + 2 * o, H, W, P.cch, ybuf[kk], TW + 2 * o,
+                 rank, n_ranks);
       sync_cluster(n_ranks);
     }
 
@@ -357,37 +753,52 @@ __global__ void __launch_bounds__(kThreads) fused_elan_kernel(const Params P) {
     for (int m = 0; m < P.n_members; ++m) {
       const int id = P.members[m];
       if (id == -2) {
-        src[m] = window(abuf, ty, tx, TH, TW, H, W, P.ccv, P.wt + off, 0);
+        src[m] = window(abuf, ty, tx, TW, H, W, P.ccv, P.wt + off, 0);
         off += P.ccv;
       } else if (id == -1) {
-        src[m] = window(bbuf, ty - p, tx - p, EH, EW, H, W, P.ccv, P.wt + off,
-                        0);
+        src[m] = window(bbuf, ty - p, tx - p, EW, H, W, P.ccv, P.wt + off, 0);
         off += P.ccv;
       } else {
         const int o = p - id - 1;
-        src[m] = window(ybuf[id], ty - o, tx - o, TH + 2 * o, TW + 2 * o, H, W,
-                        P.cch, P.wt + off, 0);
+        src[m] = window(ybuf[id], ty - o, tx - o, TW + 2 * o, H, W, P.cch,
+                        P.wt + off, 0);
         off += P.cch;
       }
     }
     for (int m = 0; m < P.n_members; ++m) src[m].w_co = off;
     float* out = P.out + static_cast<long long>(n) * P.cout *
                              static_cast<long long>(H) * W;
-    conv_stage(src, P.n_members, 1, 1, P.bt, P.act, ty, tx, TH, TW, H, W,
-               P.cout, out, 0, rank, n_ranks);
+    conv_stage(smem, src, P.n_members, 1, 1, P.bt, P.act, ty, tx, TH, TW, H,
+               W, P.cout, out, 0, rank, n_ranks);
   }
+  PROF_SINCE(kTotal, t_kernel);
 }
 
 }  // namespace
 
+#ifdef FDMS_ELAN_PROFILE
+// The profiling build's counters: copies blocks x 2 x kPhases of them into
+// `out` (at most kProfBlocks blocks), then zeroes them. Returns the number
+// of phases a block slot holds, or a negative CUDA error.
+extern "C" int fdms_fused_elan_profile(unsigned long long* out, int blocks) {
+  const size_t n = sizeof(unsigned long long) * 2 * kPhases *
+                   static_cast<size_t>(blocks < kProfBlocks ? blocks
+                                                            : kProfBlocks);
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_prof, n);
+  static unsigned long long zeros[kProfBlocks][2][kPhases];
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_prof, zeros, sizeof(zeros));
+  return err == cudaSuccess ? static_cast<int>(kPhases) : -static_cast<int>(err);
+}
+#endif
+
 // Launches one group on `stream` of `device`; returns cudaGetLastError()
-// (0 on success). ptrs: x, out, workspace (may be null with use_smem), wp,
-// bp (null without pre), wa, ba, wb, bb, wt, bt, then n_chain pairs
-// (w_k, b_k). ints: batch, h, w, cin, ccv, cch, cout, n_chain, pre_cin,
-// pre_stride, act, tile_h, tile_w, use_smem, grid, smem_bytes, ws_stride,
-// cluster, n_members, then the n_members member ids (-2 = a, -1 = b,
-// k = y_{k+1}), then the workspace offsets: x, b, a, y1..y_{n_chain}.
-// grid is a multiple of cluster (at most 8, the portable cluster size).
+// (0 on success). ptrs: x, out, workspace, wp, bp (null without pre), wa,
+// ba, wb, bb, wt, bt, then n_chain pairs (w_k, b_k). ints: batch, h, w,
+// cin, ccv, cch, cout, n_chain, pre_cin, pre_stride, act, tile_h, tile_w,
+// grid, ws_stride, cluster, n_members, then the n_members member ids (-2 =
+// a, -1 = b, k = y_{k+1}), then the workspace offsets: x, b, a,
+// y1..y_{n_chain}. grid is a multiple of cluster (at most 8, the portable
+// cluster size).
 extern "C" int fdms_fused_elan(void* const* ptrs, const long long* ints,
                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -417,37 +828,33 @@ extern "C" int fdms_fused_elan(void* const* ptrs, const long long* ints,
   P.act = static_cast<int>(ints[10]);
   P.tile_h = static_cast<int>(ints[11]);
   P.tile_w = static_cast<int>(ints[12]);
-  P.use_smem = static_cast<int>(ints[13]);
-  const int grid = static_cast<int>(ints[14]);
-  const size_t smem = static_cast<size_t>(ints[15]);
-  P.ws_stride = ints[16];
-  P.cluster = static_cast<int>(ints[17]);
-  P.n_members = static_cast<int>(ints[18]);
+  const int grid = static_cast<int>(ints[13]);
+  P.ws_stride = ints[14];
+  P.cluster = static_cast<int>(ints[15]);
+  P.n_members = static_cast<int>(ints[16]);
   if (P.n_chain < 1 || P.n_chain > kMaxChain || P.n_members < 1 ||
       P.n_members > kMaxMembers || P.cluster < 1 || P.cluster > 8 ||
-      grid % P.cluster != 0 || (P.use_smem && P.cluster != 1))
+      grid % P.cluster != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int kk = 0; kk < P.n_chain; ++kk) {
     P.wc[kk] = static_cast<const float*>(ptrs[11 + 2 * kk]);
     P.bc[kk] = static_cast<const float*>(ptrs[12 + 2 * kk]);
   }
   for (int m = 0; m < P.n_members; ++m)
-    P.members[m] = static_cast<int>(ints[19 + m]);
-  const long long* off = ints + 19 + P.n_members;
+    P.members[m] = static_cast<int>(ints[17 + m]);
+  const long long* off = ints + 17 + P.n_members;
   P.off_x = off[0];
   P.off_b = off[1];
   P.off_a = off[2];
   for (int kk = 0; kk < P.n_chain; ++kk) P.off_y[kk] = off[3 + kk];
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fused_elan_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  err = cudaFuncSetAttribute(fused_elan_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = kSmemBytes;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

@@ -13,16 +13,19 @@ conv followed by act(conv + bias) with BN already folded:
 `fused_elan`). Source: csrc/fused_elan.cu, CUDA C++ for sm_90a, compiled
 by nvcc at first use (ops/cuda_build.py) and bound with ctypes.
 
-What bounds it on the card: operations (the group's f32 arithmetic over
-67 TFLOP/s is several times its bytes over 3.35 TB/s). The design keeps
-every intermediate out of any tensor the caller sees, as the TPU kernel
-kept them in VMEM: whole groups are computed for 8 x 8 output tiles,
-recomputing the intermediates on the tile's halo, in a block's shared
-memory when the tile's working set fits its 227 KB (and tiles are many),
-otherwise in a private slice of a scratch buffer shared by a cluster of
-up to 8 blocks that split each conv (`elan_plan` decides; PERF.md records
-which group took which route). Each conv is a register-tiled
-implicit GEMM in full f32 (no TF32). See the source for the layout.
+What bounds it on the card: operations. The kernel computes each conv on
+the tensor cores in 3xTF32 (every f32 operand split into two TF32 parts,
+`tf32_split`, three TF32 products a multiply-add, f32 sums; wgmma), so
+its bound is the group's FLOPs over 495 / 3 = 165 TFLOP/s, or its bytes
+over 3.35 TB/s if larger. The result is within 1e-5 of max |plain| per
+group (the JAX suite's bound), not bit-identical. The design keeps every
+intermediate out of any tensor the caller sees, as the TPU kernel kept
+them in VMEM: whole groups are computed for output tiles, recomputing the
+intermediates on the tile's halo, in a private slice of a scratch
+workspace in device memory (channels innermost) shared by a cluster of up
+to 8 blocks that split each conv; K chunks are staged through a
+three-stage cp.async ring (`elan_plan` picks the tiles and clusters;
+PERF.md has the A/B evidence). See the source for the layout.
 
 Layout: activations NCHW and weights OIHW, the executor's own tensors and
 torch's conv weights, so the fused path adds no transposes; the JAX
@@ -51,11 +54,10 @@ from face_detection_multi_scale_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "fused_elan.cu"
 NVCC_FLAGS = cuda_build.BASE_FLAGS
-TILE = 8                    # tile side of the shared-memory route
-WS_TILE = 16                # tile side of the workspace route
+WS_TILE_H = 40              # output tile of images larger than 2 * SMALL_IMAGE
+WS_TILE_W = 40
 SMALL_IMAGE = 20            # images up to this side are one tile
-SMEM_LIMIT = 232448 - 12288  # a Hopper block's shared memory less the staging
-BLOCKS_PER_SM = 2           # persistent blocks of the workspace route
+BLOCKS_PER_SM = 2           # grid per SM; one block is resident at a time
 MAX_CHAIN = 8               # kMaxChain of the source
 ACTS = {"silu": 0, "leaky": 1, "relu": 2}
 
@@ -147,6 +149,19 @@ def reference_elan(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return act(F.conv2d(cat, wt, bt))
 
 
+def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of the kernel's 3xTF32 products: big = v rounded to
+    TF32 (10 mantissa bits, to nearest, ties away from zero: PTX
+    cvt.rna.tf32.f32), small = the same rounding of v - big. Bit
+    operations on float32; finite inputs."""
+    def rna(t):
+        u = t.contiguous().view(torch.int32)
+        return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+    big = rna(v)
+    return big, rna(v - big)
+
+
 def _member_id(m: str) -> int:
     """The kernel's id of a member: -2 = a, -1 = b, k = y_{k+1}; -3 for a
     name that is none of these."""
@@ -162,8 +177,9 @@ def workspace_layout(shape: ElanShape, th: int, tw: int
     """The one layout of a th x tw tile's workspace, which the kernel takes
     as given: the float offsets of its regions x (the pre conv's output;
     empty without pre), b, a (empty unless a member), y1..yn, and the
-    total floats. Each region holds its window: x and b the tile plus the
-    halo n_chain, y_k the tile plus n_chain - k, a the bare tile."""
+    total floats. Each region holds its window, channels innermost (a
+    point's channels are contiguous): x and b the tile plus the halo
+    n_chain, y_k the tile plus n_chain - k, a the bare tile."""
     p = shape.halo
     eh, ew = th + 2 * p, tw + 2 * p
     sizes = [shape.cin * eh * ew if shape.has_pre else 0,
@@ -178,44 +194,62 @@ def workspace_layout(shape: ElanShape, th: int, tw: int
 def elan_plan(shape: ElanShape, batch: int, h: int, w: int,
               n_sm: int) -> Dict[str, object]:
     """How the kernel runs one group at (batch, h, w): the tile, its
-    workspace layout (offsets and floats), the route, the cluster size and
-    the grid.
+    workspace layout (offsets and floats), the cluster size and the grid.
 
-    Route "workspace": the workspace in device memory, one slice per team
-    of `cluster` blocks that split each conv of a tile between them. Tiles
-    are the whole image up to SMALL_IMAGE a side (no recompute), half of
-    it a side up to twice that, else WS_TILE a side; clusters grow (up to
-    8) as tiles get fewer, so a group with few tiles still spreads over
-    about BLOCKS_PER_SM blocks per SM, and the teams loop over the tiles.
-    Route "smem": TILE-side tiles, one block each, the workspace in the
-    block's shared memory; taken where it fits and the workspace route's
-    tiles would be fewer than the SMs while these are not (tiny's 40-px
-    groups). The rule and the sizes are from A/B timings on the card
-    (PERF.md)."""
-    def n_tiles(th: int, tw: int) -> int:
-        return batch * (-(-h // th)) * (-(-w // tw))
-
-    offsets, floats = workspace_layout(shape, TILE, TILE)
-    if (floats * 4 <= SMEM_LIMIT and n_tiles(WS_TILE, WS_TILE) < n_sm
-            <= n_tiles(TILE, TILE)):
-        n = n_tiles(TILE, TILE)
-        return {"tile_h": TILE, "tile_w": TILE, "offsets": offsets,
-                "floats": floats, "n_tiles": n, "route": "smem",
-                "cluster": 1, "teams": n, "grid": n}
+    Tiles are the whole image up to SMALL_IMAGE a side (no recompute),
+    half of it a side up to twice that, else WS_TILE_H x WS_TILE_W;
+    clusters grow (up to 8, the portable size) as tiles get fewer, as far
+    as BLOCKS_PER_SM blocks per SM hold them, so a group with few tiles
+    still spreads over the card, and the teams of `cluster` blocks loop
+    over the tiles, each with its own workspace slice. The rule and the
+    sizes are from A/B timings on the card (tools/elan_plan_ab.py;
+    PERF.md)."""
     if max(h, w) <= SMALL_IMAGE:
         th, tw = max(h, 1), max(w, 1)
     elif max(h, w) <= 2 * SMALL_IMAGE:
         th, tw = -(-h // 2), -(-w // 2)
     else:
-        th = tw = WS_TILE
-    n = n_tiles(th, tw)
+        th, tw = WS_TILE_H, WS_TILE_W
+    n = batch * (-(-h // th)) * (-(-w // tw))
     blocks = BLOCKS_PER_SM * n_sm
-    cluster = max(1, min(8, -(-blocks // n)))
+    cluster = max(1, min(8, blocks // n))
     teams = max(1, min(n, blocks // cluster))
     offsets, floats = workspace_layout(shape, th, tw)
     return {"tile_h": th, "tile_w": tw, "offsets": offsets, "floats": floats,
-            "n_tiles": n, "route": "workspace", "cluster": cluster,
-            "teams": teams, "grid": teams * cluster}
+            "n_tiles": n, "cluster": cluster, "teams": teams,
+            "grid": teams * cluster}
+
+
+def recompute_share(shape: ElanShape, plan: Dict[str, object], h: int,
+                    w: int) -> Dict[str, float]:
+    """Positions the kernel computes over output positions, per conv (pre,
+    b, a, y1..yn, out) and for the whole group weighted by each conv's
+    multiply-adds a position: the halo's points inside the image, summed
+    over the plan's tiles."""
+    th, tw, p = plan["tile_h"], plan["tile_w"], shape.halo
+
+    def points(o):  # in-image points of every tile's window with halo o
+        tot = 0
+        for ty in range(0, h, th):
+            ny = min(ty + th + o, h) - max(ty - o, 0)
+            for tx in range(0, w, tw):
+                tot += ny * (min(tx + tw + o, w) - max(tx - o, 0))
+        return tot
+
+    macs = {"b": shape.cin * shape.ccv, "a": shape.cin * shape.ccv}
+    halo = {"b": p, "a": 0}
+    if shape.has_pre:
+        macs["pre"], halo["pre"] = 9 * shape.pre_cin * shape.cin, p
+    for k in range(1, shape.n_chain + 1):
+        macs[f"y{k}"] = 9 * (shape.ccv if k == 1 else shape.cch) * shape.cch
+        halo[f"y{k}"] = p - k
+    macs["out"], halo["out"] = shape.concat_width * shape.cout, 0
+    if "a" not in shape.members:
+        del macs["a"]
+    share = {c: points(o) / (h * w) for c, o in halo.items() if c in macs}
+    share["group"] = (sum(share[c] * macs[c] for c in macs)
+                      / sum(macs.values()))
+    return share
 
 
 @functools.cache
@@ -304,9 +338,8 @@ def fused_elan(x: torch.Tensor, weights: Sequence[torch.Tensor],
         return out
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = elan_plan(shape, bsz, h, w, n_sm)
-    use_smem = plan["route"] == "smem"
-    ws = None if use_smem else torch.empty(
-        plan["teams"] * plan["floats"], dtype=torch.float32, device=x.device)
+    ws = torch.empty(plan["teams"] * plan["floats"], dtype=torch.float32,
+                     device=x.device)
     if shape.has_pre:
         wp, bp, *rest = weights
     else:
@@ -315,14 +348,17 @@ def fused_elan(x: torch.Tensor, weights: Sequence[torch.Tensor],
     wa, ba, wb, bb = rest[:4]
     chain = rest[4:4 + 2 * shape.n_chain]
     wt, bt = rest[-2:]
+    # the kernel reads 3x3 weights as OHWI, a tap's input channels contiguous
+    if wp is not None:
+        wp = wp.permute(0, 2, 3, 1).contiguous()
+    chain = [t.permute(0, 2, 3, 1).contiguous() if t.dim() == 4 else t
+             for t in chain]
     ptr = [t.data_ptr() if t is not None else None
            for t in (x, out, ws, wp, bp, wa, ba, wb, bb, wt, bt, *chain)]
     ints = [bsz, h, w, shape.cin, shape.ccv, shape.cch, shape.cout,
             shape.n_chain, shape.pre_cin, shape.pre_stride, ACTS[shape.act],
-            plan["tile_h"], plan["tile_w"], int(use_smem), plan["grid"],
-            plan["floats"] * 4 if use_smem else 0,
-            0 if use_smem else plan["floats"], plan["cluster"],
-            len(shape.members),
+            plan["tile_h"], plan["tile_w"], plan["grid"], plan["floats"],
+            plan["cluster"], len(shape.members),
             *(_member_id(m) for m in shape.members),
             *plan["offsets"]]
     c_ptrs = (ctypes.c_void_p * len(ptr))(*ptr)

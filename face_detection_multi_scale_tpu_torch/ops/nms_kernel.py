@@ -10,15 +10,17 @@ use (ops/cuda_build.py) and bound with ctypes.
 
 What bounds them on the card: operations, not bytes. Each candidate costs
 18 bytes of traffic, while the greedy scan needs one f32 IoU (about 12
-operations) per pair of a candidate and an earlier keeper. Both kernels
-therefore recompute IoU and never store the K x K matrix. "seq": one
-block per image walks the score-ordered candidates tile by tile, clears a
-tile against the final keeps of earlier tiles (staged through shared
-memory one earlier tile at a time, testing set keep bits only), then
-resolves the tile's own triangle in order with one warp. "fixpoint": one
-block per image runs Jacobi sweeps keep' = valid & ~any_{j<i}(IoU > thr &
-keep_j) over all candidates, the keep vectors in shared memory, until a
-sweep changes nothing. See the source for the layout.
+operations) per pair of a candidate and an earlier keeper. "seq" is two
+kernels on the stream: pass 1 fills bit-packed suppression rows for every
+(row tile, column tile >= row tile) pair of 64 candidates over the whole
+card (B x T(T+1)/2 blocks, T = ceil(K / 64)); pass 2, one block per image,
+walks the rows in score order with a `removed` bit vector in shared
+memory. The rows go into a scratch buffer, `mask_words(B, K)` 64-bit
+words: B * K * ceil(K / 64), 16.8 MB at B = 8, K = 4096 and 64 MB at
+B = 2, K = 16384. "fixpoint": one block per image runs Jacobi sweeps
+keep' = valid & ~any_{j<i}(IoU > thr & keep_j) over all candidates, the
+keep vectors in shared memory, until a sweep changes nothing; it never
+stores the K x K matrix. See the source for the layout.
 
 On a CPU tensor `nms_keep` runs `nms_keep_plain`, the same function by
 the fixpoint of the JAX package's `nms_keep_matrix`, for either version;
@@ -70,15 +72,54 @@ def build():
     return cuda_build.build(SOURCE, NVCC_FLAGS)
 
 
+def mask_words(b: int, k: int) -> int:
+    """64-bit words of the seq kernel's suppression rows: B * K *
+    ceil(K / 64)."""
+    return b * k * -(-k // 64)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    for fn in (lib.fdms_nms_keep, lib.fdms_nms_keep_fixpoint):
+    for fn in (lib.fdms_nms_mask, lib.fdms_nms_keep_fixpoint):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_float,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.fdms_nms_scan.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p]
+    lib.fdms_nms_scan.restype = ctypes.c_int
     return lib
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"nms_keep ({what}) kernel launch failed: CUDA "
+                           f"error {err}")
+
+
+def launch_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+                mask: torch.Tensor) -> None:
+    """Pass 1 of the seq kernel alone: fills `mask` (mask_words(B, K)
+    int64). No checks and no count: `nms_keep` is the entry point; this
+    exists so a measurement can time the passes apart."""
+    b, k = valid.shape
+    _raise_on(_library().fdms_nms_mask(
+        boxes.data_ptr(), valid.data_ptr(), mask.data_ptr(), b, k,
+        float(iou_thres), boxes.device.index,
+        torch.cuda.current_stream(boxes.device).cuda_stream), "pass 1")
+
+
+def launch_scan(mask: torch.Tensor, valid: torch.Tensor,
+                keep: torch.Tensor) -> None:
+    """Pass 2 of the seq kernel alone: keep (B, K) from pass 1's `mask`.
+    As `launch_mask`, for measurements."""
+    b, k = valid.shape
+    _raise_on(_library().fdms_nms_scan(
+        mask.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+        valid.device.index,
+        torch.cuda.current_stream(valid.device).cuda_stream), "pass 2")
 
 
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
@@ -87,8 +128,11 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
     sorted by descending score; valid (B, K) bool. Returns keep (B, K)
     bool in the same order. CPU tensors: the plain version. CUDA tensors:
     the `kernel_version` kernel ("seq" or "fixpoint", the same result),
-    for any K (no tiling constraint). `nms_keep.launches` counts launches
-    of the seq kernel, `nms_keep.fixpoint_launches` of the fixpoint one."""
+    for any K (no tiling constraint). `nms_keep.launches` counts calls
+    that launch the seq kernel, one per keep mask, although a call is two
+    kernels on the stream (pass 1 and pass 2, with a scratch buffer of
+    `mask_words(B, K)` int64 between them); `nms_keep.fixpoint_launches`
+    counts launches of the fixpoint one."""
     if kernel_version not in KERNEL_VERSIONS:
         raise ValueError(f"kernel_version must be one of {KERNEL_VERSIONS}, "
                          f"got {kernel_version!r}")
@@ -116,18 +160,18 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
         return keep
     if b >= 2 ** 31 or k >= 2 ** 31:
         raise ValueError(f"shape {tuple(boxes.shape)} too large")
-    stream = torch.cuda.current_stream(boxes.device).cuda_stream
-    seq = kernel_version == "seq"
-    lib = _library()
-    fn = lib.fdms_nms_keep if seq else lib.fdms_nms_keep_fixpoint
-    err = fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
-             float(iou_thres), boxes.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"nms_keep ({kernel_version}) kernel launch "
-                           f"failed: CUDA error {err}")
-    if seq:
+    if kernel_version == "seq":
+        mask = torch.empty(mask_words(b, k), dtype=torch.int64,
+                           device=boxes.device)
+        launch_mask(boxes, valid, iou_thres, mask)
+        launch_scan(mask, valid, keep)
         nms_keep.launches += 1
     else:
+        _raise_on(_library().fdms_nms_keep_fixpoint(
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+            float(iou_thres), boxes.device.index,
+            torch.cuda.current_stream(boxes.device).cuda_stream),
+            kernel_version)
         nms_keep.fixpoint_launches += 1
     return keep
 

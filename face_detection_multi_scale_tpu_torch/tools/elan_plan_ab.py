@@ -2,7 +2,8 @@
 of the kernel's launch plan, on one CUDA card.
 
     python -m face_detection_multi_scale_tpu_torch.tools.elan_plan_ab \\
-        --model yolov7-tiny-face --rounds 7 base BLOCKS_PER_SM=4 WS_TILE=8
+        --model yolov7-tiny-face --rounds 7 base BLOCKS_PER_SM=1 \\
+        WS_TILE_H=16,WS_TILE_W=16
 
 A variant is "base" (the plan as it stands) or comma-separated NAME=VALUE
 overrides of ops/elan_kernel.py's module constants, which `elan_plan` and
@@ -11,9 +12,12 @@ path, to time a changed kernel source). The group inputs are captured from
 one b8@640 forward of FaceDetector(model, fuse_elan=True) with seeded
 weights and noise frames. Each round times every variant, in an order
 that rotates from round to round, each group by CUDA events (mean of 3
-runs after one warm-up); every variant's outputs must equal the base
-plan's bit for bit. Prints each round's per-variant sums, then per variant
-the median, min and max of the sums and the per-group medians.
+runs after one warm-up). Each block starts its K loop at a chunk that
+depends on its place in the grid, so another plan (or another kernel,
+SOURCE) sums in another order: every variant is held within 1e-5 of max
+|base| per group, the bound the kernel is held to against its plain
+version. Prints each round's per-variant sums, then per variant the
+median, min and max of the sums and the per-group medians.
 """
 
 from __future__ import annotations
@@ -106,8 +110,11 @@ def main() -> None:
         E.build()
         print(f"{name}: build {time.perf_counter() - t0:.2f} s")
         for (x, ws, shape), ref in zip(calls, want):
-            if not torch.equal(E.fused_elan(x, ws, shape), ref):
-                raise SystemExit(f"{name}: output differs from base")
+            got = E.fused_elan(x, ws, shape)
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            if not rel < 1e-5:
+                raise SystemExit(f"{name}: output differs from base by "
+                                 f"{rel:.3g} of max |base|")
     names = list(variants)
     per = {n: [[] for _ in calls] for n in names}
     for r in range(args.rounds):

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from face_detection_multi_scale_tpu.models import fused as JF
 from face_detection_multi_scale_tpu.models import model as JM
@@ -113,6 +114,89 @@ def test_reference_elan_matches_jax(case):
     np.testing.assert_allclose(got, want_kernel, **GROUP_TOL)
 
 
+def narrow_group_shapes():
+    """Every distinct group shape of w6 and tiny at width 0.25, bare and
+    with the absorbed pre conv (JAX ElanShapes)."""
+    out = []
+    for name in ("yolov7-w6-face", "yolov7-tiny-face"):
+        for pre in (False, True):
+            for blk in JF.find_elan_blocks(narrowed(JZ, name), absorb_pre=pre):
+                if blk.shape not in out:
+                    out.append(blk.shape)
+    return out
+
+
+NARROW_SHAPES = narrow_group_shapes()
+
+
+def split_reference_elan(x, weights, shape):
+    """reference_elan with each conv as the kernel's 3xTF32 products:
+    three float32 convolutions of the split operands, small terms first,
+    plus bias, then the activation."""
+    act = TE._act_fn(shape.act)
+
+    def conv(v, w, b, **kw):
+        vb, vs = TE.tf32_split(v)
+        wb, wsm = TE.tf32_split(w)
+        return act(F.conv2d(vs, wb, None, **kw) + F.conv2d(vb, wsm, None, **kw)
+                   + F.conv2d(vb, wb, b, **kw))
+
+    if shape.has_pre:
+        x = conv(x, weights[0], weights[1], stride=shape.pre_stride,
+                 padding=1)
+        weights = weights[2:]
+    outs = {"a": conv(x, weights[0], weights[1]),
+            "b": conv(x, weights[2], weights[3])}
+    cur = outs["b"]
+    for k in range(shape.n_chain):
+        cur = conv(cur, weights[4 + 2 * k], weights[5 + 2 * k], padding=1)
+        outs[f"y{k + 1}"] = cur
+    cat = torch.cat([outs[m] for m in shape.members], dim=1)
+    return conv(cat, weights[-2], weights[-1])
+
+
+def test_tf32_split_bits():
+    """Round to nearest with ties away from zero at 10 mantissa bits, as
+    cvt.rna.tf32.f32; big + small recovers v to about 2^-22 of |v|."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    v = torch.tensor([one, one + ulp / 2, one + ulp / 2 - 2 ** -23,
+                      -(one + ulp / 2), one + 1.5 * ulp, 2.0 ** -100, 0.0],
+                     dtype=torch.float32)
+    big, small = TE.tf32_split(v)
+    want = torch.tensor([one, one + ulp, one, -(one + ulp), one + 2 * ulp,
+                         2.0 ** -100, 0.0], dtype=torch.float32)
+    assert torch.equal(big, want)
+    assert bool(((big.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((small.view(torch.int32) & 0x1FFF) == 0).all())
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        10000).astype(np.float32))
+    b, sm = TE.tf32_split(r)
+    assert float(((b + sm - r).abs() / r.abs()).max()) < 2.0 ** -21
+
+
+@pytest.mark.parametrize("idx", range(len(NARROW_SHAPES)))
+def test_3xtf32_products_within_group_bound(idx):
+    """Each w6 and tiny group shape at width 0.25: the kernel's 3xTF32
+    arithmetic (three float32 convolutions of the split operands a conv)
+    within 1e-5 of max |JAX reference_elan| on the same numpy inputs, the
+    bound the card holds the kernel to (tests/test_fused_elan.py)."""
+    shape = NARROW_SHAPES[idx]
+    rng = np.random.RandomState(idx)
+    s = shape.pre_stride if shape.has_pre else 1
+    c = shape.pre_cin if shape.has_pre else shape.cin
+    x = rng.randn(2, 12 * s, 10 * s, c).astype(np.float32)
+    ws = jax_weights(rng, shape)
+    want = np.asarray(JE.reference_elan(jnp.asarray(x), ws, shape))
+    got = split_reference_elan(
+        torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(),
+        [to_port_weight(v) for v in ws], port_shape(shape))
+    got = got.permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape
+    rel = np.abs(got - want).max() / np.abs(want).max()
+    assert rel < 1e-5, rel
+
+
 def test_fused_elan_wrapper_checks():
     shape = TE.ElanShape(cin=4, ccv=4, cch=4, cout=4, n_chain=2,
                          members=("y2", "b", "a"), group=2)
@@ -133,31 +217,49 @@ def test_fused_elan_wrapper_checks():
         TE.fused_elan(x, ws, dataclasses.replace(shape, debug_skip_mask=True))
 
 
-def test_elan_plan_routes():
-    """Tiles and routes by image size: 16-px tiles in the device-memory
-    workspace on large images, half the image up to 40 px, the whole image
-    up to 20 px (clusters of 8 when tiles are few), 8-px tiles in shared
-    memory where they fit and the workspace tiles would not fill the SMs."""
-    w6 = TF.find_elan_blocks(TZ.get_spec("yolov7-w6-face"))
-    tiny = TF.find_elan_blocks(TZ.get_spec("yolov7-tiny-face"))
-    plan = TE.elan_plan(w6[0].shape, 8, 160, 160, 132)
-    assert plan["route"] == "workspace" and plan["cluster"] == 1
-    assert (plan["tile_h"], plan["tile_w"], plan["n_tiles"]) == (16, 16, 800)
-    assert plan["grid"] == plan["teams"] == 264
-    mid = TE.elan_plan(w6[2].shape, 8, 40, 40, 132)
-    assert (mid["tile_h"], mid["n_tiles"], mid["cluster"]) == (20, 32, 8)
-    wide = TE.elan_plan(w6[4].shape, 8, 10, 10, 132)
-    assert wide["route"] == "workspace" and wide["cluster"] == 8
-    assert (wide["tile_h"], wide["tile_w"]) == (10, 10)  # one tile an image
-    assert wide["teams"] == 8 and wide["grid"] == 64
-    small = TE.elan_plan(tiny[4].shape, 8, 40, 40, 132)
-    assert small["route"] == "smem" and small["grid"] == 200
-    assert small["floats"] * 4 <= TE.SMEM_LIMIT
-    assert (small["offsets"], small["floats"]) == TE.workspace_layout(
-        tiny[4].shape, 8, 8)
-    ragged = TE.elan_plan(w6[0].shape, 1, 24, 41, 132)
-    assert (ragged["tile_h"], ragged["tile_w"]) == (16, 16)
-    assert ragged["n_tiles"] == 2 * 3 and ragged["grid"] == 6 * 8
+PLAN_CASES = [  # (model, group, batch, h, w) -> (tile, n_tiles, cluster, grid)
+    ("yolov7-w6-face", 0, 8, 160, 160, (40, 40), 128, 2, 256),
+    ("yolov7-w6-face", 1, 8, 80, 80, (40, 40), 32, 8, 256),
+    ("yolov7-w6-face", 2, 8, 40, 40, (20, 20), 32, 8, 256),
+    ("yolov7-w6-face", 4, 8, 10, 10, (10, 10), 8, 8, 64),
+    ("yolov7-tiny-face", 4, 8, 40, 40, (20, 20), 32, 8, 256),
+    ("yolov7-w6-face", 0, 1, 24, 41, (40, 40), 2, 8, 16),
+    ("yolov7-w6-face", 0, 3, 100, 100, (40, 40), 27, 8, 216),
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[3]}x{c[4]}" for c in
+                              PLAN_CASES])
+def test_elan_plan_routes(case):
+    """Tiles by image size: WS_TILE_H x WS_TILE_W on large images, half
+    the image up to 40 px, the whole image up to 20 px; clusters grow to 8
+    as tiles get fewer, teams of a cluster loop over the tiles, about
+    BLOCKS_PER_SM blocks an SM; the workspace is the plan's layout."""
+    name, g, b, h, w, tile, n_tiles, cluster, grid = case
+    shape = TF.find_elan_blocks(TZ.get_spec(name))[g].shape
+    plan = TE.elan_plan(shape, b, h, w, 132)
+    assert (plan["tile_h"], plan["tile_w"]) == tile
+    assert plan["n_tiles"] == n_tiles and plan["cluster"] == cluster
+    assert plan["grid"] == grid == plan["teams"] * cluster
+    assert plan["teams"] <= n_tiles
+    assert (plan["offsets"], plan["floats"]) == TE.workspace_layout(
+        shape, *tile)
+
+
+def test_recompute_share():
+    """Positions computed over output positions: b over the tile plus the
+    halo n_chain inside the image, y_k with n_chain - k, a and out none;
+    an image that is one tile recomputes nothing."""
+    shape = TF.find_elan_blocks(TZ.get_spec("yolov7-w6-face"))[0].shape
+    share = TE.recompute_share(shape, {"tile_h": 16, "tile_w": 16}, 160, 160)
+    # 10 x 10 tiles; per axis the windows cover 160 + 2 * 4 * 9 points
+    assert share["b"] == pytest.approx((232 / 160) ** 2)
+    assert share["y4"] == 1.0 and share["a"] == 1.0 and share["out"] == 1.0
+    assert share["y1"] == pytest.approx((214 / 160) ** 2)
+    assert 1.0 < share["group"] < share["b"]
+    one = TE.recompute_share(shape, {"tile_h": 10, "tile_w": 10}, 10, 10)
+    assert set(one.values()) == {1.0}
 
 
 @pytest.mark.parametrize("tile", [(8, 8), (16, 16), (10, 7)])

@@ -75,6 +75,42 @@ def test_fixpoint_kernel_matches_plain(cuda_device, b, k, thr, frac):
     assert torch.equal(got, K.nms_keep_plain(boxes, valid, thr))
 
 
+def chain_boxes(b, k, device):
+    """Boxes 10 wide, 3 apart, in score order: each overlaps the next by
+    IoU 7/13 > 0.5 and the one after by 4/16, so the keep mask alternates
+    and every decision depends on the one before, across tile edges."""
+    x = torch.arange(k, dtype=torch.float32) * 3
+    one = torch.stack([x, torch.zeros(k), x + 10, torch.full((k,), 10.)], 1)
+    return (one.expand(b, k, 4).contiguous().to(device),
+            torch.ones(b, k, dtype=torch.bool, device=device))
+
+
+@pytest.mark.parametrize("b,k,case", [
+    (64, 1024, "random"), (3, 63, "random"), (3, 64, "random"),
+    (3, 65, "random"), (2, 4097, "random"), (2, 1024, "invalid"),
+    (1, 4097, "chain"), (2, 200, "chain")])
+def test_two_pass_kernel_cases(cuda_device, b, k, case):
+    """Many blocks per pass (B = 64), K around a 64-row word and one past
+    4096, rows all invalid, and long suppression chains."""
+    if case == "chain":
+        boxes, valid = chain_boxes(b, k, cuda_device)
+    else:
+        boxes, valid = candidates(b, k, seed=k + 7, frac_valid=0.9,
+                                  device=cuda_device)
+    if case == "invalid":
+        valid[0] = False
+    launches = K.nms_keep.launches
+    got = K.nms_keep(boxes, valid, 0.5)
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == launches + 1
+    assert torch.equal(got, K.nms_keep_plain(boxes, valid, 0.5))
+    if case == "chain":
+        assert torch.equal(got[0], torch.arange(k, device=cuda_device) % 2
+                           == 0)
+    if case == "invalid":
+        assert not got[0].any()
+
+
 def test_kernel_rejects_non_contiguous(cuda_device):
     boxes, valid = candidates(2, 64, seed=0, frac_valid=1.0,
                               device=cuda_device)
@@ -133,8 +169,8 @@ def elan_inputs(shape, h, w, seed, device):
 def test_fused_elan_matches_reference(cuda_device, idx, hw):
     """The kernel vs reference_elan through cuDNN with TF32 off, at full
     width, on 2 images of 12 x 20 (one tile each) and of 30 x 37 (2 x 2
-    tiles of 15 x 19, every tile touching two borders), in the workspace
-    route with clusters of 8; scale-relative error below 1e-5."""
+    tiles of 15 x 19, every tile touching two borders), with clusters of
+    8; scale-relative error below 1e-5."""
     shapes = elan_shapes()
     assert len(shapes) == 22
     shape = shapes[idx]
@@ -153,10 +189,9 @@ def test_fused_elan_matches_reference(cuda_device, idx, hw):
 
 @pytest.mark.parametrize("idx", range(22))
 def test_fused_elan_tiled(cuda_device, idx):
-    """Every group shape at 2 x 72 x 76 (W no multiple of the tile): 180
-    tiles of 8 x 8 in shared memory where the tile's working set fits,
-    else 16 x 16 tiles in the device-memory workspace, with interior
-    tiles, border tiles and ragged last tiles."""
+    """Every group shape at 2 x 72 x 76 (neither side a multiple of the
+    tile): WS_TILE_H x WS_TILE_W tiles in the device-memory workspace, with
+    interior tiles, border tiles and ragged last tiles."""
     shape = elan_shapes()[idx]
     x, ws = elan_inputs(shape, 72, 76, seed=idx, device=cuda_device)
     got = E.fused_elan(x, ws, shape)
@@ -164,6 +199,55 @@ def test_fused_elan_tiled(cuda_device, idx):
         want = E.reference_elan(x, ws, shape)
     err = float((got - want).abs().max() / want.abs().max())
     assert err < 1e-5, err
+
+
+@pytest.mark.parametrize("tile", [(32, 16), (24, 40), (96, 104)])
+def test_fused_elan_large_ragged_tiles(cuda_device, monkeypatch, tile):
+    """Tiles larger than 16 px, not square, with ragged last tiles on both
+    sides (2 x 70 x 75), on the w6 head shape and the pre stride-2 shape;
+    at 96 x 104 the image is one tile whose window rows outgrow a halo
+    stage, so its 3x3 convs stage A chunk by chunk."""
+    monkeypatch.setattr(E, "WS_TILE_H", tile[0])
+    monkeypatch.setattr(E, "WS_TILE_W", tile[1])
+    shapes = elan_shapes()
+    for shape in (shapes[5], next(s for s in shapes if s.pre_stride == 2)):
+        x, ws = elan_inputs(shape, 70, 75, seed=3, device=cuda_device)
+        plan = E.elan_plan(shape, 2, 70, 75, 132)
+        assert (plan["tile_h"], plan["tile_w"]) == tile
+        got = E.fused_elan(x, ws, shape)
+        with full_fp32():
+            want = E.reference_elan(x, ws, shape)
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err < 1e-5, err
+
+
+def test_fused_elan_profile_build(cuda_device, monkeypatch):
+    """The profiling build of the kernel (tools/elan_profile.py) computes
+    the same group and counts clocks in the phases that run."""
+    from face_detection_multi_scale_tpu_torch.tools import elan_profile as EP
+    shape = elan_shapes()[5]
+    x, ws = elan_inputs(shape, 40, 44, seed=4, device=cuda_device)
+    monkeypatch.setattr(E, "NVCC_FLAGS",
+                        E.NVCC_FLAGS + ("-DFDMS_ELAN_PROFILE",))
+    E._library.cache_clear()
+    try:
+        n_sm = torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count
+        blocks = E.elan_plan(shape, 2, 40, 44, n_sm)["grid"]
+        got = E.fused_elan(x, ws, shape)
+        torch.cuda.synchronize()
+        EP.read_counters(E._library(), blocks)
+        got = E.fused_elan(x, ws, shape)
+        torch.cuda.synchronize()
+        c = dict(zip(EP.PHASES, EP.read_counters(E._library(), blocks)))
+    finally:
+        E._library.cache_clear()
+    with full_fp32():
+        want = E.reference_elan(x, ws, shape)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err < 1e-5, err
+    assert c["chunks"] > 0 and c["math"] > 0 and c["issue"] > 0
+    assert sum(c[n] for n in EP.SHOWN) <= c["total"]
 
 
 def test_fused_elan_single_tile_and_uneven_members(cuda_device):

@@ -6,6 +6,7 @@ held against the plain version on the card (chip_smoke.py and
 tests/test_torch_gpu.py). Equality is exact: the keep mask is a boolean function
 of f32 IoUs computed with the same operations in the same order."""
 
+import math
 import subprocess
 import sys
 
@@ -17,6 +18,7 @@ import torch
 from face_detection_multi_scale_tpu.ops import nms as JN
 from face_detection_multi_scale_tpu.ops.pallas_nms import nms_keep_pallas
 from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
+from face_detection_multi_scale_tpu_torch.ops.boxes import box_iou
 
 
 def sorted_candidates(b, k, seed, frac_valid=1.0):
@@ -134,6 +136,126 @@ def test_wrapper_rejects_bad_inputs():
         K.nms_keep(boxes.double(), valid, 0.5)
     with pytest.raises(TypeError):
         K.nms_keep(boxes, valid.int(), 0.5)
+
+
+TILE = 64  # rows / columns of a tile of csrc/nms_keep.cu == bits a word
+
+
+def decode_pair(p, n_tiles):
+    """nms_mask_kernel's block index -> (row tile, column tile), the same
+    float formula and fix-ups."""
+    t2 = 2.0 * n_tiles + 1.0
+    rt = int((t2 - math.sqrt(t2 * t2 - 8.0 * p)) / 2.0)
+    rt = max(0, min(rt, n_tiles - 1))
+
+    def first(r):
+        return r * n_tiles - r * (r - 1) // 2
+
+    while rt > 0 and first(rt) > p:
+        rt -= 1
+    while rt + 1 < n_tiles and first(rt + 1) <= p:
+        rt += 1
+    return rt, rt + p - first(rt)
+
+
+def emulate_passes(boxes, valid, thr):
+    """A torch emulation of the seq kernel's two passes with its tile, word
+    and bit indexing: pass 1 writes, for every decoded (row tile, column
+    tile) block, the 64-bit word of each row of the row tile (bit c: column
+    64 * ct + c is later, both valid, IoU > thr; no division where the
+    boxes do not intersect and thr >= 0) into a scratch of garbage, as
+    torch.empty would leave it; pass 2 walks the tiles with the `removed`
+    words, resolves a tile from its diagonal words alone, then ORs the
+    kept rows' words right of the diagonal. Returns keep (B, K) bool."""
+    boxes, valid = torch.from_numpy(boxes), torch.from_numpy(valid)
+    b, k = valid.shape
+    n_tiles = -(-k // TILE)
+    kp = n_tiles * TILE
+    # column j (later) against row i (earlier): IoU(j, i) as the kernel
+    # calls overlaps(column, row)
+    a, c = boxes[:, None, :, :], boxes[:, :, None, :]  # [b, i, j]
+    iw = (torch.minimum(a[..., 2], c[..., 2])
+          - torch.maximum(a[..., 0], c[..., 0])).clamp(min=0)
+    ih = (torch.minimum(a[..., 3], c[..., 3])
+          - torch.maximum(a[..., 1], c[..., 1])).clamp(min=0)
+    inter = iw * ih
+    iou = box_iou(boxes, boxes).transpose(1, 2)
+    idx = torch.arange(k)
+    bits = ((iou > thr) & ~((inter == 0) & (thr >= 0))
+            & (idx[None, :] > idx[:, None]) & valid[:, :, None]
+            & valid[:, None, :])
+    bits = torch.nn.functional.pad(bits, (0, kp - k))
+    weights = torch.ones(TILE, dtype=torch.int64) << torch.arange(TILE)
+    words = (bits.view(b, k, n_tiles, TILE).long() * weights).sum(-1)
+    mask = torch.full((b, k, n_tiles), 0x5A5A5A5A5A5A5A5A, dtype=torch.int64)
+    seen = set()
+    for p in range(n_tiles * (n_tiles + 1) // 2):
+        rt, ct = decode_pair(p, n_tiles)
+        assert rt <= ct < n_tiles and (rt, ct) not in seen
+        seen.add((rt, ct))
+        rows = slice(rt * TILE, min(k, (rt + 1) * TILE))
+        mask[:, rows, ct] = words[:, rows, ct]
+    full = (1 << TILE) - 1
+    keep = torch.zeros(b, k, dtype=torch.bool)
+    for n in range(b):
+        m = [[int(v) & full for v in row] for row in mask[n].tolist()]
+        removed = [0] * n_tiles
+        for t in range(n_tiles):
+            rows = range(t * TILE, min(k, (t + 1) * TILE))
+            vb = sum(1 << (i - t * TILE) for i in rows if valid[n, i])
+            cur, kept = removed[t], 0
+            for i in rows:
+                bit = 1 << (i - t * TILE)
+                if vb & bit and not cur & bit:
+                    kept |= bit
+                    cur |= m[i][t]
+            for i in rows:
+                keep[n, i] = bool(kept >> (i - t * TILE) & 1)
+                if kept >> (i - t * TILE) & 1:
+                    for w in range(t + 1, n_tiles):
+                        removed[w] |= m[i][w]
+    return keep.numpy()
+
+
+def padded_pallas_keep(boxes, valid, thr):
+    """nms_keep_pallas (interpret) at any K: invalid rows pad K to the
+    kernel's multiple of 1024 and change no earlier row's keep."""
+    b, k = valid.shape
+    kp = -(-k // 1024) * 1024
+    pb = np.zeros((b, kp, 4), np.float32)
+    pv = np.zeros((b, kp), bool)
+    pb[:, :k], pv[:, :k] = boxes, valid
+    return np.asarray(nms_keep_pallas(jnp.asarray(pb), jnp.asarray(pv), thr,
+                                      interpret=True))[:, :k]
+
+
+EMULATION_CASES = (
+    [("case", b, k, thr, frac, False) for b, k, thr, frac in CASES]
+    + [("ragged", 2, k, 0.5, 0.7, False) for k in (1, 7, 63, 64, 65, 300,
+                                                   1000)]
+    + [("degenerate", 2, 1024, thr, 0.8, True) for thr in (0.3, 0.5)])
+
+
+@pytest.mark.parametrize("kind,b,k,thr,frac,degenerate", EMULATION_CASES,
+                         ids=[f"{c[0]}-b{c[1]}-k{c[2]}-t{c[3]}"
+                              for c in EMULATION_CASES])
+def test_two_pass_emulation_matches_plain_and_pallas(kind, b, k, thr, frac,
+                                                     degenerate):
+    boxes, _, valid = sorted_candidates(b, k, seed=k + 29, frac_valid=frac)
+    if degenerate:
+        boxes = with_degenerate_boxes(boxes, seed=k)
+    got = emulate_passes(boxes, valid, thr)
+    np.testing.assert_array_equal(got, port_keep(boxes, valid, thr))
+    np.testing.assert_array_equal(got, padded_pallas_keep(boxes, valid, thr))
+
+
+def test_mask_words():
+    assert K.mask_words(8, 4096) * 8 == 16_777_216      # 16.8 MB
+    assert K.mask_words(2, 16384) * 8 == 67_108_864    # 64 MB
+    assert K.mask_words(3, 65) == 3 * 65 * 2
+    for t in [*range(1, 70), 256, 257]:  # K up to 4416, and 16384
+        pairs = {decode_pair(p, t) for p in range(t * (t + 1) // 2)}
+        assert pairs == {(r, c) for r in range(t) for c in range(r, t)}
 
 
 def test_import_and_cpu_path_need_no_build():
