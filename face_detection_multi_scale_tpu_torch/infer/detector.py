@@ -32,7 +32,7 @@ from face_detection_multi_scale_tpu_torch.data import letterbox as LB
 from face_detection_multi_scale_tpu_torch.infer import device_preprocess as DP
 from face_detection_multi_scale_tpu_torch.models import zoo
 from face_detection_multi_scale_tpu_torch.models.convert import (
-    jax_to_state_dict)
+    jax_to_state_dict, load_reference_state_dict)
 from face_detection_multi_scale_tpu_torch.models.fuse import fold_bn
 from face_detection_multi_scale_tpu_torch.models.fused import (
     apply_variant, find_elan_blocks, fused_apply)
@@ -104,9 +104,10 @@ class FaceDetector:
         net = YoloFace(self.spec)
         if variables is None:
             init_weights(net, torch.Generator().manual_seed(seed))
-        else:  # a JAX-layout tree, or a torch state dict
-            net.load_state_dict(jax_to_state_dict(variables)
-                                if "params" in variables else variables)
+        elif "params" in variables:  # a JAX-layout tree
+            net.load_state_dict(jax_to_state_dict(variables))
+        else:  # a torch state dict with reference key names
+            load_reference_state_dict(net, variables)
         if fuse:
             fold_bn(net)
         self.model = net.eval().to(self.device)

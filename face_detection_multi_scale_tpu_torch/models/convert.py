@@ -15,7 +15,9 @@ Rules:
   * implicit-knowledge params (C,) -> (1, C, 1, 1)
 
 The result loads with `load_state_dict(strict=True)` into the YoloFace of
-the same spec, as a reference checkpoint's state dict does.
+the same spec. A reference checkpoint's state dict loads through
+`load_reference_state_dict`, which drops what the model does not keep as
+weights (the JAX converter's rule).
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ import numpy as np
 import torch
 
 _NUMERIC_TAIL = re.compile(r"^(.*?)((?:_\d+)*)$")
+# last key components of a reference state dict that are no weights: the
+# head's anchor buffers (the model takes anchors from its spec) and BN's
+# batch counter
+SKIPPED_LEAVES = ("anchors", "anchor_grid", "num_batches_tracked")
 
 
 def _split_component(name: str) -> str:
@@ -90,3 +96,18 @@ def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
             put(f"{module}.num_batches_tracked",
                 torch.tensor(0, dtype=torch.long))
     return out
+
+
+def load_reference_state_dict(net: torch.nn.Module,
+                              state_dict: Mapping[str, Any]) -> None:
+    """Load a state dict with reference key names into `net`, skipping the
+    keys whose last component is in SKIPPED_LEAVES; every other key of
+    either side must match (a BN counter left out stays as it was)."""
+    kept = {k: v for k, v in state_dict.items()
+            if k.rsplit(".", 1)[-1] not in SKIPPED_LEAVES}
+    missing, unexpected = net.load_state_dict(kept, strict=False)
+    missing = [k for k in missing
+               if k.rsplit(".", 1)[-1] not in SKIPPED_LEAVES]
+    if missing or unexpected:
+        raise RuntimeError(f"state dict does not match the model: missing "
+                           f"{missing}, unexpected {unexpected}")

@@ -58,6 +58,37 @@ OUT = Path(__file__).parent / "PROBE_MM.json"
 REL_TOL = 1e-4
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
+# The kernel's staging plan (csrc/probe_mm.cu's Plan; `_library` checks
+# these against the built kernel's own): x rows of 176 positions go once a
+# cell through a ring of X_SLOTS slots; with the taps a slot also holds the
+# 2 halo rows its dx offsets reach (SLOT_ROWS), zeros past x. The weights:
+# w staged once; cat9's nine 16 KB tap slabs of w9 through W_SLOTS slots,
+# once for every pair of output rows (both warpgroups read each slab).
+X_SLOTS = 4
+SLOT_ROWS = C + 2
+SLAB_BYTES = 2 * K * N
+X_BYTES = 2 * R * C * K  # x itself, 1,622,016 bytes
+
+
+def plan(variant: str) -> dict:
+    """The kernel's staging plan of `variant`, per cell: rows staged a slot,
+    weight slots, and the x and weight bytes copied from device memory into
+    shared memory."""
+    tapped = variant in ("taps", "cat9")
+    rows = SLOT_ROWS if tapped else C
+    # the last x row's halo lies past x: zero-filled, not copied
+    x_rows = (R - 1) * rows + C
+    cat9 = variant == "cat9"
+    return {"x_slots": X_SLOTS, "rows": rows, "slot_rows": SLOT_ROWS,
+            "w_slots": 3 if cat9 else 1, "x_bytes": 2 * K * x_rows,
+            "w_bytes": SLAB_BYTES * (9 * RQ // 2 if cat9 else 1)}
+
+
+def staged_bytes(variant: str) -> int:
+    """Bytes the kernel's plan stages into shared memory per cell: x's rows
+    (with the taps' halo rows) and the weights."""
+    p = plan(variant)
+    return p["x_bytes"] + p["w_bytes"]
 
 
 def make_inputs(device="cuda"):
@@ -104,6 +135,18 @@ def _library() -> ctypes.CDLL:
     lib.fdms_probe_mm.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.fdms_probe_mm.restype = ctypes.c_int
+    lib.fdms_probe_mm_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.fdms_probe_mm_plan.restype = ctypes.c_int
+    for i, variant in enumerate(VARIANTS):
+        got = (ctypes.c_longlong * 7)()
+        if lib.fdms_probe_mm_plan(i, got) != 0:
+            raise RuntimeError(f"probe_mm.cu has no plan for {variant}")
+        want = plan(variant)
+        mine = [want[k] for k in ("x_slots", "rows", "slot_rows", "w_slots")]
+        theirs = list(got[:4]) + list(got[5:7])
+        if theirs != mine + [want["x_bytes"], want["w_bytes"]]:
+            raise RuntimeError(f"probe_mm.cu's plan for {variant} "
+                               f"{list(got)} differs from plan(): {want}")
     return lib
 
 

@@ -123,3 +123,43 @@ def test_run_network_matches_jax(name):
         assert_rows_match(g, np.asarray(w))
     assert tdet.truncation_report() == jdet.truncation_report()
     assert tdet.truncation_report()["truncated_images"] > 0
+
+
+def test_reference_state_dict_with_anchor_buffers_loads():
+    """A state dict with reference key names that carries the head's anchor
+    buffers (as a reference checkpoint does) loads into the port's
+    FaceDetector, and its raw maps match the JAX FaceDetector fed the JAX
+    converter's tree of the same dict (atol 2e-4 / rtol 1e-3, as
+    tests/test_torch_model.py)."""
+    import torch
+    from face_detection_multi_scale_tpu.models import convert as JC
+    from face_detection_multi_scale_tpu_torch.models.convert import (
+        jax_to_state_dict)
+
+    name = "yolov7-tiny-face"
+    spec_j, spec_t = narrowed(JZ, name), narrowed(TZ, name)
+    sd = jax_to_state_dict(shared_variables(name))
+    head = sorted({k.split(".")[1] for k in sd}, key=int)[-1]
+    assert head == "77"
+    anchors = torch.tensor(spec_t.anchors, dtype=torch.float32).view(
+        spec_t.nl, spec_t.na, 2)
+    sd[f"model.{head}.anchors"] = anchors / torch.tensor(
+        spec_t.strides, dtype=torch.float32).view(-1, 1, 1)
+    sd[f"model.{head}.anchor_grid"] = anchors.view(spec_t.nl, 1, spec_t.na,
+                                                   1, 1, 2)
+    tdet = TFaceDetector(spec_t, variables=sd, img_sizes=(96,),
+                         device="cpu")
+    jdet = JFaceDetector(spec_j, variables=JC.convert_state_dict(sd),
+                         img_sizes=(96,))
+    x = np.random.default_rng(6).random((2, 96, 96, 3), np.float32)
+    with torch.no_grad():
+        raws_t = tdet.model(torch.from_numpy(x))
+    raws_j = jdet._forward(jdet._serving_variables(), x)
+    assert len(raws_t) == len(raws_j) == spec_t.nl
+    for rt, rj in zip(raws_t, raws_j):
+        np.testing.assert_allclose(rt.numpy(), np.asarray(rj), atol=2e-4,
+                                   rtol=1e-3)
+    with pytest.raises(RuntimeError, match="missing"):
+        TFaceDetector(spec_t, variables={k: v for k, v in sd.items()
+                                         if not k.endswith(".weight")},
+                      device="cpu")
