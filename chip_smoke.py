@@ -21,7 +21,9 @@ Phases, each fatal on failure (nothing is caught to carry on):
      geometry and 512 cells, the launch counter zeroed before and read
      after; each variant within a scale-relative 1e-4 of its plain version
      (float32 sums over 6k-54k rows in another order); kernel, plain,
-     library and bound times
+     library and bound times, and the bytes the kernel's plan stages into
+     shared memory a cell (tools/probe_mm.staged_bytes) with the rate
+     they imply
   4. path w6: FaceDetector("yolov7-w6-face") at full width, seeded random
      weights, serves a few requests of 8 synthetic 640x640 frames through
      run_network with the launch counters reset just before and read just
@@ -238,12 +240,15 @@ def check_probe(smi: str):
         row = PM.measure(variant, PROBE_CELLS, PROBE_ITERS, inputs)
         launches = PM.probe_mm.launches
         check(launches > 0, f"probe_mm[{variant}] never launched")
+        staged = PM.staged_bytes(variant)
         print(f"probe_mm[{variant}] {PROBE_CELLS} cells on {smi}: kernel "
               f"{row['total_ms']:.4f} ms ({row['us_per_cell']:.4f} us a "
               f"cell), plain {row['plain_ms']:.4f} ms, library "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"by {row['bound_by']}; max |diff| {row['max_abs_diff']:.3g}, "
-              f"/ max |plain| {row['rel_diff']:.3g}; {launches} launches")
+              f"/ max |plain| {row['rel_diff']:.3g}; {launches} launches; "
+              f"staged {staged} B a cell, "
+              f"{staged * PROBE_CELLS / row['total_ms'] / 1e9:.3f} TB/s")
         entries.append({
             "name": f"probe_mm[{variant}]", "route": "cuda",
             "source": "face_detection_multi_scale_tpu_torch/csrc/probe_mm.cu",
@@ -252,7 +257,7 @@ def check_probe(smi: str):
             "max_rel_err": row["rel_diff"], "ms": row["total_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "per": f"{PROBE_CELLS} cells"})
+            "per": f"{PROBE_CELLS} cells", "staged_bytes": staged})
     return entries
 
 

@@ -25,7 +25,7 @@
 //     W^T A^T, so the positions are wgmma's N: one wgmma m64n176k16 (bf16
 //     -> f32) covers a whole x row of positions, A (W^T) and B (x rows) both
 //     from shared memory through descriptors. Two consumer warpgroups each
-//     take every other output row; a producer warp stages;
+//     take every other output row; a producer warpgroup stages;
 //   * M is enumerated in x's own flattened coordinates p = r*176 + c, so
 //     the A row of tap (dy, dx) at p is x2[p + 176*dy + dx]: a tap is a
 //     constant row offset into rows already staged. x rows (176 positions
@@ -44,7 +44,7 @@
 //     (a pair of output rows). A slab is staged as it lies in memory (the
 //     channels of a K row contiguous): wgmma reads it MN-major (bf16's
 //     transpose bit);
-//   * staging is asynchronous: the producer warp fills slots with cp.async
+//   * staging is asynchronous: the producer warps fill slots with cp.async
 //     (16 bytes a lane, conflict-free in shared memory), each fill
 //     completing on the slot's mbarrier; the consumers wait on it, issue
 //     their wgmmas and release the slot on a second mbarrier when the
@@ -63,15 +63,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// the A (weight) descriptor's byte offsets: between the core matrices of
-// one channel group along K (LBO), and between channel groups (SBO)
-#ifndef FDMS_PROBE_A_LBO
-#define FDMS_PROBE_A_LBO 128
-#endif
-#ifndef FDMS_PROBE_A_SBO
-#define FDMS_PROBE_A_SBO 2048
-#endif
-
 namespace {
 
 constexpr int kR = 36, kC = 176, kK = 128, kN = 64;
@@ -84,7 +75,8 @@ constexpr int kSlotBytes = kPlanes * kPlaneBytes;
 constexpr int kSlabBytes = kK * kN * 2;   // W, or one tap's slab of w9
 constexpr int kGroupBytes = kK * 16;      // 8 channels of a slab
 constexpr int kConsumers = 2;             // warpgroups
-constexpr int kThreads = 128 * kConsumers + 32;  // and a producer warp
+constexpr int kProducers = 4;             // warps
+constexpr int kThreads = 32 * (4 * kConsumers + kProducers);
 constexpr int kAcc = kC / 2;              // accumulator floats a thread
 
 enum Variant { kPre2d = 0, kFlat = 1, kTaps = 2, kCat9 = 3 };
@@ -116,9 +108,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 16 bytes from device to shared memory, zeros where !ok. Through L1
+// (.ca): on the H100 the L1-bypassing .cg form staged at about 2 TB/s over
+// the card in this kernel, .ca at about 6 (PERF.md, PR 6).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(ok ? 16 : 0)
                : "memory");
 }
@@ -160,7 +155,11 @@ __device__ __forceinline__ void fence_async_proxy() {
 }
 
 // wgmma's shared-memory matrix descriptor, no swizzle: start address,
-// leading and stride byte offsets, each >> 4
+// leading and stride byte offsets, each >> 4. The leading offset steps
+// along K between core matrices (8 x 16 bytes), the stride offset along
+// M or N between groups of 8: K-major x slots (K planes apart, 8 rows at
+// 128 bytes) and the MN-major weights (K rows at 128 bytes, 8-channel
+// groups apart) alike.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                          uint32_t sbo) {
   return static_cast<uint64_t>((addr >> 4) & 0x3fff) |
@@ -216,35 +215,37 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// The producer warp's copy of x row `row` (flattened rows 176 row ..
-// + kRows) into a slot, K plane kc of slot row q at kc * kPlaneBytes +
-// q * 16. Lane: plane 4 (lane / 8) + lane % 4, row offset lane / 4 % 2, so
-// the 8 lanes of a quarter warp hit 32 distinct banks and the warp reads
-// two whole rows (512 contiguous bytes) a step. Rows past x are zeros.
+// Producer warp pw's part of the copy of x row `row` (flattened rows
+// 176 row .. + kRows) into a slot, K plane kc of slot row q at
+// kc * kPlaneBytes + q * 16: rows 2 pw + 8 i and the next. Lane: plane
+// 4 (lane / 8) + lane % 4, row offset lane / 4 % 2, so the 8 lanes of a
+// quarter warp hit 32 distinct banks and the warp reads two whole rows (512
+// contiguous bytes) a step. Rows past x are zeros.
 template <int V>
 __device__ __forceinline__ void stage_row(uint32_t slot, const uint16_t* src,
-                                          int row, int lane) {
+                                          int row, int pw, int lane) {
   const int kc = 4 * (lane >> 3) + (lane & 3), qo = (lane >> 2) & 1;
   const uint16_t* s = src + (static_cast<long long>(row) * kC + qo) * kK +
                       kc * 8;
   const uint32_t d = slot + kc * kPlaneBytes + qo * 16;
   const int left = (kR - row) * kC - qo;  // rows of x from this lane's first
 #pragma unroll 4
-  for (int q = 0; q < Plan<V>::kRows; q += 2)
+  for (int q = 2 * pw; q < Plan<V>::kRows; q += 2 * kProducers)
     cp_async16(d + q * 16, q < left ? s + q * kK : src, q < left);
 }
 
-// The producer warp's copy of a K = 128 slab of weights, (K, N) row-major
-// in device memory, into a slot as it lies: channel group g (8 channels)
-// at g * kGroupBytes, K row k of it at k * 16. Lane: K row lane % 8, group
-// lane / 8 (+ 4), so a quarter warp writes 128 contiguous bytes.
+// Producer warp pw's part of the copy of a K = 128 slab of weights, (K, N)
+// row-major in device memory, into a slot as it lies: channel group g (8
+// channels) at g * kGroupBytes, K row k of it at k * 16; K rows 8 (pw +
+// 4 i) + lane % 8, groups lane / 8 (+ 4), so a quarter warp writes 128
+// contiguous bytes.
 __device__ __forceinline__ void stage_slab(uint32_t slot, const uint16_t* w,
-                                           int lane) {
+                                           int pw, int lane) {
   const int kl = lane & 7, gl = lane >> 3;
   const uint16_t* s = w + kl * kN + gl * 8;
   const uint32_t d = slot + gl * kGroupBytes + kl * 16;
 #pragma unroll
-  for (int kb = 0; kb < kK / 8; ++kb)
+  for (int kb = pw; kb < kK / 8; kb += kProducers)
 #pragma unroll
     for (int gh = 0; gh < 2; ++gh)
       cp_async16(d + kb * 128 + gh * 4 * kGroupBytes,
@@ -286,23 +287,25 @@ probe_mm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ x2,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid == 0) {
     for (int i = 0; i < kSlots; ++i) {
-      mbar_init(full_x + 8 * i, 32);
+      mbar_init(full_x + 8 * i, 32 * kProducers);
       mbar_init(empty_x + 8 * i, P::kXReleases);
     }
     for (int i = 0; i < P::kWSlots; ++i) {
-      mbar_init(full_w + 8 * i, 32);
+      mbar_init(full_w + 8 * i, 32 * kProducers);
       mbar_init(empty_w + 8 * i, 4 * kConsumers);
     }
   }
   __syncthreads();
 
-  if (warp == 4 * kConsumers) {
-    // the producer: slots in the order the consumers need them
+  if (warp >= 4 * kConsumers) {
+    // the producer warps: slots in the order the consumers need them
+    const int pw = warp - 4 * kConsumers;
     const uint16_t* src = V == kFlat ? x : x2;
     auto load_row = [&](int row) {
       const int slot = row & (kSlots - 1);
-      if (row >= kSlots) mbar_wait(empty_x + 8 * slot, ((row >> 2) - 1) & 1);
-      stage_row<V>(s_x + slot * kSlotBytes, src, row, lane);
+      if (row >= kSlots)
+        mbar_wait(empty_x + 8 * slot, (row / kSlots - 1) & 1);
+      stage_row<V>(s_x + slot * kSlotBytes, src, row, pw, lane);
       mbar_arrive_cp_async(full_x + 8 * slot);
     };
     if (V == kCat9) {
@@ -315,13 +318,13 @@ probe_mm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ x2,
         for (int t = 0; t < 9; ++t) {
           if (t == 3 || t == 6) load_row(2 * q + 1 + t / 3);
           if (q > 0 || t >= P::kWSlots) mbar_wait(empty_w + 8 * ws, phase ^ 1);
-          stage_slab(s_w + ws * kSlabBytes, w + t * kK * kN, lane);
+          stage_slab(s_w + ws * kSlabBytes, w + t * kK * kN, pw, lane);
           mbar_arrive_cp_async(full_w + 8 * ws);
           if (++ws == P::kWSlots) ws = 0, phase ^= 1;
         }
       }
     } else {
-      stage_slab(s_w, w, lane);
+      stage_slab(s_w, w, pw, lane);
       mbar_arrive_cp_async(full_w);
       for (int row = 0; row < kR; ++row) load_row(row);
     }
@@ -346,7 +349,7 @@ probe_mm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ x2,
 #pragma unroll 1
       for (int dy = 0; dy < P::kDy; ++dy) {
         const int row = o + dy, slot = row & (kSlots - 1);
-        mbar_wait(full_x + 8 * slot, (row >> 2) & 1);
+        mbar_wait(full_x + 8 * slot, (row / kSlots) & 1);
         fence_async_proxy();
         const uint32_t b0 = s_x + slot * kSlotBytes;
 #pragma unroll 1
@@ -361,7 +364,7 @@ probe_mm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ x2,
 #pragma unroll
           for (int s = 0; s < kK / 16; ++s)
             wgmma_176(acc,
-                      desc(a0 + s * 256, FDMS_PROBE_A_LBO, FDMS_PROBE_A_SBO),
+                      desc(a0 + s * 256, 128, kGroupBytes),
                       desc(b0 + 2 * s * kPlaneBytes + dx * 16, kPlaneBytes,
                            128),
                       V == kCat9 ? (dy | dx | s) != 0 : s != 0);

@@ -312,6 +312,22 @@ def test_probe_mm_matches_plain(cuda_device, variant, cells):
     assert bool((got == got[0]).all())
 
 
+@pytest.mark.parametrize("variant", PM.VARIANTS)
+def test_probe_mm_is_bit_identical_across_launches_and_cells(cuda_device,
+                                                             variant):
+    """Two launches, the second at 264 cells (two a streaming
+    multiprocessor), give bit-identical rows: a block's order of sums is
+    fixed."""
+    inputs = PM.make_inputs(cuda_device)
+    first = PM.probe_mm(variant, *inputs, 7)
+    second = PM.probe_mm(variant, *inputs, 264)
+    torch.cuda.synchronize()
+    assert bool((second == first[0]).all()) and bool((first == first[0]).all())
+    want = PM.probe_mm_plain(variant, *inputs, 1)
+    rel = float((first[0] - want[0]).abs().max() / want.abs().max())
+    assert rel <= PM.REL_TOL, rel
+
+
 def test_probe_mm_rejects_misaligned_inputs(cuda_device):
     x, x2, w, w9 = PM.make_inputs(cuda_device)
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)

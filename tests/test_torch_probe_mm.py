@@ -132,3 +132,88 @@ def test_cpu_tool_prints_one_line_per_variant(tmp_path, monkeypatch,
     saved = [json.loads(s) for s in
              (tmp_path / "PROBE_MM.json").read_text().splitlines()]
     assert saved == lines
+
+
+def emulate_plan(variant, x, x2, w, w9):
+    """The kernel's tiling (csrc/probe_mm.cu) in torch, float32, one cell:
+    x rows staged into slots of PM.plan's size (flattened rows 176 r ..,
+    zeros past x), output row o's tap (dy, dx) read as the slot of x row
+    o + dy from row dx on (a row offset of 176 dy + dx in x2), columns 174
+    and 175 masked, each tile's product summed tile by tile: per tap for
+    taps, after the K = 1152 product for cat9."""
+    p = PM.plan(variant)
+    tapped = variant in ("taps", "cat9")
+    src = (x if variant == "flat" else x2).float().reshape(PM.R * PM.C, PM.K)
+
+    def slot(r):
+        s = torch.zeros(p["slot_rows"], PM.K)
+        n = min(p["rows"], (PM.R - r) * PM.C)
+        s[:n] = src[r * PM.C:r * PM.C + n]
+        return s
+
+    taps = PM.TAPS if tapped else [(0, 0)]
+    keep = torch.ones(PM.C, 1)
+    if tapped:
+        keep[PM.CQ:] = 0  # positions outside the 34 x 174 window
+    tot = torch.zeros(PM.N)
+    for o in range(PM.RQ if tapped else PM.R):
+        acc = torch.zeros(PM.C, PM.N)
+        for t, (dy, dx) in enumerate(taps):
+            b = slot(o + dy)[dx:dx + PM.C]
+            assert b.shape[0] == PM.C  # the window stays inside its slot
+            wt = w9[t * PM.K:(t + 1) * PM.K] if variant == "cat9" else w
+            d = b @ wt.float()
+            if variant == "cat9":
+                acc += d
+            else:
+                tot += (d * keep).sum(0)
+        if variant == "cat9":
+            tot += (acc * keep).sum(0)
+    return tot
+
+
+@pytest.mark.parametrize("variant", PM.VARIANTS)
+def test_kernel_plan_emulation_matches_plain(variant):
+    inputs = PM.make_inputs("cpu")
+    want = PM.probe_mm_plain(variant, *inputs, cells=1)[0]
+    got = emulate_plan(variant, *inputs)
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= PM.REL_TOL, rel
+
+
+@pytest.mark.parametrize("variant", PM.VARIANTS)
+def test_kernel_plan_covers_every_window_row_once(variant):
+    """Per tap, the unmasked (output row, column) positions of the plan
+    read each row of the tap's window exactly once, and no masked position
+    is inside the window."""
+    p = PM.plan(variant)
+    tapped = variant in ("taps", "cat9")
+    tiles = PM.RQ if tapped else PM.R
+    for dy, dx in (PM.TAPS if tapped else [(0, 0)]):
+        seen = np.zeros(PM.R * PM.C, int)
+        for o in range(tiles):
+            assert o + dy < PM.R and dx + PM.C <= p["slot_rows"]
+            for c in range(PM.CQ if tapped else PM.C):
+                seen[(o + dy) * PM.C + c + dx] += 1
+        window = np.zeros((PM.R, PM.C), int)
+        if tapped:
+            window[dy:dy + PM.RQ, dx:dx + PM.CQ] = 1
+        else:
+            window[:] = 1
+        np.testing.assert_array_equal(seen, window.ravel())
+
+
+def test_staged_bytes_match_a_hand_count():
+    row, slab = 176 * 128 * 2, 128 * 64 * 2
+    assert PM.X_BYTES == 1_622_016 == 36 * row
+    halo = (35 * 178 + 176) * 256  # the last row's halo lies past x
+    want = {"pre2d": 36 * row + slab, "flat": 36 * row + slab,
+            "taps": halo + slab, "cat9": halo + 17 * 9 * slab}
+    assert want == {"pre2d": 1_638_400, "flat": 1_638_400,
+                    "taps": 1_656_320, "cat9": 4_146_688}
+    for variant, n in want.items():
+        p = PM.plan(variant)
+        assert PM.staged_bytes(variant) == n == p["x_bytes"] + p["w_bytes"]
+        # x crosses into shared memory about once a cell, not nine times
+        assert p["x_bytes"] <= 2 * PM.X_BYTES
+    assert PM.plan("taps")["w_bytes"] == slab
