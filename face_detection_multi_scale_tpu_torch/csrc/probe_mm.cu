@@ -41,9 +41,9 @@
 //   * the weights: w (16 KB) stays resident for pre2d, flat and taps; cat9's
 //     w9 (147 KB) does not fit beside the x ring, so its 16 KB tap slabs
 //     stream through a ring of 3 slots, each slab serving both warpgroups
-//     (a pair of output rows). A slab is staged as it lies in memory (the
-//     channels of a K row contiguous): wgmma reads it MN-major (bf16's
-//     transpose bit);
+//     (a pair of output rows). A slab is staged in 16-byte runs of 8
+//     channels of one K row, which wgmma reads MN-major (bf16's transpose
+//     bit), so no copy transposes it;
 //   * staging is asynchronous: the producer warps fill slots with cp.async
 //     (16 bytes a lane, conflict-free in shared memory), each fill
 //     completing on the slot's mbarrier; the consumers wait on it, issue
@@ -110,7 +110,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // 16 bytes from device to shared memory, zeros where !ok. Through L1
 // (.ca): on the H100 the L1-bypassing .cg form staged at about 2 TB/s over
-// the card in this kernel, .ca at about 6 (PERF.md, PR 6).
+// the card in this kernel, .ca at about 6 (PERF.md §6).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
@@ -235,8 +235,8 @@ __device__ __forceinline__ void stage_row(uint32_t slot, const uint16_t* src,
 }
 
 // Producer warp pw's part of the copy of a K = 128 slab of weights, (K, N)
-// row-major in device memory, into a slot as it lies: channel group g (8
-// channels) at g * kGroupBytes, K row k of it at k * 16; K rows 8 (pw +
+// row-major in device memory, into a slot in 16-byte runs: channel group g
+// (8 channels) at g * kGroupBytes, K row k of it at k * 16; K rows 8 (pw +
 // 4 i) + lane % 8, groups lane / 8 (+ 4), so a quarter warp writes 128
 // contiguous bytes.
 __device__ __forceinline__ void stage_slab(uint32_t slot, const uint16_t* w,
@@ -427,9 +427,9 @@ cudaError_t launch(const void* x, const void* x2, const void* w, void* out,
 template <int V>
 void plan(long long* p) {
   using P = Plan<V>;
-  const long long v[] = {kSlots, P::kRows, kSlotRows, P::kWSlots, P::kSmem,
-                         P::kXBytes, P::kWBytes};
-  for (int i = 0; i < 7; ++i) p[i] = v[i];
+  const long long v[] = {kSlots,      P::kRows,   kSlotRows,
+                         P::kWSlots,  P::kXBytes, P::kWBytes};
+  for (int i = 0; i < 6; ++i) p[i] = v[i];
 }
 
 }  // namespace
@@ -457,8 +457,8 @@ extern "C" int fdms_probe_mm(int variant, const void* x, const void* x2,
 
 // The staging plan of variant `variant`, for the wrapper to check its own
 // constants against: x slots, rows staged a slot, a slot's row capacity,
-// weight slots, shared-memory bytes, and the x and weight bytes copied
-// into shared memory a cell. Returns 0, or -1 for an unknown variant.
+// weight slots, and the x and weight bytes copied into shared memory a
+// cell. Returns 0, or -1 for an unknown variant.
 extern "C" int fdms_probe_mm_plan(int variant, long long* out) {
   switch (variant) {
     case kPre2d: plan<kPre2d>(out); return 0;

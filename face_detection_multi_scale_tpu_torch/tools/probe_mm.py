@@ -71,9 +71,10 @@ X_BYTES = 2 * R * C * K  # x itself, 1,622,016 bytes
 
 
 def plan(variant: str) -> dict:
-    """The kernel's staging plan of `variant`, per cell: rows staged a slot,
-    weight slots, and the x and weight bytes copied from device memory into
-    shared memory."""
+    """The kernel's staging plan of `variant`, per cell, in the order
+    csrc/probe_mm.cu's fdms_probe_mm_plan reports it: x slots, rows staged
+    a slot, a slot's row capacity, weight slots, and the x and weight bytes
+    copied from device memory into shared memory."""
     tapped = variant in ("taps", "cat9")
     rows = SLOT_ROWS if tapped else C
     # the last x row's halo lies past x: zero-filled, not copied
@@ -138,13 +139,11 @@ def _library() -> ctypes.CDLL:
     lib.fdms_probe_mm_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.fdms_probe_mm_plan.restype = ctypes.c_int
     for i, variant in enumerate(VARIANTS):
-        got = (ctypes.c_longlong * 7)()
+        want = plan(variant)
+        got = (ctypes.c_longlong * len(want))()
         if lib.fdms_probe_mm_plan(i, got) != 0:
             raise RuntimeError(f"probe_mm.cu has no plan for {variant}")
-        want = plan(variant)
-        mine = [want[k] for k in ("x_slots", "rows", "slot_rows", "w_slots")]
-        theirs = list(got[:4]) + list(got[5:7])
-        if theirs != mine + [want["x_bytes"], want["w_bytes"]]:
+        if list(got) != list(want.values()):
             raise RuntimeError(f"probe_mm.cu's plan for {variant} "
                                f"{list(got)} differs from plan(): {want}")
     return lib
