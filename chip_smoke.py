@@ -21,9 +21,11 @@ Phases, each fatal on failure (nothing is caught to carry on):
      geometry and 512 cells, the launch counter zeroed before and read
      after; each variant within a scale-relative 1e-4 of its plain version
      (float32 sums over 6k-54k rows in another order); kernel, plain,
-     library and bound times, and the bytes the kernel's plan stages into
-     shared memory a cell (tools/probe_mm.staged_bytes) with the rate
-     they imply
+     library and bound times; then one launch of the kernel's counting
+     instantiation (tools/probe_mm.count_staged, outside the counted
+     window) measures the bytes its cp.asyncs stage into shared memory a
+     cell, which must equal the plan's (tools/probe_mm.staged_bytes), and
+     its output must equal the probe's bit for bit
   4. path w6: FaceDetector("yolov7-w6-face") at full width, seeded random
      weights, serves a few requests of 8 synthetic 640x640 frames through
      run_network with the launch counters reset just before and read just
@@ -240,15 +242,23 @@ def check_probe(smi: str):
         row = PM.measure(variant, PROBE_CELLS, PROBE_ITERS, inputs)
         launches = PM.probe_mm.launches
         check(launches > 0, f"probe_mm[{variant}] never launched")
-        staged = PM.staged_bytes(variant)
+        out, staged = PM.count_staged(variant, *inputs, PROBE_CELLS)
+        check(staged == PM.staged_bytes(variant),
+              f"probe_mm[{variant}] staged {staged} B a cell, its plan "
+              f"{PM.staged_bytes(variant)}")
+        staged = int(staged)  # a whole number: it equals the plan's
+        check(bool((out == PM.probe_mm(variant, *inputs, 1)[0]).all()),
+              f"probe_mm[{variant}]'s counting instantiation computes "
+              f"another result")
         print(f"probe_mm[{variant}] {PROBE_CELLS} cells on {smi}: kernel "
               f"{row['total_ms']:.4f} ms ({row['us_per_cell']:.4f} us a "
               f"cell), plain {row['plain_ms']:.4f} ms, library "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"by {row['bound_by']}; max |diff| {row['max_abs_diff']:.3g}, "
               f"/ max |plain| {row['rel_diff']:.3g}; {launches} launches; "
-              f"staged {staged} B a cell, "
-              f"{staged * PROBE_CELLS / row['total_ms'] / 1e9:.3f} TB/s")
+              f"staged {staged} B a cell (counted on the card, as planned), "
+              f"{staged * PROBE_CELLS / row['total_ms'] / 1e9:.3f} TB/s over "
+              f"the kernel's time")
         entries.append({
             "name": f"probe_mm[{variant}]", "route": "cuda",
             "source": "face_detection_multi_scale_tpu_torch/csrc/probe_mm.cu",

@@ -49,7 +49,10 @@
 //     completing on the slot's mbarrier; the consumers wait on it, issue
 //     their wgmmas and release the slot on a second mbarrier when the
 //     tensor cores are done, while later slots are in flight. A lane's
-//     addresses are set once per slot; the loop adds constants;
+//     addresses are set once per slot; the loop adds constants. A second
+//     instantiation (fdms_probe_mm_counted) also counts the bytes its
+//     cp.asyncs read from device memory, so a run measures what the plan
+//     stages rather than taking the plan's word for it;
 //   * the tensor cores' accumulation does not round to nearest: on an H100
 //     a chain over every chunk drifted 2.3e-4 of max |plain| from the plain
 //     version, where chains of at most 72 k16 steps (a K = 1152 dot
@@ -94,7 +97,8 @@ struct Plan {
   static constexpr int kBars = 2 * kSlots + 2 * kWSlots;
   static constexpr int kRedOff = kBarOff + 8 * kBars;
   static constexpr int kSmem = kRedOff + 4 * kConsumers * kN;
-  // bytes copied from device memory into shared memory a cell
+  // bytes the plan copies from device memory into shared memory a cell
+  // (fdms_probe_mm_counted measures them)
   static constexpr long long kXBytes =
       256LL * ((kR - 1) * kRows + (kTapped ? kC : kRows));
   static constexpr long long kWBytes =
@@ -108,14 +112,18 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from device to shared memory, zeros where !ok. Through L1
-// (.ca): on the H100 the L1-bypassing .cg form staged at about 2 TB/s over
-// the card in this kernel, .ca at about 6 (PERF.md §6).
+// 16 bytes from device to shared memory, zeros where !ok; with kCount,
+// adds the bytes read from device memory to `copied`. Through L1 (.ca): on
+// the H100 this kernel runs up to 3x faster with it than with the
+// L1-bypassing .cg form (tools/probe_mm_ab.py, PERF.md §6; why is open,
+// §7).
+template <bool kCount>
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
+                                           bool ok, uint32_t& copied) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(ok ? 16 : 0)
                : "memory");
+  if (kCount) copied += ok ? 16 : 0;
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -221,9 +229,10 @@ __device__ __forceinline__ void wgmma_wait() {
 // 4 (lane / 8) + lane % 4, row offset lane / 4 % 2, so the 8 lanes of a
 // quarter warp hit 32 distinct banks and the warp reads two whole rows (512
 // contiguous bytes) a step. Rows past x are zeros.
-template <int V>
+template <int V, bool kCount>
 __device__ __forceinline__ void stage_row(uint32_t slot, const uint16_t* src,
-                                          int row, int pw, int lane) {
+                                          int row, int pw, int lane,
+                                          uint32_t& copied) {
   const int kc = 4 * (lane >> 3) + (lane & 3), qo = (lane >> 2) & 1;
   const uint16_t* s = src + (static_cast<long long>(row) * kC + qo) * kK +
                       kc * 8;
@@ -231,7 +240,8 @@ __device__ __forceinline__ void stage_row(uint32_t slot, const uint16_t* src,
   const int left = (kR - row) * kC - qo;  // rows of x from this lane's first
 #pragma unroll 4
   for (int q = 2 * pw; q < Plan<V>::kRows; q += 2 * kProducers)
-    cp_async16(d + q * 16, q < left ? s + q * kK : src, q < left);
+    cp_async16<kCount>(d + q * 16, q < left ? s + q * kK : src, q < left,
+                       copied);
 }
 
 // Producer warp pw's part of the copy of a K = 128 slab of weights, (K, N)
@@ -239,8 +249,10 @@ __device__ __forceinline__ void stage_row(uint32_t slot, const uint16_t* src,
 // (8 channels) at g * kGroupBytes, K row k of it at k * 16; K rows 8 (pw +
 // 4 i) + lane % 8, groups lane / 8 (+ 4), so a quarter warp writes 128
 // contiguous bytes.
+template <bool kCount>
 __device__ __forceinline__ void stage_slab(uint32_t slot, const uint16_t* w,
-                                           int pw, int lane) {
+                                           int pw, int lane,
+                                           uint32_t& copied) {
   const int kl = lane & 7, gl = lane >> 3;
   const uint16_t* s = w + kl * kN + gl * 8;
   const uint32_t d = slot + gl * kGroupBytes + kl * 16;
@@ -248,8 +260,8 @@ __device__ __forceinline__ void stage_slab(uint32_t slot, const uint16_t* w,
   for (int kb = pw; kb < kK / 8; kb += kProducers)
 #pragma unroll
     for (int gh = 0; gh < 2; ++gh)
-      cp_async16(d + kb * 128 + gh * 4 * kGroupBytes,
-                 s + kb * 8 * kN + gh * 32, true);
+      cp_async16<kCount>(d + kb * 128 + gh * 4 * kGroupBytes,
+                         s + kb * 8 * kN + gh * 32, true, copied);
 }
 
 // Adds a tile's accumulator into the thread's two channel totals (its
@@ -269,10 +281,13 @@ __device__ __forceinline__ void add_tile(const float (&d)[kAcc], bool mask,
   t1 += s[2] + s[3];
 }
 
-template <int V>
+// kCount: also add the bytes the cp.asyncs read from device memory to
+// *staged (over every block)
+template <int V, bool kCount>
 __global__ void __launch_bounds__(kThreads, 1)
 probe_mm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ x2,
-                const uint16_t* __restrict__ w, float* __restrict__ out) {
+                const uint16_t* __restrict__ w, float* __restrict__ out,
+                unsigned long long* __restrict__ staged) {
   using P = Plan<V>;
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t s_x = smem_u32(smem);
@@ -301,11 +316,13 @@ probe_mm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ x2,
     // the producer warps: slots in the order the consumers need them
     const int pw = warp - 4 * kConsumers;
     const uint16_t* src = V == kFlat ? x : x2;
+    uint32_t copied = 0;  // kCount: bytes this lane's cp.asyncs read
     auto load_row = [&](int row) {
       const int slot = row & (kSlots - 1);
       if (row >= kSlots)
         mbar_wait(empty_x + 8 * slot, (row / kSlots - 1) & 1);
-      stage_row<V>(s_x + slot * kSlotBytes, src, row, pw, lane);
+      stage_row<V, kCount>(s_x + slot * kSlotBytes, src, row, pw, lane,
+                           copied);
       mbar_arrive_cp_async(full_x + 8 * slot);
     };
     if (V == kCat9) {
@@ -318,17 +335,24 @@ probe_mm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ x2,
         for (int t = 0; t < 9; ++t) {
           if (t == 3 || t == 6) load_row(2 * q + 1 + t / 3);
           if (q > 0 || t >= P::kWSlots) mbar_wait(empty_w + 8 * ws, phase ^ 1);
-          stage_slab(s_w + ws * kSlabBytes, w + t * kK * kN, pw, lane);
+          stage_slab<kCount>(s_w + ws * kSlabBytes, w + t * kK * kN, pw,
+                             lane, copied);
           mbar_arrive_cp_async(full_w + 8 * ws);
           if (++ws == P::kWSlots) ws = 0, phase ^= 1;
         }
       }
     } else {
-      stage_slab(s_w, w, pw, lane);
+      stage_slab<kCount>(s_w, w, pw, lane, copied);
       mbar_arrive_cp_async(full_w);
       for (int row = 0; row < kR; ++row) load_row(row);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (kCount) {
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1)
+        copied += __shfl_xor_sync(0xffffffffu, copied, m);
+      if (lane == 0) atomicAdd(staged, static_cast<unsigned long long>(copied));
+    }
   } else {
     // a consumer warpgroup: output rows g, g + 2, ...
     const int g = warp >> 2, wq = warp & 3;
@@ -411,25 +435,45 @@ probe_mm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ x2,
   }
 }
 
-template <int V>
+template <int V, bool kCount>
 cudaError_t launch(const void* x, const void* x2, const void* w, void* out,
-                   int cells, cudaStream_t stream) {
+                   int cells, cudaStream_t stream, void* staged) {
   const cudaError_t err = cudaFuncSetAttribute(
-      probe_mm_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      probe_mm_kernel<V, kCount>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Plan<V>::kSmem);
   if (err != cudaSuccess) return err;
-  probe_mm_kernel<V><<<cells, kThreads, Plan<V>::kSmem, stream>>>(
+  probe_mm_kernel<V, kCount><<<cells, kThreads, Plan<V>::kSmem, stream>>>(
       static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(x2),
-      static_cast<const uint16_t*>(w), static_cast<float*>(out));
+      static_cast<const uint16_t*>(w), static_cast<float*>(out),
+      static_cast<unsigned long long*>(staged));
   return cudaGetLastError();
+}
+
+template <bool kCount>
+int run(int variant, const void* x, const void* x2, const void* w,
+        const void* w9, void* out, int cells, int device, void* stream,
+        void* staged) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case kPre2d: err = launch<kPre2d, kCount>(x, x2, w, out, cells, s, staged);
+      break;
+    case kFlat: err = launch<kFlat, kCount>(x, x2, w, out, cells, s, staged);
+      break;
+    case kTaps: err = launch<kTaps, kCount>(x, x2, w, out, cells, s, staged);
+      break;
+    case kCat9: err = launch<kCat9, kCount>(x, x2, w9, out, cells, s, staged);
+      break;
+    default: return -1;
+  }
+  return static_cast<int>(err);
 }
 
 template <int V>
 void plan(long long* p) {
-  using P = Plan<V>;
-  const long long v[] = {kSlots,      P::kRows,   kSlotRows,
-                         P::kWSlots,  P::kXBytes, P::kWBytes};
-  for (int i = 0; i < 6; ++i) p[i] = v[i];
+  p[0] = Plan<V>::kXBytes;
+  p[1] = Plan<V>::kWBytes;
 }
 
 }  // namespace
@@ -442,23 +486,23 @@ void plan(long long* p) {
 extern "C" int fdms_probe_mm(int variant, const void* x, const void* x2,
                              const void* w, const void* w9, void* out,
                              int cells, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case kPre2d: err = launch<kPre2d>(x, x2, w, out, cells, s); break;
-    case kFlat: err = launch<kFlat>(x, x2, w, out, cells, s); break;
-    case kTaps: err = launch<kTaps>(x, x2, w, out, cells, s); break;
-    case kCat9: err = launch<kCat9>(x, x2, w9, out, cells, s); break;
-    default: return -1;
-  }
-  return static_cast<int>(err);
+  return run<false>(variant, x, x2, w, w9, out, cells, device, stream,
+                    nullptr);
+}
+
+// fdms_probe_mm, launching the instantiation that also adds the bytes its
+// cp.asyncs read from device memory, over every block, to *staged (one
+// unsigned 64-bit integer on the device, zeroed by the caller).
+extern "C" int fdms_probe_mm_counted(int variant, const void* x,
+                                     const void* x2, const void* w,
+                                     const void* w9, void* out, int cells,
+                                     int device, void* stream, void* staged) {
+  return run<true>(variant, x, x2, w, w9, out, cells, device, stream, staged);
 }
 
 // The staging plan of variant `variant`, for the wrapper to check its own
-// constants against: x slots, rows staged a slot, a slot's row capacity,
-// weight slots, and the x and weight bytes copied into shared memory a
-// cell. Returns 0, or -1 for an unknown variant.
+// constants against: the x and weight bytes it copies into shared memory
+// a cell. Returns 0, or -1 for an unknown variant.
 extern "C" int fdms_probe_mm_plan(int variant, long long* out) {
   switch (variant) {
     case kPre2d: plan<kPre2d>(out); return 0;

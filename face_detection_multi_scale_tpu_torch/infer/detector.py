@@ -104,10 +104,9 @@ class FaceDetector:
         net = YoloFace(self.spec)
         if variables is None:
             init_weights(net, torch.Generator().manual_seed(seed))
-        elif "params" in variables:  # a JAX-layout tree
-            net.load_state_dict(jax_to_state_dict(variables))
-        else:  # a torch state dict with reference key names
-            load_reference_state_dict(net, variables)
+        else:  # a JAX-layout tree, or a state dict with reference keys
+            load_reference_state_dict(net, jax_to_state_dict(variables)
+                                      if "params" in variables else variables)
         if fuse:
             fold_bn(net)
         self.model = net.eval().to(self.device)

@@ -59,30 +59,29 @@ REL_TOL = 1e-4
 BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 # The kernel's staging plan (csrc/probe_mm.cu's Plan; `_library` checks
-# these against the built kernel's own): x rows of 176 positions go once a
-# cell through a ring of X_SLOTS slots; with the taps a slot also holds the
-# 2 halo rows its dx offsets reach (SLOT_ROWS), zeros past x. The weights:
-# w staged once; cat9's nine 16 KB tap slabs of w9 through W_SLOTS slots,
-# once for every pair of output rows (both warpgroups read each slab).
-X_SLOTS = 4
+# its byte totals against the built kernel's own, and `count_staged`
+# measures them): x rows of 176 positions go once a cell through a ring of
+# slots; with the taps a slot also holds the 2 halo rows its dx offsets
+# reach (SLOT_ROWS), zeros past x. The weights: w staged once; cat9's nine
+# 16 KB tap slabs of w9 once for every pair of output rows (both
+# warpgroups read each slab).
 SLOT_ROWS = C + 2
 SLAB_BYTES = 2 * K * N
 X_BYTES = 2 * R * C * K  # x itself, 1,622,016 bytes
 
 
 def plan(variant: str) -> dict:
-    """The kernel's staging plan of `variant`, per cell, in the order
-    csrc/probe_mm.cu's fdms_probe_mm_plan reports it: x slots, rows staged
-    a slot, a slot's row capacity, weight slots, and the x and weight bytes
-    copied from device memory into shared memory."""
+    """The kernel's staging plan of `variant`, per cell: rows staged a
+    slot, a slot's row capacity, and the x and weight bytes copied from
+    device memory into shared memory (the last two as csrc/probe_mm.cu's
+    fdms_probe_mm_plan reports them)."""
     tapped = variant in ("taps", "cat9")
     rows = SLOT_ROWS if tapped else C
     # the last x row's halo lies past x: zero-filled, not copied
     x_rows = (R - 1) * rows + C
-    cat9 = variant == "cat9"
-    return {"x_slots": X_SLOTS, "rows": rows, "slot_rows": SLOT_ROWS,
-            "w_slots": 3 if cat9 else 1, "x_bytes": 2 * K * x_rows,
-            "w_bytes": SLAB_BYTES * (9 * RQ // 2 if cat9 else 1)}
+    return {"rows": rows, "slot_rows": SLOT_ROWS, "x_bytes": 2 * K * x_rows,
+            "w_bytes": SLAB_BYTES * (9 * RQ // 2 if variant == "cat9"
+                                     else 1)}
 
 
 def staged_bytes(variant: str) -> int:
@@ -136,25 +135,24 @@ def _library() -> ctypes.CDLL:
     lib.fdms_probe_mm.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.fdms_probe_mm.restype = ctypes.c_int
+    lib.fdms_probe_mm_counted.argtypes = lib.fdms_probe_mm.argtypes + [
+        ctypes.c_void_p]
+    lib.fdms_probe_mm_counted.restype = ctypes.c_int
     lib.fdms_probe_mm_plan.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.fdms_probe_mm_plan.restype = ctypes.c_int
     for i, variant in enumerate(VARIANTS):
-        want = plan(variant)
-        got = (ctypes.c_longlong * len(want))()
+        p = plan(variant)
+        want = [p["x_bytes"], p["w_bytes"]]
+        got = (ctypes.c_longlong * 2)()
         if lib.fdms_probe_mm_plan(i, got) != 0:
             raise RuntimeError(f"probe_mm.cu has no plan for {variant}")
-        if list(got) != list(want.values()):
-            raise RuntimeError(f"probe_mm.cu's plan for {variant} "
-                               f"{list(got)} differs from plan(): {want}")
+        if list(got) != want:
+            raise RuntimeError(f"probe_mm.cu stages {list(got)} (x, weight) "
+                               f"bytes a cell for {variant}, plan() {want}")
     return lib
 
 
-def probe_mm(variant: str, x, x2, w, w9, cells: int) -> torch.Tensor:
-    """The probe: (cells, N) float32, each row the column sum of the
-    variant's product. x (R, C, K), x2 (R*C, K), w (K, N), w9 (9K, N), all
-    bf16 and contiguous on one device. CPU tensors: the plain version.
-    CUDA tensors: one launch of the kernel over `cells` blocks, counted in
-    `probe_mm.launches`."""
+def _check(variant: str, x, x2, w, w9, cells: int) -> None:
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     tensors = {"x": x, "x2": x2, "w": w, "w9": w9}
@@ -168,28 +166,61 @@ def probe_mm(variant: str, x, x2, w, w9, cells: int) -> torch.Tensor:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
     if not 0 <= cells < 2 ** 31:
         raise ValueError(f"cells must be in [0, 2**31), got {cells}")
-    if x.device.type == "cpu":
-        return probe_mm_plain(variant, x, x2, w, w9, cells)
-    if x.device.type != "cuda":
+    if x.device.type == "cuda":
+        for name, t in tensors.items():
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(
+                    f"{name} must be contiguous and 16-byte aligned")
+    elif x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
-    for name, t in tensors.items():
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _launch(variant: str, x, x2, w, w9, cells: int, staged=None):
     out = torch.empty((cells, N), dtype=torch.float32, device=x.device)
     if cells == 0:
         return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _library().fdms_probe_mm(
-        VARIANTS.index(variant), x.data_ptr(), x2.data_ptr(), w.data_ptr(),
-        w9.data_ptr(), out.data_ptr(), cells, x.device.index, stream)
+    args = (VARIANTS.index(variant), x.data_ptr(), x2.data_ptr(),
+            w.data_ptr(), w9.data_ptr(), out.data_ptr(), cells,
+            x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _library()
+    err = (lib.fdms_probe_mm(*args) if staged is None else
+           lib.fdms_probe_mm_counted(*args, staged.data_ptr()))
     if err != 0:
         raise RuntimeError(f"probe_mm ({variant}) kernel launch failed: "
                            f"CUDA error {err}")
-    probe_mm.launches += 1
+    return out
+
+
+def probe_mm(variant: str, x, x2, w, w9, cells: int) -> torch.Tensor:
+    """The probe: (cells, N) float32, each row the column sum of the
+    variant's product. x (R, C, K), x2 (R*C, K), w (K, N), w9 (9K, N), all
+    bf16 and contiguous on one device. CPU tensors: the plain version.
+    CUDA tensors: one launch of the kernel over `cells` blocks, counted in
+    `probe_mm.launches`."""
+    _check(variant, x, x2, w, w9, cells)
+    if x.device.type == "cpu":
+        return probe_mm_plain(variant, x, x2, w, w9, cells)
+    out = _launch(variant, x, x2, w, w9, cells)
+    if cells:
+        probe_mm.launches += 1
     return out
 
 
 probe_mm.launches = 0
+
+
+def count_staged(variant: str, x, x2, w, w9, cells: int):
+    """One launch of the kernel's counting instantiation, which also counts
+    on the card the bytes its cp.asyncs read from device memory: returns
+    its (cells, N) output and the bytes staged per cell. CUDA tensors
+    only; not counted in `probe_mm.launches` (a measurement, not the
+    probe)."""
+    _check(variant, x, x2, w, w9, cells)
+    if x.device.type != "cuda" or cells < 1:
+        raise ValueError("count_staged needs CUDA tensors and cells >= 1")
+    staged = torch.zeros(1, dtype=torch.int64, device=x.device)
+    out = _launch(variant, x, x2, w, w9, cells, staged)
+    return out, int(staged.item()) / cells
 
 
 def library_call(variant: str, x, x2, w, w9, cells: int):

@@ -328,6 +328,21 @@ def test_probe_mm_is_bit_identical_across_launches_and_cells(cuda_device,
     assert rel <= PM.REL_TOL, rel
 
 
+@pytest.mark.parametrize("variant", PM.VARIANTS)
+def test_probe_mm_stages_the_planned_bytes(cuda_device, variant):
+    """The counting instantiation's cp.asyncs read exactly the plan's
+    bytes a cell, at one cell and at 133, and it computes what the probe
+    computes, bit for bit, without adding to the launch counter."""
+    inputs = PM.make_inputs(cuda_device)
+    want = PM.probe_mm(variant, *inputs, 1)[0]
+    launches = PM.probe_mm.launches
+    for cells in (1, 133):
+        out, staged = PM.count_staged(variant, *inputs, cells)
+        assert staged == PM.staged_bytes(variant), (cells, staged)
+        assert bool((out == want).all())
+    assert PM.probe_mm.launches == launches
+
+
 def test_probe_mm_rejects_misaligned_inputs(cuda_device):
     x, x2, w, w9 = PM.make_inputs(cuda_device)
     flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)

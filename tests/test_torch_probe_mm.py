@@ -217,3 +217,26 @@ def test_staged_bytes_match_a_hand_count():
         # x crosses into shared memory about once a cell, not nine times
         assert p["x_bytes"] <= 2 * PM.X_BYTES
     assert PM.plan("taps")["w_bytes"] == slab
+
+
+def test_count_staged_needs_the_card():
+    """The staged-byte count is taken by the kernel: on CPU tensors, where
+    the wrapper runs the plain version, there is nothing to count."""
+    with pytest.raises(ValueError, match="CUDA"):
+        PM.count_staged("taps", *PM.make_inputs("cpu"), 1)
+
+
+def test_ab_tool_writes_the_replaced_source(tmp_path, monkeypatch):
+    from face_detection_multi_scale_tpu_torch.ops import cuda_build
+    from face_detection_multi_scale_tpu_torch.tools import probe_mm_ab as AB
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    assert AB.source_for("base", 0) == PM.SOURCE
+    path = AB.source_for("cp.async.ca.=>cp.async.cg.", 1)
+    assert path.parent == tmp_path
+    text = path.read_text()
+    assert "cp.async.cg." in text and "cp.async.ca." not in text
+    assert text.replace("cp.async.cg.", "cp.async.ca.") == \
+        PM.SOURCE.read_text()
+    with pytest.raises(SystemExit, match="no"):
+        AB.source_for("no such text=>x", 2)
