@@ -1,7 +1,8 @@
 // Greedy-NMS keep mask over score-sorted candidates, for sm_90a.
 //
 // Replaces face_detection_multi_scale_tpu/ops/pallas_nms.py::_kernel_seq
-// (reached through nms_keep_pallas). Contract, per image b:
+// (reached through nms_keep_pallas); the fixpoint version further down
+// replaces its _kernel. Contract, per image b:
 //   boxes (B, K, 4) f32 xyxy, sorted by descending score; valid (B, K) u8;
 //   keep[i] = valid[i] and no j < i with keep[j] and IoU(i, j) > thr,
 //   IoU(i, j) = inter / ((area_i + area_j) - inter) in IEEE f32.
@@ -40,8 +41,15 @@
 // A pair with no intersection skips the division when thr >= 0: 0 / u is
 // 0 or NaN, neither > thr, so the bit is the same.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -195,56 +203,147 @@ nms_scan_kernel(const unsigned long long* __restrict__ mask,
 
 // The fixpoint version. Replaces
 // face_detection_multi_scale_tpu/ops/pallas_nms.py::_kernel (reached through
-// nms_keep_pallas(kernel_version="fixpoint")): Jacobi sweeps over the whole
-// candidate list,
+// nms_keep_pallas(kernel_version="fixpoint")): Jacobi sweeps
 //   keep'[i] = valid[i] and no j < i with keep[j] and IoU(i, j) > thr,
-// from keep = valid, until a sweep changes nothing (at most K sweeps, as the
-// TPU kernel bounds its loop). The fixpoint is sequential greedy NMS, so the
-// result equals the seq kernel's. Bounded by operations like the seq kernel,
-// but doing sweeps x K^2/2 IoU tests at worst; the design keeps only the two
-// keep vectors in shared memory (2K bytes), reads the boxes from device
-// memory (cached: every lane of a warp reads the same column j at once), and
-// tests a pair only where keep[j] is set. One block per image.
-constexpr int kFixThreads = 256;
+// each from the previous sweep's keep alone, from keep = valid until a
+// sweep changes nothing or K sweeps are done (the TPU kernel's bound). The
+// fixpoint is sequential greedy NMS, so the mask equals the seq kernel's;
+// reaching it by sweeps, not by a forward scan, is the cross-check.
+//
+// What bounds it on the card: the TPU kernel recomputes every IoU in every
+// sweep. Here pass 1 above (nms_mask_kernel, the seq kernel's, unchanged)
+// tests each pair once into the bit rows, and a sweep is integer logic:
+//   removed[w] = OR of row i's word w over the kept rows i < 64 (w + 1),
+//   keep'[w] = valid bits[w] & ~removed[w].
+// A sweep then costs the reads of the kept rows' words (the scratch, 16.8
+// MB at B = 8, K = 4096, stays in the 50 MB L2) and one barrier, and a
+// chain of suppressions settles about one candidate a sweep, so the design
+// keeps a sweep short rather than few:
+//   * nms_sweep_kernel: one thread-block cluster of C blocks per image
+//     (the wrapper's FIXPOINT_CLUSTER). Rank r owns the words [lo(r),
+//     lo(r + 1)) (split_word): word w gathers from 64 (w + 1) rows, so the
+//     split evens out each block's share of the triangle's area. Every
+//     block keeps the whole keep vector, double-buffered, and the valid
+//     bits in shared memory (K / 8 bytes each).
+//   * In a sweep a warp takes row tiles (64 rows, one keep word) in turn;
+//     g lanes (the owned word count rounded up to a power of two, at most
+//     32) read consecutive words of one kept row, so a row's owned words
+//     are one coalesced load, 32 / g rows at once and kFixUnroll loads in
+//     flight a lane; the words are ORed into the block's `removed` words
+//     with shared-memory atomics. Only rows whose keep bit is set are read,
+//     and only their words at or right of the diagonal word: pass 1 never
+//     writes the others.
+//   * A block writes its new words into every block's next buffer through
+//     distributed shared memory; a block whose words changed writes the
+//     sweep's number into every block's flag of that parity. One
+//     barrier.cluster (arrive.release, wait.acquire) ends the sweep; every
+//     block then reads the same flag and all stop after the same sweep.
+//     Blocks that own no word (K <= 64 (C - 1)) arrive at every barrier all
+//     the same.
+//   * keep is written once, at the end, each block its own words' rows;
+//     rank 0 writes the sweep count (sweeps computed, the last one that
+//     changed nothing included, at most K).
+constexpr int kFixThreads = 512;
+constexpr int kFixUnroll = 8;  // kept rows' words a lane loads together
+
+// The first word of rank r when c ranks split `words` words: the least w
+// with w (w + 1) c >= r words (words + 1).
+__device__ __forceinline__ int split_word(int r, int c, int words) {
+  const long long target = static_cast<long long>(r) * words * (words + 1LL);
+  int w = static_cast<int>(
+      sqrt(static_cast<double>(target) / c + 0.25) - 0.5);
+  w = max(0, min(words, w));
+  while (w > 0 && (w - 1LL) * w * c >= target) --w;
+  while (w < words && w * (w + 1LL) * c < target) ++w;
+  return w;
+}
+
+// Grid (C, B), clusters of C blocks along x: blockIdx.y is the image.
 __global__ void __launch_bounds__(kFixThreads)
-nms_keep_fixpoint_kernel(const float4* __restrict__ boxes,
-                         const uint8_t* __restrict__ valid,
-                         uint8_t* __restrict__ keep, int k, float thr) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* s_old = smem;      // keep before the sweep
-  uint8_t* s_new = smem + k;  // keep after it
-  const size_t off = static_cast<size_t>(blockIdx.x) * k;
-  boxes += off;
+nms_sweep_kernel(const unsigned long long* __restrict__ mask,
+                 const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep,
+                 int* __restrict__ sweeps, int k, int words) {
+  extern __shared__ __align__(16) unsigned long long s_fix[];
+  unsigned long long* const s_valid = s_fix + 2 * words;
+  unsigned long long* const s_removed = s_fix + 3 * words;  // owned words
+  __shared__ int s_flag[2];  // the last sweep, by parity, that changed keep
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_ranks = static_cast<int>(cluster.num_blocks());
+  const int lo = split_word(static_cast<int>(cluster.block_rank()), n_ranks,
+                            words);
+  const int hi = split_word(static_cast<int>(cluster.block_rank()) + 1,
+                            n_ranks, words);
+  const int n = hi - lo;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t off = static_cast<size_t>(blockIdx.y) * k;
+  mask += off * words;
   valid += off;
   keep += off;
 
-  for (int i = threadIdx.x; i < k; i += blockDim.x) s_old[i] = valid[i] != 0;
-  __syncthreads();
-  for (int sweep = 0; sweep < k; ++sweep) {
-    int changed = 0;
-    for (int i = threadIdx.x; i < k; i += blockDim.x) {
-      uint8_t v = valid[i] != 0;
-      if (v) {
-        const float4 me = boxes[i];
-        const float my_area = box_area(me);
-        for (int j = 0; j < i; ++j) {
-          if (!s_old[j]) continue;
-          const float4 c = boxes[j];
-          if (overlaps(me, my_area, c, box_area(c), thr)) {
-            v = 0;
-            break;
-          }
-        }
-      }
-      s_new[i] = v;
-      changed |= v != s_old[i];
-    }
-    changed = __syncthreads_or(changed);  // every s_new written, s_old read
-    if (!changed) break;
-    for (int i = threadIdx.x; i < k; i += blockDim.x) s_old[i] = s_new[i];
-    __syncthreads();
+  // every row's valid bit, 32 rows a ballot; keep starts as valid
+  unsigned* const v32 = reinterpret_cast<unsigned*>(s_valid);
+  for (int base = 0; base < 64 * words; base += kFixThreads) {
+    const int i = base + tid;
+    const unsigned v = __ballot_sync(0xffffffffu, i < k && valid[i] != 0);
+    if (lane == 0 && i < 64 * words) v32[i >> 5] = v;
   }
-  for (int i = threadIdx.x; i < k; i += blockDim.x) keep[i] = s_old[i];
+  __syncthreads();
+  for (int w = tid; w < words; w += kFixThreads) s_fix[w] = s_valid[w];
+  for (int t = tid; t < n; t += kFixThreads) s_removed[t] = 0ull;
+  if (tid < 2) s_flag[tid] = 0;
+  cluster.sync();  // set before any block writes into another
+
+  int g = 1;  // lanes a row: the owned words, a power of two up to 32
+  while (g < n && g < 32) g <<= 1;
+  const int at_once = 32 / g, q = lane % g, sub = lane / g;
+  int sweep = 0;
+  for (;;) {
+    // the keep buffers: s_fix[0, words) and s_fix[words, 2 words)
+    const unsigned long long* const cur = s_fix + (sweep & 1) * words;
+    unsigned long long* const nxt = s_fix + ((sweep + 1) & 1) * words;
+    for (int u = warp; u < hi; u += kFixThreads / 32) {  // row tiles
+      const unsigned long long kb = cur[u];
+      if (kb == 0ull) continue;
+      const unsigned long long* rows =
+          mask + static_cast<size_t>(u) * kTile * words;
+      for (int w0 = max(lo, u); w0 < hi; w0 += g) {
+        const int w = w0 + q;
+        if (w >= hi) continue;
+        unsigned long long acc = 0ull;
+        for (int r0 = sub; r0 < kTile; r0 += at_once * kFixUnroll) {
+          unsigned long long v[kFixUnroll];
+#pragma unroll
+          for (int t = 0; t < kFixUnroll; ++t) {
+            const int r = r0 + t * at_once;
+            v[t] = r < kTile && ((kb >> r) & 1ull)
+                       ? __ldg(rows + static_cast<size_t>(r) * words + w)
+                       : 0ull;
+          }
+#pragma unroll
+          for (int t = 0; t < kFixUnroll; ++t) acc |= v[t];
+        }
+        if (acc != 0ull) atomicOr(&s_removed[w - lo], acc);
+      }
+    }
+    __syncthreads();
+    ++sweep;
+    for (int t = tid; t < n; t += kFixThreads) {
+      const int w = lo + t;
+      const unsigned long long nw = s_valid[w] & ~s_removed[t];
+      s_removed[t] = 0ull;
+      for (int p = 0; p < n_ranks; ++p) *cluster.map_shared_rank(nxt + w, p) = nw;
+      if (nw != cur[w])
+        for (int p = 0; p < n_ranks; ++p)
+          *cluster.map_shared_rank(&s_flag[(sweep - 1) & 1], p) = sweep;
+    }
+    cluster.sync();
+    if (s_flag[(sweep - 1) & 1] != sweep || sweep == k) break;
+  }
+  // no block touches another's shared memory after the last barrier
+  const unsigned long long* const fin = s_fix + (sweep & 1) * words;
+  for (int i = kTile * lo + tid; i < min(k, kTile * hi); i += kFixThreads)
+    keep[i] = static_cast<uint8_t>((fin[i >> 6] >> (i & 63)) & 1ull);
+  if (cluster.block_rank() == 0 && tid == 0) sweeps[blockIdx.y] = sweep;
 }
 
 cudaError_t set_smem(const void* kernel, size_t smem) {
@@ -254,24 +353,100 @@ cudaError_t set_smem(const void* kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// Clears the error a refused call leaves behind, so the next launch's
+// cudaGetLastError() does not report it again.
+int fail(cudaError_t err) {
+  cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+size_t sweep_smem(int k) {  // two keep buffers, valid bits, removed words
+  return 4 * sizeof(unsigned long long) * ((k + kTile - 1) / kTile);
+}
+
+cudaLaunchConfig_t sweep_config(int b, int cluster, size_t smem,
+                                cudaStream_t stream,
+                                cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, b);
+  cfg.blockDim = dim3(kFixThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// cudaOccupancyMaxActiveClusters for the sweep kernel at (device, cluster,
+// shared memory), once per key: the kernel's attributes are set first.
+cudaError_t active_clusters(int device, int cluster, size_t smem, int* out) {
+  static std::mutex lock;
+  static std::map<std::tuple<int, int, size_t>, int> known;
+  std::lock_guard<std::mutex> guard(lock);
+  const auto key = std::make_tuple(device, cluster, smem);
+  const auto hit = known.find(key);
+  if (hit != known.end()) {
+    *out = hit->second;
+    return cudaSuccess;
+  }
+  cudaError_t err =
+      set_smem(reinterpret_cast<const void*>(nms_sweep_kernel), smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        nms_sweep_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sweep_config(1, cluster, smem, nullptr, &attr);
+  err = cudaOccupancyMaxActiveClusters(out, nms_sweep_kernel, &cfg);
+  if (err == cudaSuccess) known[key] = *out;
+  return err;
+}
+
 }  // namespace
 
-// Launches the fixpoint kernel; the same interface as fdms_nms_keep below.
-extern "C" int fdms_nms_keep_fixpoint(const void* boxes, const void* valid,
-                                      void* keep, int b, int k, float thr,
-                                      int device, void* stream) {
+// How many clusters of `cluster` sweep blocks the card holds at once for K
+// candidates (cudaOccupancyMaxActiveClusters) into *out; returns the CUDA
+// error (0 on success).
+extern "C" int fdms_nms_sweep_clusters(int k, int cluster, int device,
+                                       int* out) {
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = 2 * static_cast<size_t>(k);
-  err = set_smem(reinterpret_cast<const void*>(nms_keep_fixpoint_kernel),
-                 smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nms_keep_fixpoint_kernel<<<b, kFixThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(keep), k, thr);
+  if (err != cudaSuccess) return fail(err);
+  if (cluster < 1) return fail(cudaErrorInvalidValue);
+  err = active_clusters(device, cluster, sweep_smem(k), out);
+  return err == cudaSuccess ? 0 : fail(err);
+}
+
+// The fixpoint version's sweeps on `stream` of `device`, from pass 1's
+// `mask` (fdms_nms_mask's, the same b and k): keep (b, k) bytes and sweeps
+// (b) int32, one cluster of `cluster` blocks per image. A cluster size the
+// card cannot schedule is an error (cudaErrorLaunchOutOfResources when
+// cudaOccupancyMaxActiveClusters gives 0), never a slower launch.
+extern "C" int fdms_nms_sweep(const void* mask, const void* valid, void* keep,
+                              void* sweeps, int b, int k, int cluster,
+                              int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return fail(err);
+  if (b > 65535 || cluster < 1) return fail(cudaErrorInvalidValue);
+  const size_t smem = sweep_smem(k);
+  int active = 0;
+  err = active_clusters(device, cluster, smem, &active);
+  if (err != cudaSuccess) return fail(err);
+  if (active < 1) return fail(cudaErrorLaunchOutOfResources);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sweep_config(
+      b, cluster, smem, static_cast<cudaStream_t>(stream), &attr);
+  err = cudaLaunchKernelEx(
+      &cfg, nms_sweep_kernel, static_cast<const unsigned long long*>(mask),
+      static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep),
+      static_cast<int*>(sweeps), k, (k + kTile - 1) / kTile);
+  if (err != cudaSuccess) return fail(err);
   return static_cast<int>(cudaGetLastError());
 }
+
 
 // Pass 1 on `stream` of `device`; returns cudaGetLastError() (0 on
 // success). boxes: (b, k, 4) f32, 16-byte aligned; valid: (b, k) bytes;

@@ -10,17 +10,22 @@ use (ops/cuda_build.py) and bound with ctypes.
 
 What bounds them on the card: operations, not bytes. Each candidate costs
 18 bytes of traffic, while the greedy scan needs one f32 IoU (about 12
-operations) per pair of a candidate and an earlier keeper. "seq" is two
-kernels on the stream: pass 1 fills bit-packed suppression rows for every
-(row tile, column tile >= row tile) pair of 64 candidates over the whole
-card (B x T(T+1)/2 blocks, T = ceil(K / 64)); pass 2, one block per image,
-walks the rows in score order with a `removed` bit vector in shared
-memory. The rows go into a scratch buffer, `mask_words(B, K)` 64-bit
+operations) per pair of a candidate and an earlier keeper. Both versions
+start with the same pass 1, which fills bit-packed suppression rows for
+every (row tile, column tile >= row tile) pair of 64 candidates over the
+whole card (B x T(T+1)/2 blocks, T = ceil(K / 64)), each pair's IoU
+tested once. The rows go into a scratch buffer, `mask_words(B, K)` 64-bit
 words: B * K * ceil(K / 64), 16.8 MB at B = 8, K = 4096 and 64 MB at
-B = 2, K = 16384. "fixpoint": one block per image runs Jacobi sweeps
-keep' = valid & ~any_{j<i}(IoU > thr & keep_j) over all candidates, the
-keep vectors in shared memory, until a sweep changes nothing; it never
-stores the K x K matrix. See the source for the layout.
+B = 2, K = 16384. "seq": pass 2, one block per image, walks the rows in
+score order with a `removed` bit vector in shared memory. "fixpoint":
+the sweep kernel, one thread-block cluster of `FIXPOINT_CLUSTER` blocks
+per image, runs the Jacobi sweeps keep' = valid & ~OR(rows of the kept
+candidates) over the same rows, each block its share of the words, the
+keep vector double-buffered in every block's shared memory and exchanged
+through distributed shared memory, one cluster barrier a sweep, until a
+sweep changes nothing (at most K sweeps); it writes each image's sweep
+count beside the mask (`nms_keep.last_fixpoint_sweeps`, the count that
+`fixpoint_sweeps_plain` gives). See the source for the layout.
 
 On a CPU tensor `nms_keep` runs `nms_keep_plain`, the same function by
 the fixpoint of the JAX package's `nms_keep_matrix`, for either version;
@@ -42,6 +47,31 @@ SOURCE = cuda_build.CSRC / "nms_keep.cu"
 # the last bit of the IoU differs from the plain version
 NVCC_FLAGS = cuda_build.BASE_FLAGS + ("-fmad=false",)
 KERNEL_VERSIONS = ("seq", "fixpoint")
+# blocks of the fixpoint sweep kernel's cluster per image (a launch with a
+# size the card refuses raises)
+FIXPOINT_CLUSTER = 16
+
+
+def _jacobi(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float):
+    """The fixpoint loop of `nms_keep_matrix`: keep (B, K) bool and each
+    image's sweeps (B,) int32 (sweeps computed, the last one that changed
+    nothing included, at most K)."""
+    b, k = valid.shape
+    idx = torch.arange(k, device=boxes.device)
+    sup = ((box_iou(boxes, boxes) > iou_thres)
+           & (idx[None, :] < idx[:, None]) & valid[:, None, :])
+    keep = valid
+    sweeps = torch.full((b,), k, dtype=torch.int32, device=boxes.device)
+    done = torch.zeros(b, dtype=torch.bool, device=boxes.device)
+    for sweep in range(1, k + 1):
+        new = valid & ~(sup & keep[:, None, :]).any(dim=-1)
+        same = (new == keep).all(dim=1)
+        sweeps[same & ~done] = sweep
+        done |= same
+        if bool(done.all()):
+            break
+        keep = new  # an image that is done stays at its fixpoint
+    return keep, sweeps
 
 
 def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
@@ -53,17 +83,16 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
     valid higher-ranked j < i; iterate keep = valid & ~any_j(sup & keep)
     until nothing changes. It equals sequential greedy NMS. Materializes
     the (B, K, K) matrix, so it is the reference, not a fast path."""
-    k = boxes.shape[1]
-    idx = torch.arange(k, device=boxes.device)
-    sup = ((box_iou(boxes, boxes) > iou_thres)
-           & (idx[None, :] < idx[:, None]) & valid[:, None, :])
-    keep = valid
-    for _ in range(k):
-        new = valid & ~(sup & keep[:, None, :]).any(dim=-1)
-        if torch.equal(new, keep):
-            break
-        keep = new
-    return keep
+    return _jacobi(boxes, valid, iou_thres)[0]
+
+
+def fixpoint_sweeps_plain(boxes: torch.Tensor, valid: torch.Tensor,
+                          iou_thres: float) -> torch.Tensor:
+    """Each image's sweeps (B,) int32 in the loop of `nms_keep_plain`:
+    sweeps computed from keep = valid, the last one that changed nothing
+    included, at most K. The fixpoint kernel's count
+    (`nms_keep.last_fixpoint_sweeps`) must equal it."""
+    return _jacobi(boxes, valid, iou_thres)[1]
 
 
 def build():
@@ -81,15 +110,16 @@ def mask_words(b: int, k: int) -> int:
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    for fn in (lib.fdms_nms_mask, lib.fdms_nms_keep_fixpoint):
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.fdms_nms_scan.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_void_p]
-    lib.fdms_nms_scan.restype = ctypes.c_int
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn, args in (
+            (lib.fdms_nms_mask, [vp, vp, vp, i32, i32, ctypes.c_float, i32,
+                                 vp]),
+            (lib.fdms_nms_scan, [vp, vp, vp, i32, i32, i32, vp]),
+            (lib.fdms_nms_sweep, [vp, vp, vp, vp, i32, i32, i32, i32, vp]),
+            (lib.fdms_nms_sweep_clusters, [i32, i32, i32,
+                                           ctypes.POINTER(i32)])):
+        fn.argtypes = args
+        fn.restype = i32
     return lib
 
 
@@ -122,17 +152,44 @@ def launch_scan(mask: torch.Tensor, valid: torch.Tensor,
         torch.cuda.current_stream(valid.device).cuda_stream), "pass 2")
 
 
+def launch_sweeps(mask: torch.Tensor, valid: torch.Tensor,
+                  keep: torch.Tensor, sweeps: torch.Tensor,
+                  cluster: int | None = None) -> None:
+    """The fixpoint version's sweep kernel alone: keep (B, K) and sweeps
+    (B,) int32 from pass 1's `mask`, clusters of `cluster` blocks
+    (`FIXPOINT_CLUSTER` by default). As `launch_mask`, for measurements."""
+    b, k = valid.shape
+    _raise_on(_library().fdms_nms_sweep(
+        mask.data_ptr(), valid.data_ptr(), keep.data_ptr(), sweeps.data_ptr(),
+        b, k, FIXPOINT_CLUSTER if cluster is None else cluster,
+        valid.device.index,
+        torch.cuda.current_stream(valid.device).cuda_stream),
+        "fixpoint sweeps")
+
+
+def fixpoint_max_active_clusters(k: int, cluster: int, device: int) -> int:
+    """How many sweep-kernel clusters of `cluster` blocks card `device`
+    holds at once for K candidates (cudaOccupancyMaxActiveClusters)."""
+    out = ctypes.c_int(0)
+    _raise_on(_library().fdms_nms_sweep_clusters(k, cluster, device,
+                                                 ctypes.byref(out)),
+              "occupancy query")
+    return out.value
+
+
 def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
              kernel_version: str = "seq") -> torch.Tensor:
     """Batched greedy-NMS keep mask. boxes (B, K, 4) float32 contiguous,
     sorted by descending score; valid (B, K) bool. Returns keep (B, K)
     bool in the same order. CPU tensors: the plain version. CUDA tensors:
     the `kernel_version` kernel ("seq" or "fixpoint", the same result),
-    for any K (no tiling constraint). `nms_keep.launches` counts calls
-    that launch the seq kernel, one per keep mask, although a call is two
-    kernels on the stream (pass 1 and pass 2, with a scratch buffer of
-    `mask_words(B, K)` int64 between them); `nms_keep.fixpoint_launches`
-    counts launches of the fixpoint one."""
+    for any K (no tiling constraint). Either version is two kernels on
+    the stream, pass 1 and its own second kernel, with a scratch buffer
+    of `mask_words(B, K)` int64 between them. `nms_keep.launches` counts
+    calls that launch the seq kernel, `nms_keep.fixpoint_launches` those
+    that launch the fixpoint one, one per keep mask; the fixpoint version
+    leaves each image's sweep count, int32 (B,) on the card, in
+    `nms_keep.last_fixpoint_sweeps`."""
     if kernel_version not in KERNEL_VERSIONS:
         raise ValueError(f"kernel_version must be one of {KERNEL_VERSIONS}, "
                          f"got {kernel_version!r}")
@@ -160,21 +217,20 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
         return keep
     if b >= 2 ** 31 or k >= 2 ** 31:
         raise ValueError(f"shape {tuple(boxes.shape)} too large")
+    mask = torch.empty(mask_words(b, k), dtype=torch.int64,
+                       device=boxes.device)
+    launch_mask(boxes, valid, iou_thres, mask)
     if kernel_version == "seq":
-        mask = torch.empty(mask_words(b, k), dtype=torch.int64,
-                           device=boxes.device)
-        launch_mask(boxes, valid, iou_thres, mask)
         launch_scan(mask, valid, keep)
         nms_keep.launches += 1
     else:
-        _raise_on(_library().fdms_nms_keep_fixpoint(
-            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
-            float(iou_thres), boxes.device.index,
-            torch.cuda.current_stream(boxes.device).cuda_stream),
-            kernel_version)
+        sweeps = torch.empty(b, dtype=torch.int32, device=boxes.device)
+        launch_sweeps(mask, valid, keep, sweeps)
+        nms_keep.last_fixpoint_sweeps = sweeps
         nms_keep.fixpoint_launches += 1
     return keep
 
 
 nms_keep.launches = 0
 nms_keep.fixpoint_launches = 0
+nms_keep.last_fixpoint_sweeps = None
