@@ -13,9 +13,11 @@ Phases, each fatal on failure (nothing is caught to carry on):
      the serving kernel) and its fixpoint version on the CPU tests' cases,
      the serving point (B=16, K=4096), the eval point (B=2, K=16384),
      ragged K, invalid tails, long suppression chains, duplicate and
-     zero-area boxes; the fixpoint kernel's launches in the kernels line
-     are this phase's, the one that drives it (every path checks that it
-     launches 0 times there)
+     zero-area boxes; the fixpoint kernel's sweep counts equal to
+     fixpoint_sweeps_plain's on every case (the largest printed); the
+     fixpoint kernel's launches in the kernels line are this phase's, the
+     one that drives it (every path checks that it launches 0 times
+     there); how many sweep clusters of 8 and of 16 blocks the card holds
   3b. probe_mm: the matmul-layout probe tool's measurement
      (tools/probe_mm.measure, its entry point) for each variant at the JAX
      geometry and 512 cells, the launch counter zeroed before and read
@@ -58,7 +60,10 @@ Phases, each fatal on failure (nothing is caught to carry on):
      Detections equal the CPU postprocess of its rows. Then once more with
      fuse_elan="pre:" (5 groups absorb their downsample conv)
   8. path tiny-fused: the same for tiny, 8 launches per request
-  9. one JSON line with every kernel's launches, error, times and bound
+  9. one JSON line with every kernel's launches, error, times and bound;
+     for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
+     its two launches timed apart, with the sweeps in clusters of 8 and
+     of 16 blocks
  10. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
@@ -190,7 +195,12 @@ def check_kernel_cases():
     bit. Returns, per version, the largest |kernel - plain| over every case
     (0 when they agree) and the number of rows that differ, and the
     fixpoint kernel's launches in this phase, the one that drives it (no
-    serving path does)."""
+    serving path does). The fixpoint kernel's sweep counts must equal
+    fixpoint_sweeps_plain's."""
+    for cluster in (8, 16):
+        print(f"nms_keep[fixpoint] sweep clusters of {cluster} blocks the "
+              f"card holds at once: "
+              f"{K.fixpoint_max_active_clusters(4096, cluster, 0)}")
     K.nms_keep.fixpoint_launches = 0
     cases = [  # (b, k, thr, frac_valid, degenerate)
         (2, 1024, .5, 1., False), (1, 2048, .3, 1., False),
@@ -207,6 +217,7 @@ def check_kernel_cases():
         boxes, valid = candidates(b, k, seed=1000 + n, frac_valid=frac,
                                   degenerate=degen)
         want = K.nms_keep_plain(boxes, valid, thr)
+        want_sweeps = K.fixpoint_sweeps_plain(boxes, valid, thr)
         for version in K.KERNEL_VERSIONS:
             got = K.nms_keep(boxes, valid, thr, kernel_version=version)
             torch.cuda.synchronize()
@@ -214,14 +225,23 @@ def check_kernel_cases():
             bad = int((got != want).sum())
             stats[version][0] = max(stats[version][0], err)
             stats[version][1] += bad
+            sweeps = ""
+            if version == "fixpoint":
+                got_sweeps = K.nms_keep.last_fixpoint_sweeps
+                check(torch.equal(got_sweeps, want_sweeps),
+                      f"nms_keep[fixpoint] swept {got_sweeps.tolist()} "
+                      f"times, fixpoint_sweeps_plain "
+                      f"{want_sweeps.tolist()}, at B={b} K={k} thr={thr}")
+                sweeps = (f", sweeps at most {int(got_sweeps.max())} (= "
+                          f"plain)")
             print(f"nms_keep[{version}] B={b} K={k} thr={thr} valid={frac} "
                   f"degenerate={degen}: kept {int(want.sum())}, "
-                  f"mismatches {bad}")
+                  f"mismatches {bad}{sweeps}")
             check(err == 0, f"nms_keep[{version}] differs from its plain "
                             f"version at B={b} K={k} thr={thr}")
             check(not bool(got[~valid].any()), "an invalid row was kept")
     boxes, valid = candidates(16, 4096, seed=7)
-    for version, iters in (("seq", 20), ("fixpoint", 3)):
+    for version, iters in (("seq", 20), ("fixpoint", 20)):
         ms = cuda_ms(lambda: K.nms_keep(boxes, valid, 0.5,
                                         kernel_version=version), iters)
         print(f"nms_keep[{version}] B=16 K=4096 synthetic: kernel "
@@ -683,11 +703,17 @@ def main() -> None:
     plain_ms = cuda_ms(lambda: K.nms_keep_plain(boxes, valid, thr), 5)
     for version, name, line, launches, iters in (
             ("seq", "nms_keep", 94, counts_w6["seq"], 20),
-            ("fixpoint", "nms_keep_fixpoint", 35, fixpoint_launches, 3)):
+            ("fixpoint", "nms_keep_fixpoint", 35, fixpoint_launches, 20)):
         got = K.nms_keep(boxes, valid, thr, kernel_version=version)
         err = int((got.int() - want.int()).abs().max())
         check(err == 0, f"nms_keep[{version}] differs from its plain version "
                         f"on the w6 path's inputs")
+        if version == "fixpoint":
+            sweeps = K.nms_keep.last_fixpoint_sweeps
+            check(torch.equal(sweeps, K.fixpoint_sweeps_plain(boxes, valid,
+                                                              thr)),
+                  "nms_keep[fixpoint]'s sweep counts differ from "
+                  "fixpoint_sweeps_plain's on the w6 path's inputs")
         ms = cuda_ms(lambda: K.nms_keep(boxes, valid, thr,
                                         kernel_version=version), iters)
         worst, mismatches = nms_stats[version]
@@ -715,10 +741,27 @@ def main() -> None:
     check(torch.equal(scan_keep, want), "nms_keep's passes run apart differ "
                                         "from the plain version")
     entries[0].update(pass1_ms=pass1, pass2_ms=pass2, dense_bound_ms=dense_ms)
+    # the fixpoint version's sweep kernel apart, in clusters of 8 and 16
+    sweep_keep = torch.empty_like(keep)
+    counts = torch.empty(b, dtype=torch.int32, device=boxes.device)
+    by_cluster = {}
+    for cluster in sorted({8, 16, K.FIXPOINT_CLUSTER}):
+        by_cluster[cluster] = cuda_ms(lambda: K.launch_sweeps(
+            mask, valid, sweep_keep, counts, cluster), 20)
+        check(torch.equal(sweep_keep, want) and torch.equal(counts, sweeps),
+              f"the fixpoint sweeps run apart in clusters of {cluster} "
+              f"differ from the plain version")
+    entries[1].update(
+        sweeps=sweeps.tolist(), pass1_ms=pass1,
+        sweep_ms=by_cluster[K.FIXPOINT_CLUSTER], cluster=K.FIXPOINT_CLUSTER,
+        sweep_ms_by_cluster={str(c): by_cluster[c] for c in (8, 16)})
     print(f"nms_keep at the w6 path's inputs B={b} K={k}: kept "
           f"{int(keep.sum())}, seq {entries[0]['ms']:.4f} ms (pass 1 "
           f"{pass1:.4f}, pass 2 {pass2:.4f} apart), fixpoint "
-          f"{entries[1]['ms']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{entries[1]['ms']:.4f} ms (sweeps {sweeps.tolist()}; pass 1, "
+          f"then the sweeps apart: {by_cluster[8]:.4f} ms in clusters of "
+          f"8, {by_cluster[16]:.4f} in clusters of 16), plain "
+          f"{plain_ms:.4f} ms, bound "
           f"{bound_ms:.5f} ms by {bound_by} (all K^2/2 pairs, what pass 1 "
           f"computes, would bound it at {dense_ms:.5f} ms)")
     s = elan_sums

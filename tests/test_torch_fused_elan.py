@@ -1,7 +1,6 @@
 """The port's fused-ELAN path (ops/elan_kernel.py, models/fused.py, the
 FaceDetector's fuse_elan) against the JAX package on the CPU, with the
-same inputs and weights; and the fixpoint keep mask against the JAX
-package's fixpoint Pallas kernel.
+same inputs and weights.
 
 On the CPU the wrappers run their plain versions; the CUDA kernels are
 held against those on the card (chip_smoke.py, tests/test_torch_gpu.py).
@@ -24,17 +23,14 @@ from face_detection_multi_scale_tpu.models import zoo as JZ
 from face_detection_multi_scale_tpu.models.fuse import fold_bn as j_fold_bn
 from face_detection_multi_scale_tpu.ops import nms as JN
 from face_detection_multi_scale_tpu.ops import pallas_elan as JE
-from face_detection_multi_scale_tpu.ops.pallas_nms import nms_keep_pallas
 from face_detection_multi_scale_tpu_torch.models import fused as TF
 from face_detection_multi_scale_tpu_torch.models import zoo as TZ
 from face_detection_multi_scale_tpu_torch.ops import elan_kernel as TE
 from face_detection_multi_scale_tpu_torch.ops import nms as TN
-from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
 
 from test_torch_detector import assert_rows_match, detectors
 from test_torch_model import (RAW_TOL, images, narrowed, port_model,
                               random_variables)
-from test_torch_nms_kernel import sorted_candidates
 
 GROUP_TOL = dict(atol=2e-5, rtol=1e-5)
 
@@ -412,17 +408,3 @@ def test_detector_fuse_elan_matches_jax(name, flag):
     for g, w in zip(TN.detections_to_numpy(td), JN.detections_to_numpy(jd)):
         assert len(g) > 0
         assert_rows_match(g, np.asarray(w))
-
-
-@pytest.mark.parametrize("k", [1024, 2048])
-def test_fixpoint_matches_jax_fixpoint(k):
-    boxes, _, valid = sorted_candidates(2, k, seed=k + 1, frac_valid=0.9)
-    got = K.nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5,
-                     kernel_version="fixpoint").numpy()
-    want = np.asarray(nms_keep_pallas(jnp.asarray(boxes), jnp.asarray(valid),
-                                      0.5, interpret=True,
-                                      kernel_version="fixpoint"))
-    np.testing.assert_array_equal(got, want)
-    with pytest.raises(ValueError):
-        K.nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5,
-                   kernel_version="matrix")

@@ -60,19 +60,32 @@ def test_kernel_matches_plain(cuda_device, b, k, thr, frac):
     assert not got[~valid].any()
 
 
+def check_fixpoint(boxes, valid, thr):
+    """The fixpoint kernel twice: one count a launch and none on the seq
+    counter, both results equal, and equal to the plain keep mask and
+    sweep counts. Returns the keep mask."""
+    seq, fix = K.nms_keep.launches, K.nms_keep.fixpoint_launches
+    got = K.nms_keep(boxes, valid, thr, kernel_version="fixpoint")
+    sweeps = K.nms_keep.last_fixpoint_sweeps
+    again = K.nms_keep(boxes, valid, thr, kernel_version="fixpoint")
+    torch.cuda.synchronize()
+    assert K.nms_keep.fixpoint_launches == fix + 2
+    assert K.nms_keep.launches == seq
+    assert torch.equal(got, again)
+    assert torch.equal(sweeps, K.nms_keep.last_fixpoint_sweeps)
+    assert torch.equal(got, K.nms_keep_plain(boxes, valid, thr))
+    assert torch.equal(sweeps, K.fixpoint_sweeps_plain(boxes, valid, thr))
+    return got
+
+
 @pytest.mark.parametrize("b,k,thr,frac", [
     (2, 1024, 0.5, 1.0), (1, 2048, 0.3, 1.0), (1, 1024, 0.5, 0.4),
     (1, 1024, 0.9, 1.0), (2, 1, 0.5, 1.0), (3, 300, 0.5, 0.7),
-    (2, 4095, 0.5, 0.9), (16, 4096, 0.5, 1.0)])
+    (2, 4095, 0.5, 0.9), (16, 4096, 0.5, 1.0), (2, 16384, 0.5, 0.8)])
 def test_fixpoint_kernel_matches_plain(cuda_device, b, k, thr, frac):
     boxes, valid = candidates(b, k, seed=k + b, frac_valid=frac,
                               device=cuda_device)
-    seq, fix = K.nms_keep.launches, K.nms_keep.fixpoint_launches
-    got = K.nms_keep(boxes, valid, thr, kernel_version="fixpoint")
-    torch.cuda.synchronize()
-    assert K.nms_keep.fixpoint_launches == fix + 1
-    assert K.nms_keep.launches == seq
-    assert torch.equal(got, K.nms_keep_plain(boxes, valid, thr))
+    check_fixpoint(boxes, valid, thr)
 
 
 def chain_boxes(b, k, device):
@@ -109,6 +122,66 @@ def test_two_pass_kernel_cases(cuda_device, b, k, case):
                            == 0)
     if case == "invalid":
         assert not got[0].any()
+
+
+@pytest.mark.parametrize("b,k,case", [
+    (64, 1024, "random"), (3, 63, "random"), (3, 64, "random"),
+    (3, 65, "random"), (2, 1024, "invalid"), (1, 4097, "chain"),
+    (2, 200, "chain")])
+def test_fixpoint_kernel_cases(cuda_device, b, k, case):
+    """Clusters in waves (B = 64), K around a 64-row word (K = 65 leaves
+    most of a 16-block cluster without a word), an image with no valid
+    row, and chains that take K sweeps."""
+    if case == "chain":
+        boxes, valid = chain_boxes(b, k, cuda_device)
+    else:
+        boxes, valid = candidates(b, k, seed=k + 11, frac_valid=0.9,
+                                  device=cuda_device)
+    if case == "invalid":
+        valid[0] = False
+    got = check_fixpoint(boxes, valid, 0.5)
+    if case == "chain":
+        assert torch.equal(got, (torch.arange(k, device=cuda_device) % 2
+                                 == 0).expand(b, k))
+        assert K.nms_keep.last_fixpoint_sweeps.tolist() == [k] * b
+    if case == "invalid":
+        assert not got[0].any()
+        assert K.nms_keep.last_fixpoint_sweeps[0] == 1
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+def test_fixpoint_sweeps_any_cluster(cuda_device, cluster):
+    """The sweep kernel gives the same mask and counts at any cluster
+    size, through the launch helper (which counts nothing)."""
+    boxes, valid = candidates(5, 3000, seed=3, frac_valid=0.8,
+                              device=cuda_device)
+    mask = torch.empty(K.mask_words(5, 3000), dtype=torch.int64,
+                       device=cuda_device)
+    keep = torch.empty(5, 3000, dtype=torch.bool, device=cuda_device)
+    sweeps = torch.empty(5, dtype=torch.int32, device=cuda_device)
+    fix = K.nms_keep.fixpoint_launches
+    K.launch_mask(boxes, valid, 0.5, mask)
+    K.launch_sweeps(mask, valid, keep, sweeps, cluster)
+    torch.cuda.synchronize()
+    assert K.nms_keep.fixpoint_launches == fix
+    assert torch.equal(keep, K.nms_keep_plain(boxes, valid, 0.5))
+    assert torch.equal(sweeps, K.fixpoint_sweeps_plain(boxes, valid, 0.5))
+    assert K.fixpoint_max_active_clusters(3000, cluster, 0) >= 1
+
+
+def test_fixpoint_refused_cluster_raises(cuda_device, monkeypatch):
+    """A cluster size the card cannot schedule raises; nothing falls back
+    to another kernel or the plain version, and the next launch works."""
+    boxes, valid = candidates(2, 1024, seed=5, frac_valid=1.0,
+                              device=cuda_device)
+    assert K.fixpoint_max_active_clusters(1024, 32, 0) == 0
+    monkeypatch.setattr(K, "FIXPOINT_CLUSTER", 32)
+    seq, fix = K.nms_keep.launches, K.nms_keep.fixpoint_launches
+    with pytest.raises(RuntimeError):
+        K.nms_keep(boxes, valid, 0.5, kernel_version="fixpoint")
+    assert (K.nms_keep.launches, K.nms_keep.fixpoint_launches) == (seq, fix)
+    monkeypatch.undo()
+    check_fixpoint(boxes, valid, 0.5)
 
 
 def test_kernel_rejects_non_contiguous(cuda_device):

@@ -6,6 +6,7 @@ held against the plain version on the card (chip_smoke.py and
 tests/test_torch_gpu.py). Equality is exact: the keep mask is a boolean function
 of f32 IoUs computed with the same operations in the same order."""
 
+import functools
 import math
 import subprocess
 import sys
@@ -158,15 +159,13 @@ def decode_pair(p, n_tiles):
     return rt, rt + p - first(rt)
 
 
-def emulate_passes(boxes, valid, thr):
-    """A torch emulation of the seq kernel's two passes with its tile, word
-    and bit indexing: pass 1 writes, for every decoded (row tile, column
-    tile) block, the 64-bit word of each row of the row tile (bit c: column
-    64 * ct + c is later, both valid, IoU > thr; no division where the
-    boxes do not intersect and thr >= 0) into a scratch of garbage, as
-    torch.empty would leave it; pass 2 walks the tiles with the `removed`
-    words, resolves a tile from its diagonal words alone, then ORs the
-    kept rows' words right of the diagonal. Returns keep (B, K) bool."""
+def pass1_words(boxes, valid, thr):
+    """A torch emulation of pass 1 (nms_mask_kernel) with its tile, word and
+    bit indexing: for every decoded (row tile, column tile) block, the
+    64-bit word of each row of the row tile (bit c: column 64 * ct + c is
+    later, both valid, IoU > thr; no division where the boxes do not
+    intersect and thr >= 0) goes into a scratch of garbage, as torch.empty
+    would leave it. Returns the scratch (B, K, ceil(K / 64)) int64."""
     boxes, valid = torch.from_numpy(boxes), torch.from_numpy(valid)
     b, k = valid.shape
     n_tiles = -(-k // TILE)
@@ -195,14 +194,35 @@ def emulate_passes(boxes, valid, thr):
         seen.add((rt, ct))
         rows = slice(rt * TILE, min(k, (rt + 1) * TILE))
         mask[:, rows, ct] = words[:, rows, ct]
-    full = (1 << TILE) - 1
+    return mask
+
+
+FULL = (1 << TILE) - 1
+
+
+def valid_words(valid_row, k, n_tiles):
+    """One image's valid bits as 64-bit words, row i at bit i % 64 of word
+    i // 64."""
+    return [sum(1 << (i - w * TILE)
+                for i in range(w * TILE, min(k, (w + 1) * TILE))
+                if valid_row[i]) for w in range(n_tiles)]
+
+
+def emulate_passes(boxes, valid, thr):
+    """A torch emulation of the seq kernel's two passes: pass 1's words
+    (`pass1_words`); pass 2 walks the tiles with the `removed` words,
+    resolves a tile from its diagonal words alone, then ORs the kept rows'
+    words right of the diagonal. Returns keep (B, K) bool."""
+    mask = pass1_words(boxes, valid, thr)
+    b, k, n_tiles = mask.shape
     keep = torch.zeros(b, k, dtype=torch.bool)
     for n in range(b):
-        m = [[int(v) & full for v in row] for row in mask[n].tolist()]
+        m = [[int(v) & FULL for v in row] for row in mask[n].tolist()]
         removed = [0] * n_tiles
+        vbits = valid_words(valid[n], k, n_tiles)
         for t in range(n_tiles):
             rows = range(t * TILE, min(k, (t + 1) * TILE))
-            vb = sum(1 << (i - t * TILE) for i in rows if valid[n, i])
+            vb = vbits[t]
             cur, kept = removed[t], 0
             for i in rows:
                 bit = 1 << (i - t * TILE)
@@ -217,7 +237,78 @@ def emulate_passes(boxes, valid, thr):
     return keep.numpy()
 
 
-def padded_pallas_keep(boxes, valid, thr):
+def split_word(r, c, words):
+    """csrc/nms_keep.cu's split_word: the first word of rank r of c, the
+    least w with w (w + 1) c >= r words (words + 1)."""
+    target = r * words * (words + 1)
+    w = max(0, min(words, int(math.sqrt(target / c + 0.25) - 0.5)))
+    while w > 0 and (w - 1) * w * c >= target:
+        w -= 1
+    while w < words and w * (w + 1) * c < target:
+        w += 1
+    return w
+
+
+def emulate_fixpoint(boxes, valid, thr, cluster):
+    """A torch emulation of the fixpoint version: pass 1's words
+    (`pass1_words`, garbage left of the diagonal), then the sweep kernel
+    with its word-to-block split: every rank of the cluster keeps its own
+    copy of the keep words, double-buffered; in a sweep rank r ORs the
+    words [lo, hi) it owns of every kept row above them (never a word left
+    of a row's diagonal), writes its new words into every rank's next
+    buffer and, where a word changed, the sweep's number into every rank's
+    flag of that parity; after the barrier each rank reads its own flag.
+    Returns keep (B, K) bool and sweeps (B,)."""
+    mask = pass1_words(boxes, valid, thr)
+    b, k, n_tiles = mask.shape
+    lo = [split_word(r, cluster, n_tiles) for r in range(cluster + 1)]
+    assert lo[0] == 0 and lo[-1] == n_tiles and lo == sorted(lo)
+    keep = np.zeros((b, k), bool)
+    sweeps = np.zeros(b, np.int64)
+    for n in range(b):
+        m = [[int(v) & FULL for v in row] for row in mask[n].tolist()]
+        vbits = valid_words(valid[n], k, n_tiles)
+        bufs = [[list(vbits), [None] * n_tiles] for _ in range(cluster)]
+        flags = [[0, 0] for _ in range(cluster)]
+        sweep = 0
+        while True:
+            cur, nxt = sweep & 1, (sweep + 1) & 1
+            removed = []
+            for r in range(cluster):  # every rank from its own copy
+                own = [0] * (lo[r + 1] - lo[r])
+                for u in range(lo[r + 1]):  # row tiles above the words
+                    kb = bufs[r][cur][u]
+                    for c in range(TILE):
+                        if kb >> c & 1:
+                            i = u * TILE + c
+                            for w in range(max(lo[r], u), lo[r + 1]):
+                                assert w >= i // TILE  # pass 1 wrote it
+                                own[w - lo[r]] |= m[i][w]
+                removed.append(own)
+            sweep += 1
+            for r in range(cluster):
+                for w in range(lo[r], lo[r + 1]):
+                    new = vbits[w] & ~removed[r][w - lo[r]] & FULL
+                    for p in range(cluster):
+                        bufs[p][nxt][w] = new
+                    if new != bufs[r][cur][w]:
+                        for p in range(cluster):
+                            flags[p][cur] = sweep
+            stop = {flags[p][cur] != sweep or sweep == k
+                    for p in range(cluster)}
+            assert len(stop) == 1  # every rank takes the same decision
+            if stop.pop():
+                break
+        final = bufs[0][sweep & 1]
+        assert all(bufs[p][sweep & 1] == final for p in range(cluster))
+        for r in range(cluster):  # each rank writes its own words' rows
+            for i in range(lo[r] * TILE, min(k, lo[r + 1] * TILE)):
+                keep[n, i] = bool(final[i // TILE] >> (i % TILE) & 1)
+        sweeps[n] = sweep
+    return keep, sweeps
+
+
+def padded_pallas_keep(boxes, valid, thr, kernel_version="seq"):
     """nms_keep_pallas (interpret) at any K: invalid rows pad K to the
     kernel's multiple of 1024 and change no earlier row's keep."""
     b, k = valid.shape
@@ -226,7 +317,8 @@ def padded_pallas_keep(boxes, valid, thr):
     pv = np.zeros((b, kp), bool)
     pb[:, :k], pv[:, :k] = boxes, valid
     return np.asarray(nms_keep_pallas(jnp.asarray(pb), jnp.asarray(pv), thr,
-                                      interpret=True))[:, :k]
+                                      interpret=True,
+                                      kernel_version=kernel_version))[:, :k]
 
 
 EMULATION_CASES = (
@@ -247,6 +339,92 @@ def test_two_pass_emulation_matches_plain_and_pallas(kind, b, k, thr, frac,
     got = emulate_passes(boxes, valid, thr)
     np.testing.assert_array_equal(got, port_keep(boxes, valid, thr))
     np.testing.assert_array_equal(got, padded_pallas_keep(boxes, valid, thr))
+
+
+def chain_candidates(b, k):
+    """Boxes 10 wide, 3 apart, in score order: each overlaps the next by
+    IoU 7/13 > 0.5 and the one after by 4/16, so the keep mask alternates,
+    each decision depends on the one before, and the Jacobi sweeps settle
+    one candidate a sweep (K sweeps)."""
+    x = np.arange(k, dtype=np.float32) * 3
+    one = np.stack([x, np.zeros(k, np.float32), x + 10,
+                    np.full(k, 10, np.float32)], 1)
+    return (np.ascontiguousarray(np.broadcast_to(one, (b, k, 4))),
+            np.ones((b, k), bool))
+
+
+FIXPOINT_CASES = EMULATION_CASES + [("chain", 2, 200, 0.5, 1.0, False)]
+
+
+@functools.cache
+def fixpoint_case(kind, b, k, thr, frac, degenerate):
+    """The inputs of a case and its references: the plain keep mask, the
+    JAX fixpoint Pallas kernel's (interpret) and the plain sweep counts."""
+    if kind == "chain":
+        boxes, valid = chain_candidates(b, k)
+    else:
+        boxes, _, valid = sorted_candidates(b, k, seed=k + 31,
+                                            frac_valid=frac)
+        if degenerate:
+            boxes = with_degenerate_boxes(boxes, seed=k + 1)
+    tb, tv = torch.from_numpy(boxes), torch.from_numpy(valid)
+    return (boxes, valid, port_keep(boxes, valid, thr),
+            padded_pallas_keep(boxes, valid, thr, kernel_version="fixpoint"),
+            K.fixpoint_sweeps_plain(tb, tv, thr).numpy())
+
+
+@pytest.mark.parametrize("cluster", [1, 8, 16])
+@pytest.mark.parametrize("kind,b,k,thr,frac,degenerate", FIXPOINT_CASES,
+                         ids=[f"{c[0]}-b{c[1]}-k{c[2]}-t{c[3]}"
+                              for c in FIXPOINT_CASES])
+def test_fixpoint_emulation_matches_plain_pallas_and_sweeps(
+        kind, b, k, thr, frac, degenerate, cluster):
+    """The sweep kernel's split, buffers and flags over pass 1's words:
+    the plain keep mask, the JAX fixpoint kernel's and the plain sweep
+    counts, for clusters of 1, 8 and 16 (K = 65 at 16: blocks that own no
+    word)."""
+    boxes, valid, plain, pallas, sweeps = fixpoint_case(
+        kind, b, k, thr, frac, degenerate)
+    got, got_sweeps = emulate_fixpoint(boxes, valid, thr, cluster)
+    np.testing.assert_array_equal(got, plain)
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got_sweeps, sweeps)
+    if kind == "chain":
+        assert (got == (np.arange(k) % 2 == 0)).all()
+        assert (got_sweeps == k).all()
+
+
+@pytest.mark.parametrize("k", [1024, 2048])
+def test_fixpoint_matches_jax_fixpoint(k):
+    boxes, _, valid = sorted_candidates(2, k, seed=k + 1, frac_valid=0.9)
+    got = K.nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5,
+                     kernel_version="fixpoint").numpy()
+    want = np.asarray(nms_keep_pallas(jnp.asarray(boxes), jnp.asarray(valid),
+                                      0.5, interpret=True,
+                                      kernel_version="fixpoint"))
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError):
+        K.nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5,
+                   kernel_version="matrix")
+
+
+def test_fixpoint_sweeps_plain_counts():
+    """Sweeps computed from keep = valid, the last one that changed
+    nothing included, at most K: 1 when the first sweep changes nothing
+    (no valid row, or no valid pair overlapping), 2 when one suppression
+    settles everything, K on the alternating chain."""
+    def count(boxes, valid):
+        return K.fixpoint_sweeps_plain(torch.tensor(boxes),
+                                       torch.tensor(valid), 0.5).tolist()
+
+    apart = [[[0., 0., 10., 10.], [20., 0., 30., 10.], [40., 0., 50., 10.]]]
+    assert count(apart, [[False] * 3]) == [1]
+    assert count(apart, [[True] * 3]) == [1]
+    pair = [[[0., 0., 10., 10.], [1., 0., 11., 10.], [40., 0., 50., 10.]]]
+    assert count(pair, [[True] * 3]) == [2]
+    boxes, valid = chain_candidates(2, 200)
+    assert count(boxes, valid) == [200, 200]
+    assert count(boxes[:, :7], valid[:, :7]) == [7, 7]
 
 
 def test_mask_words():
