@@ -47,3 +47,19 @@ def build(source: Path, flags: Tuple[str, ...]) -> Path:
                            f"({done.returncode}):\n{done.stderr}")
     os.replace(tmp, lib)
     return lib
+
+
+def variant_source(source: Path, variant: str, tag: str) -> Path:
+    """The source of an A/B `variant` of `source`: "base" is `source` as it
+    stands; OLD=>NEW is `source` with every occurrence of the text OLD (at
+    least one) replaced by NEW, written into BUILD_DIR as `tag`.cu."""
+    if variant == "base":
+        return source
+    old, new = variant.split("=>", 1)
+    text = source.read_text()
+    if old not in text:
+        raise SystemExit(f"{source.name} has no {old!r}")
+    path = BUILD_DIR / f"{tag}.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text.replace(old, new))
+    return path

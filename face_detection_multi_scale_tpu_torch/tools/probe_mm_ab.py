@@ -30,16 +30,7 @@ from face_detection_multi_scale_tpu_torch.tools import probe_mm as PM
 
 def source_for(variant: str, i: int):
     """The source file of `variant` ("base" or OLD=>NEW)."""
-    if variant == "base":
-        return PM.SOURCE
-    old, new = variant.split("=>", 1)
-    text = PM.SOURCE.read_text()
-    if old not in text:
-        raise SystemExit(f"{PM.SOURCE.name} has no {old!r}")
-    path = cuda_build.BUILD_DIR / f"probe_mm_ab{i}.cu"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(text.replace(old, new))
-    return path
+    return cuda_build.variant_source(PM.SOURCE, variant, f"probe_mm_ab{i}")
 
 
 def use(source) -> None:

@@ -427,6 +427,27 @@ def test_fixpoint_sweeps_plain_counts():
     assert count(boxes[:, :7], valid[:, :7]) == [7, 7]
 
 
+def test_sweep_ab_tool_variants_and_no_card(tmp_path, monkeypatch):
+    """tools/nms_sweep_ab.py writes a variant as the source with the text
+    replaced, takes "base" as the source itself, and exits without a
+    card."""
+    from face_detection_multi_scale_tpu_torch.ops import cuda_build
+    from face_detection_multi_scale_tpu_torch.tools import nms_sweep_ab as AB
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    assert cuda_build.variant_source(K.SOURCE, "base", "ab0") == K.SOURCE
+    path = cuda_build.variant_source(
+        K.SOURCE, "kFixThreads = 512;=>kFixThreads = 1024;", "ab1")
+    assert path.parent == tmp_path
+    assert path.read_text() == K.SOURCE.read_text().replace(
+        "kFixThreads = 512;", "kFixThreads = 1024;")
+    with pytest.raises(SystemExit, match="no"):
+        cuda_build.variant_source(K.SOURCE, "no such text=>x", "ab2")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA"):
+        AB.main(["base"])
+
+
 def test_mask_words():
     assert K.mask_words(8, 4096) * 8 == 16_777_216      # 16.8 MB
     assert K.mask_words(2, 16384) * 8 == 67_108_864    # 64 MB
