@@ -45,6 +45,27 @@ Phases, each fatal on failure (nothing is caught to carry on):
      the CPU postprocess of the card's rows; the merge's keep indices equal
      to the CPU merge's on the same rows; per image 3 nms_keep launches (2
      scales + the merge), 0 fixpoint, 0 fused_elan; ms per image by part
+  5c. path w6-tiled: FaceDetector("yolov7-w6-face", img_sizes=(640, 3840),
+     use_api_preprocess=True, tile_top_scale=2, tile_halo=256,
+     tile_min_size=2048) with phase 4's seeded weights and phase 5b's gate.
+     The card machine has no OpenCV, so the host letterbox cannot run:
+     phase 5b's 2 frames become 3840x3840 API frames through the port's
+     device_preprocess_api on the card, rounded to uint8 on the host, and
+     drive _run_tiled_batch, the one tiled call sequence of every tiled
+     entry point: one (8, 2176, 2176, 3) engine call (plan_tiles(3840, 2,
+     256, 64): tile 2176, origins 0 and 1664), then each frame's
+     assemble_rows with its seam dedup on the card. The tile batch's
+     Detections equal to the CPU postprocess of the card's rows; each
+     frame's rows equal to assemble_rows(..., device="cpu") of the same
+     tile rows; truncation_report()["images"] grows by 2, not 8; nms_keep
+     launches 1 + one per frame that owned a row, 0 fixpoint, 0 fused_elan;
+     rows finite, their centers inside the 3840^2 frame. Printed (as
+     information: tiling is approximate near seams): how many untiled
+     rows have a tiled row at IoU >= 0.5; medians of 3 (host clock,
+     synchronized) of the tiled call per frame, split into the b8@2176^2
+     tile forward+decode, the postprocess and assemble_rows, beside the
+     untiled b1@3840^2 forward of the same frame (host upload, as the
+     tiles) and phase 5b's b1@2176x3840 device-preprocess forward
   6. fused_elan vs plain: the kernel on the inputs the w6 and tiny fused
      paths hand each E-ELAN group at b8@640 (captured in one forward), held
      against reference_elan through cuDNN with TF32 off within a
@@ -86,6 +107,7 @@ import numpy as np
 import torch
 
 from face_detection_multi_scale_tpu_torch.infer import device_preprocess as DP
+from face_detection_multi_scale_tpu_torch.infer import tiling
 from face_detection_multi_scale_tpu_torch.infer.detector import (
     FaceDetector, full_fp32)
 from face_detection_multi_scale_tpu_torch.models import fused as FUSED
@@ -108,6 +130,8 @@ GROUPS = {"yolov7-w6-face": 11, "yolov7-tiny-face": 8}
 PROBE_CELLS, PROBE_ITERS = 512, 6  # the JAX tool's defaults
 TTA_SIZES = (640, 3840)  # the JAX FaceDetector's default pyramid
 TTA_FRAMES, TTA_HW = 2, (1080, 1920)  # video frames of the production pipeline
+TILE_GRID, TILE_HALO, TILE_MIN = 2, 256, 2048  # the JAX tiling example
+TIMING_ROUNDS = 3
 T_START = time.perf_counter()
 
 
@@ -404,14 +428,29 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
             (rows_card, rows_cpu), det)
 
 
-def drive_tta(smi: str) -> int:
+def tta_frames() -> np.ndarray:
+    """Phase 5b's noise frames (BGR, uint8)."""
+    return np.random.default_rng(2).integers(
+        0, 256, (TTA_FRAMES, *TTA_HW, 3), dtype=np.uint8)
+
+
+def timed(fn):
+    """(fn(), its host-clock ms), synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def drive_tta(smi: str):
     """Phase 5b: the w6 TTA pyramid through detect_multi_scale with device
-    preprocessing. Returns the nms_keep launches of the counted run."""
+    preprocessing. Returns the nms_keep launches of the counted run and
+    the gate."""
     det = FaceDetector("yolov7-w6-face", img_sizes=TTA_SIZES,
                        max_candidates=MAX_CANDIDATES, seed=0,
                        use_device_preprocess=True, device="cuda")
-    frames = np.random.default_rng(2).integers(
-        0, 256, (TTA_FRAMES, *TTA_HW, 3), dtype=np.uint8)
+    frames = tta_frames()
     raw = det.upload(frames[:1])
     # the gate of phase 4: the small scale gates 1.5 K rows of frame 0
     x, _ = det.device_input(raw, TTA_SIZES[0], auto=True)
@@ -494,13 +533,6 @@ def drive_tta(smi: str) -> int:
           f"truncation_report {det.truncation_report()}")
 
     # where one image's time goes (frame 0, every part synchronized)
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
-
     raw, t_up = timed(lambda: det.upload(frames[:1]))
     parts = [f"upload {t_up:.3f}"]
     for size in TTA_SIZES:
@@ -514,9 +546,161 @@ def drive_tta(smi: str) -> int:
                                      det.iou_thres, device=det.device))
     parts.append(f"merge {t_merge:.3f}")
     print(f"w6-tta per image ms on {smi}: " + "; ".join(parts))
+    conf_thres = det.conf_thres
     del det
     torch.cuda.empty_cache()
     stamp("path w6-tta done")
+    return seq, conf_thres
+
+
+def iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Pairwise IoU of xyxy boxes a (n, 4) and b (m, 4)."""
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:4], b[None, :, 2:4])
+    inter = np.clip(rb - lt, 0, None).prod(-1)
+    area = lambda x: (x[:, 2] - x[:, 0]) * (x[:, 3] - x[:, 1])
+    return inter / (area(a)[:, None] + area(b)[None, :] - inter + 1e-9)
+
+
+def drive_tiled(smi: str, conf_thres: float) -> int:
+    """Phase 5c: the w6 top scale tiled, through _run_tiled_batch. Returns
+    the nms_keep launches of the counted run."""
+    size = TTA_SIZES[-1]
+    det = FaceDetector("yolov7-w6-face", img_sizes=TTA_SIZES,
+                       use_api_preprocess=True, tile_top_scale=TILE_GRID,
+                       tile_halo=TILE_HALO, tile_min_size=TILE_MIN,
+                       max_candidates=MAX_CANDIDATES, seed=0, device="cuda")
+    det.conf_thres = conf_thres
+    plan = det._tile_plan(size)
+    check(plan is not None and plan.tile == 2176 and plan.origins == (0, 1664)
+          and det._tile_plan(TTA_SIZES[0]) is None,
+          f"w6-tiled: tile plan {plan}")
+    frames = tta_frames()
+    # the API frames, built on the card, rounded to uint8 on the host
+    inputs = []
+    for frame in frames:
+        x, geom = det.device_input(det.upload(frame[None]), size, auto=True)
+        check(geom.out_hw == (size, size), f"w6-tiled: frame {geom.out_hw}")
+        inputs.append(np.rint(x[0].cpu().numpy() * 255.0).clip(0, 255)
+                      .astype(np.uint8))
+        del x
+
+    # the counted run, each postprocess and merge recorded
+    posts, merges = [], []
+    post, merge = det.postprocess, NMS.weighted_nms_merge
+
+    def record_post(rows):
+        dets = post(rows)
+        posts.append((rows, dets))
+        return dets
+
+    def record_merge(merged, *args, **kwargs):
+        keep = merge(merged, *args, **kwargs)
+        merges.append(len(merged))
+        return keep
+
+    images = det.truncation_report()["images"]
+    det.postprocess, NMS.weighted_nms_merge = record_post, record_merge
+    K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
+    E.fused_elan.launches = 0
+    try:
+        outs, t_first = timed(lambda: det._run_tiled_batch(inputs, plan))
+    finally:
+        del det.postprocess
+        NMS.weighted_nms_merge = merge
+    seq, fixpoint = K.nms_keep.launches, K.nms_keep.fixpoint_launches
+    fused = E.fused_elan.launches
+    check(len(posts) == 1 and posts[0][1].boxes.shape[0] == plan.n_tiles
+          * TTA_FRAMES, "w6-tiled: not one engine call for every tile")
+    rows, dets = posts[0]
+    check(same_detections(dets, det.postprocess(rows.cpu())),
+          "w6-tiled: the tile batch's Detections differ from the CPU "
+          "postprocess")
+    print(f"w6-tiled: tile batch rows {tuple(rows.shape)}, n_gated "
+          f"{dets.n_gated.tolist()}, kept {dets.valid.sum(1).tolist()}; == "
+          f"CPU postprocess")
+    del rows
+    tile_rows = NMS.detections_to_numpy(dets)
+    n = plan.n_tiles
+    owned = 0
+    for i, out in enumerate(outs):
+        want = tiling.assemble_rows(tile_rows[i * n:(i + 1) * n], plan,
+                                    det.iou_thres, device="cpu")
+        check(out.shape == want.shape and np.array_equal(out, want),
+              f"w6-tiled: frame {i}'s card assemble_rows differs from the "
+              f"CPU's")
+        owned += len(want) > 0
+        cx, cy = (out[:, 0] + out[:, 2]) / 2, (out[:, 1] + out[:, 3]) / 2
+        check(out.shape[1] == 21 and bool(np.isfinite(out).all())
+              and bool(((cx >= 0) & (cx < size) & (cy >= 0) & (cy < size))
+                       .all()), f"w6-tiled: frame {i}: bad rows")
+        print(f"w6-tiled: frame {i}: {len(out)} rows; == CPU "
+              f"assemble_rows; centers inside the {size}^2 frame, boxes "
+              f"span x [{out[:, 0].min():.1f}, {out[:, 2].max():.1f}], y "
+              f"[{out[:, 1].min():.1f}, {out[:, 3].max():.1f}]")
+    want_seq = 1 + owned
+    check(len(merges) == owned, f"w6-tiled: {len(merges)} seam merges for "
+                                f"{owned} frames with owned rows")
+    check(seq == want_seq and fixpoint == 0 and fused == 0,
+          f"w6-tiled: launches seq {seq}, fixpoint {fixpoint}, fused {fused};"
+          f" want {want_seq}, 0, 0")
+    grown = det.truncation_report()["images"] - images
+    check(grown == TTA_FRAMES, f"w6-tiled: truncation_report images grew by "
+                               f"{grown}, want {TTA_FRAMES}")
+    print(f"w6-tiled: {TTA_FRAMES} frames of {size}^2, {n} tiles of "
+          f"{plan.tile}^2 each (origins {plan.origins}), nms_keep launches "
+          f"{seq} (1 engine call + {owned} seam merges of {merges} rows), "
+          f"fixpoint {fixpoint}, fused_elan {fused}; first call "
+          f"{t_first:.3f} ms; "
+          f"truncation_report {det.truncation_report()}")
+
+    # information: untiled rows that a tiled row matches
+    for i, inp in enumerate(inputs):
+        untiled = NMS.detections_to_numpy(det.run_network(inp[None]))[0]
+        hit = (iou_matrix(untiled[:, :4], outs[i][:, :4]).max(1) >= 0.5
+               if len(untiled) and len(outs[i]) else np.zeros(0, bool))
+        print(f"w6-tiled: frame {i}: {int(hit.sum())} of {len(untiled)} "
+              f"untiled rows have a tiled row at IoU >= 0.5 "
+              f"({len(outs[i])} tiled rows)")
+
+    # where a frame's time goes, medians of TIMING_ROUNDS
+    tiles_dev = det.upload(np.concatenate([tiling.extract_tiles(inp, plan)
+                                           for inp in inputs]))
+    frame_dev = det.upload(inputs[0][None])
+    geom = DP.letterbox_geometry(TTA_HW, size, auto=True, stride=det.stride)
+    x_dev = DP.device_letterbox(det.upload(frames[:1]), geom)
+    ms = {k: [] for k in ("call", "forward", "post", "assemble", "untiled",
+                          "device")}
+    for _ in range(TIMING_ROUNDS):
+        ms["call"].append(timed(lambda: det._run_tiled_batch(inputs,
+                                                             plan))[1])
+        rows, t = timed(lambda: det.forward_rows(tiles_dev))
+        ms["forward"].append(t)
+        dets, t = timed(lambda: det.postprocess(rows))
+        ms["post"].append(t)
+        del rows
+        tile_rows = NMS.detections_to_numpy(dets)
+        ms["assemble"].append(timed(lambda: [tiling.assemble_rows(
+            tile_rows[i * n:(i + 1) * n], plan, det.iou_thres,
+            device=det.device) for i in range(TTA_FRAMES)])[1])
+        ms["untiled"].append(timed(lambda: det.forward_rows(frame_dev))[1])
+        ms["device"].append(timed(lambda: det.forward_input(x_dev))[1])
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    per = {k: med[k] / TTA_FRAMES for k in ("call", "forward", "post",
+                                            "assemble")}
+    print(f"w6-tiled per frame ms on {smi} (medians of {TIMING_ROUNDS}, host "
+          f"clock, synchronized): tiled call {per['call']:.3f} (tile "
+          f"forward+decode b{n * TTA_FRAMES}@{plan.tile}^2 "
+          f"{med['forward']:.3f} / {TTA_FRAMES} = {per['forward']:.3f}, "
+          f"postprocess {per['post']:.3f}, assemble_rows "
+          f"{per['assemble']:.3f}); untiled "
+          f"b1@{size}x{size} forward+decode {med['untiled']:.3f} (host "
+          f"upload); b1@{geom.out_hw[0]}x{geom.out_hw[1]} device-preprocess "
+          f"forward+decode {med['device']:.3f}; all rounds "
+          f"{ {k: [round(t, 3) for t in v] for k, v in ms.items()} }")
+    del det, tiles_dev, frame_dev, x_dev
+    torch.cuda.empty_cache()
+    stamp("path w6-tiled done")
     return seq
 
 
@@ -670,7 +854,8 @@ def main() -> None:
     counts_w6, (boxes, valid, thr), ref_w6, _ = drive_path(
         w6, smi, 0, frames[w6])
     _, _, ref_tiny, _ = drive_path(tiny, smi, 1, frames[tiny], requests=2)
-    tta_launches = drive_tta(smi)
+    tta_launches, tta_gate = drive_tta(smi)
+    tiled_launches = drive_tiled(smi, tta_gate)
     built(builds, E)
     pool.shutdown()
 
@@ -727,6 +912,7 @@ def main() -> None:
             # launches on the w6 TTA path; on the serving paths the
             # fixpoint kernel is checked to launch 0 times
             "tta_launches": tta_launches if version == "seq" else 0,
+            "tiled_launches": tiled_launches if version == "seq" else 0,
             "serving_launches": counts_w6[version],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     b, k = valid.shape

@@ -9,7 +9,9 @@ uint8 NHWC batch -> /255 -> YoloFace forward with BN folded (or, with
 (the keep mask through the CUDA kernel on the card) -> Detections, then
 the host-side inverse letterbox. The TTA pyramid (`detect_multi_scale`)
 runs every scale and merges them with the scale-weighted NMS, whose keep
-mask goes through the same kernel.
+mask goes through the same kernel. A giant scale can run as one batch of
+halo'd tiles (`tile_top_scale`, infer/tiling.py), and a large batch as a
+loop over chunks (`micro_batch`).
 
 PyTorch runs eagerly, so there is no per-shape executable to cache.
 Preprocessing (letterbox / pad-to-square) stays on the host in cv2 for
@@ -22,7 +24,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -30,9 +34,11 @@ import torch
 
 from face_detection_multi_scale_tpu_torch.data import letterbox as LB
 from face_detection_multi_scale_tpu_torch.infer import device_preprocess as DP
+from face_detection_multi_scale_tpu_torch.infer import tiling
 from face_detection_multi_scale_tpu_torch.models import zoo
 from face_detection_multi_scale_tpu_torch.models.convert import (
-    jax_to_state_dict, load_reference_state_dict)
+    jax_to_state_dict, load_inference_weights, load_reference_state_dict,
+    load_torch_checkpoint)
 from face_detection_multi_scale_tpu_torch.models.fuse import fold_bn
 from face_detection_multi_scale_tpu_torch.models.fused import (
     apply_variant, find_elan_blocks, fused_apply)
@@ -74,9 +80,21 @@ class FaceDetector:
     Args mirror the JAX FaceDetector: `variables` is either a JAX-layout
     variables tree of numpy arrays (carried over by the weight bridge,
     models/convert.py) or a torch state dict with reference key names;
-    with neither, weights are the seeded init (`seed`). `fuse` folds BN
-    into the convs for serving. `device` defaults to the card and raises
-    when there is none.
+    `torch_weights` is the path of a local checkpoint that replaces
+    `variables`: a reference `.pt` (EMA preferred) or the JAX package's
+    flat inference `.npz`. With neither, weights are the seeded init
+    (`seed`). `fuse` folds BN into the convs for serving. `device`
+    defaults to the card and raises when there is none.
+
+    `micro_batch` runs a larger batch as a loop of engine calls over
+    chunks of that many images (peak activation memory is the chunk's),
+    when it divides the batch; otherwise the batch runs whole.
+
+    `tile_top_scale` (a grid g >= 2, or True for 2) runs every scale of
+    at least `tile_min_size` px as one batch of g x g tiles with a
+    `tile_halo` px overlap context, reassembled by tile ownership and a
+    seam dedup (infer/tiling.py): an approximation near seams, off by
+    default.
 
     `fuse_elan` runs each E-ELAN group as one fused kernel launch
     (models/fused.py, ops/elan_kernel.py): True with the default kernel,
@@ -92,16 +110,28 @@ class FaceDetector:
     """
 
     def __init__(self, model: Union[str, ModelSpec] = "yolov7-w6-face",
-                 variables=None, img_sizes: Sequence[int] = (640, 3840),
+                 variables=None, torch_weights: Optional[str] = None,
+                 img_sizes: Sequence[int] = (640, 3840),
                  conf_thres: float = 0.5, iou_thres: float = 0.5,
                  use_api_preprocess: bool = False, max_det: int = 300,
                  max_candidates: int = 4096, seed: int = 0,
                  fuse: bool = True, fuse_elan: Union[bool, str] = False,
-                 use_device_preprocess: bool = False, device="cuda"):
+                 use_device_preprocess: bool = False,
+                 micro_batch: Optional[int] = None,
+                 tile_top_scale: Union[bool, int] = False,
+                 tile_halo: int = 256, tile_min_size: int = 2048,
+                 device="cuda"):
         self.device = _device(device)
         spec = zoo.get_spec(model) if isinstance(model, str) else model
         self.spec = spec.resolve()
         net = YoloFace(self.spec)
+        if torch_weights is not None:
+            path = str(torch_weights)
+            if not os.path.exists(path):  # local files only: no download
+                raise FileNotFoundError(f"weights file not found: {path}")
+            variables = (load_inference_weights(path)
+                         if path.endswith(".npz")
+                         else load_torch_checkpoint(path))
         if variables is None:
             init_weights(net, torch.Generator().manual_seed(seed))
         else:  # a JAX-layout tree, or a state dict with reference keys
@@ -131,6 +161,17 @@ class FaceDetector:
         self.use_device_preprocess = use_device_preprocess
         self.max_det = max_det
         self.max_candidates = max_candidates
+        self.micro_batch = micro_batch
+        self._warned_mb_divide = False
+        self.tile_grid = 2 if tile_top_scale is True else \
+            int(tile_top_scale or 0)
+        if self.tile_grid == 1:
+            raise ValueError(
+                "tile_top_scale=1 is not a tiling (grid must be >= 2); "
+                "pass 0/False for the untiled path")
+        self.tile_halo = tile_halo
+        self.tile_min_size = tile_min_size
+        self._warned_tile_standard = False
         self._trunc_images = 0
         self._trunc_total = 0
         self._trunc_max_gated = 0
@@ -140,6 +181,19 @@ class FaceDetector:
         n = dets.n_gated.cpu().numpy().reshape(-1)
         self._trunc_images += int((n > self.max_candidates).sum())
         self._trunc_total += int(n.size)
+        self._trunc_max_gated = max(self._trunc_max_gated, int(n.max()))
+        self._trunc_dropped += int(
+            np.clip(n - self.max_candidates, 0, None).sum())
+
+    def _record_truncation_tiled(self, dets: NMS.Detections,
+                                 n_tiles: int) -> None:
+        """Tiled-scale telemetry: one report entry per IMAGE, not per tile
+        (the capacity is per tile, so an image is truncated iff any of its
+        tiles overflowed; dropped counts sum over its tiles)."""
+        n = dets.n_gated.cpu().numpy().reshape(-1, n_tiles)
+        self._trunc_images += int((n > self.max_candidates)
+                                  .any(axis=1).sum())
+        self._trunc_total += int(n.shape[0])
         self._trunc_max_gated = max(self._trunc_max_gated, int(n.max()))
         self._trunc_dropped += int(
             np.clip(n - self.max_candidates, 0, None).sum())
@@ -185,11 +239,36 @@ class FaceDetector:
             preds, self.conf_thres, self.iou_thres, nc=self.spec.nc,
             max_candidates=self.max_candidates, max_det=self.max_det)
 
-    def run_network(self, images_u8) -> NMS.Detections:
+    def _microbatched(self, engine, batch) -> NMS.Detections:
+        """`engine` (a chunk of frames -> Detections) over the whole batch:
+        one call per `micro_batch` frames, the chunks' Detections
+        concatenated in batch order, when micro-batching is on and the
+        chunk divides the batch; else one call on the whole batch (with a
+        warning, once, when the chunk does not divide it)."""
+        mb, n = self.micro_batch, batch.shape[0]
+        if not mb or n <= mb or n % mb:
+            if mb and n > mb and not self._warned_mb_divide:
+                self._warned_mb_divide = True
+                warnings.warn(
+                    f"micro_batch={mb} does not divide batch {n} — "
+                    "running whole-batch (pad or resize the batch to a "
+                    "multiple to get micro-batching)",
+                    RuntimeWarning, stacklevel=3)
+            return engine(batch)
+        chunks = [engine(batch[i:i + mb]) for i in range(0, n, mb)]
+        return NMS.Detections(*(torch.cat(parts) for parts in zip(*chunks)))
+
+    def run_network(self, images_u8, *,
+                    _record: bool = True) -> NMS.Detections:
         """Raw engine call: uint8 NHWC (bs, h, w, 3) -> Detections on the
-        detector's device."""
-        dets = self.postprocess(self.forward_rows(images_u8))
-        self._record_truncation(dets)
+        detector's device. _record=False leaves the truncation telemetry
+        to the caller (the tiled paths record one entry per image, not
+        per tile)."""
+        dets = self._microbatched(
+            lambda chunk: self.postprocess(self.forward_rows(chunk)),
+            images_u8)
+        if _record:
+            self._record_truncation(dets)
         return dets
 
     @torch.inference_mode()
@@ -212,8 +291,14 @@ class FaceDetector:
         """Engine call with device preprocessing: raw uint8 NHWC frames on
         the device -> (Detections, LetterboxGeometry), the counterpart of
         the JAX `_executable_dev` run."""
-        x, geom = self.device_input(raw_u8, img_size, auto)
-        dets = self.postprocess(self.forward_input(x))
+        geom = None
+
+        def engine(chunk):
+            nonlocal geom
+            x, geom = self.device_input(chunk, img_size, auto)
+            return self.postprocess(self.forward_input(x))
+
+        dets = self._microbatched(engine, raw_u8)
         self._record_truncation(dets)
         return dets, geom
 
@@ -244,6 +329,38 @@ class FaceDetector:
                                       auto=True)
 
     # ------------------------------------------------------------------
+    # tiled giant scales
+    # ------------------------------------------------------------------
+
+    def _tile_plan(self, img_size: int) -> Optional[tiling.TilePlan]:
+        """TilePlan when tiling applies to this scale, else None."""
+        if self.tile_grid < 2 or img_size < self.tile_min_size:
+            return None
+        return tiling.plan_tiles(img_size, self.tile_grid, self.tile_halo,
+                                 self.stride)
+
+    def _run_tiled_batch(self, inputs, plan) -> List[np.ndarray]:
+        """Letterboxed square uint8 frames -> per-frame (n, 6+E) rows in
+        frame coordinates: ALL frames' g^2 halo'd tiles in one engine
+        call, reassembled per frame by tile ownership and a seam dedup on
+        the detector's device, with per-image (not per-tile) truncation
+        telemetry. The one tiled call sequence of every tiled path."""
+        tiles = np.concatenate([tiling.extract_tiles(inp, plan)
+                                for inp in inputs])
+        dets = self.run_network(tiles, _record=False)
+        self._record_truncation_tiled(dets, plan.n_tiles)
+        tile_rows = NMS.detections_to_numpy(dets)
+        n = plan.n_tiles
+        return [tiling.assemble_rows(tile_rows[i * n:(i + 1) * n], plan,
+                                     self.iou_thres, device=self.device)
+                for i in range(len(inputs))]
+
+    def _run_scale_tiled(self, inp: np.ndarray, plan) -> np.ndarray:
+        """One letterboxed S x S frame -> (n, 6+E) rows in the S x S
+        frame."""
+        return self._run_tiled_batch([inp], plan)[0]
+
+    # ------------------------------------------------------------------
     # detection APIs
     # ------------------------------------------------------------------
 
@@ -256,22 +373,49 @@ class FaceDetector:
 
         `_raw_dev` (internal): the (1, h, w, 3) uint8 raw frame already on
         the device; the multi-scale loop uploads the frame once and reuses
-        it at every scale when device preprocessing is on."""
+        it at every scale when device preprocessing is on.
+
+        A tiled scale (`tile_top_scale`) needs a SQUARE scale frame, which
+        only the API mode's pad-to-square gives here; the standard mode
+        letterboxes auto=True (rectangular), so there tiling applies only
+        through detect_multi_scale_batch (warned once). The tiled scale
+        letterboxes on the host even with device preprocessing, from the
+        host frame when the caller handed one."""
         if _raw_dev is not None:
             img0_shape = tuple(int(v) for v in _raw_dev.shape[1:])
+            img0 = None
         else:
             img0 = self._load(img)
             img0_shape = img0.shape
+        plan = (self._tile_plan(img_size) if self.use_api_preprocess
+                else None)
+        if (plan is None and not self.use_api_preprocess
+                and self.tile_grid >= 2 and img_size >= self.tile_min_size
+                and not self._warned_tile_standard):
+            self._warned_tile_standard = True
+            warnings.warn(
+                "tile_top_scale is inert on the per-image standard-"
+                "preprocess path (rectangular auto=True letterbox); use "
+                "use_api_preprocess=True or detect_multi_scale_batch "
+                "for tiled giant scales", RuntimeWarning, stacklevel=2)
         t1 = time.perf_counter()
-        if self.use_device_preprocess:
+        if plan is not None:
+            if img0 is None:
+                img0 = (self._load(img) if img is not None
+                        else _raw_dev[0].cpu().numpy())
+            inp = self.preprocess(img0, img_size)
+            rows = self._run_scale_tiled(inp, plan)
+            inp_hw = inp.shape[:2]
+        elif self.use_device_preprocess:
             raw = _raw_dev if _raw_dev is not None else self.upload(img0[None])
             dets, geom = self.run_network_raw(raw, img_size, auto=True)
             inp_hw = geom.out_hw
+            rows = NMS.detections_to_numpy(dets)[0]
         else:
             inp = self.preprocess(img0, img_size)
             dets = self.run_network(inp[None])
             inp_hw = inp.shape[:2]
-        rows = NMS.detections_to_numpy(dets)[0]
+            rows = NMS.detections_to_numpy(dets)[0]
         t2 = time.perf_counter()
 
         rows = rows[:, :6]
@@ -330,8 +474,13 @@ class FaceDetector:
                 inputs = [LB.preprocess_standard(im, img_size, self.stride,
                                                  auto=False)
                           for im in loaded]
-            rows_list = NMS.detections_to_numpy(
-                self.run_network(np.stack(inputs)))
+            plan = self._tile_plan(img_size)
+            if plan is not None:
+                # giant scale: every image's g^2 tiles in ONE engine call
+                rows_list = self._run_tiled_batch(inputs, plan)
+            else:
+                rows_list = NMS.detections_to_numpy(
+                    self.run_network(np.stack(inputs)))
             frame_hw = inputs[0].shape[:2]
             for i, rows in enumerate(rows_list):
                 rows = rows[:, :6].astype(np.float64)
@@ -361,14 +510,19 @@ class FaceDetector:
         """Throughput path: a batch of images at one scale in one engine
         call, letterboxed to the same square (auto=False). With device
         preprocessing and frames of one shape (video), the raw frames are
-        uploaded and letterboxed on the device. Returns per-image
-        (n, 6 [+3*nkpt]) arrays in original coordinates."""
+        uploaded and letterboxed on the device. A tiled scale letterboxes
+        on the host and runs every image's tiles in one engine call.
+        Returns per-image (n, 6 [+3*nkpt]) arrays in original
+        coordinates."""
         img_size = check_img_size(img_size, self.stride)
         loaded = [self._load(img) for img in imgs]
         shapes = [im.shape for im in loaded]
-        if self.use_device_preprocess and len(set(shapes)) == 1:
+        plan = self._tile_plan(img_size)
+        if (plan is None and self.use_device_preprocess
+                and len(set(shapes)) == 1):
             dets, _ = self.run_network_raw(self.upload(np.stack(loaded)),
                                            img_size, auto=False)
+            rows_list = NMS.detections_to_numpy(dets)
         else:
             inputs = []
             for img0 in loaded:
@@ -378,8 +532,11 @@ class FaceDetector:
                 else:
                     inputs.append(LB.preprocess_standard(
                         img0, img_size, self.stride, auto=False))
-            dets = self.run_network(np.stack(inputs))
-        rows_list = NMS.detections_to_numpy(dets)
+            if plan is not None:
+                rows_list = self._run_tiled_batch(inputs, plan)
+            else:
+                rows_list = NMS.detections_to_numpy(
+                    self.run_network(np.stack(inputs)))
         out = []
         for rows, shape in zip(rows_list, shapes):
             rows = rows.astype(np.float64)

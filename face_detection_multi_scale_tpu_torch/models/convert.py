@@ -111,3 +111,36 @@ def load_reference_state_dict(net: torch.nn.Module,
     if missing or unexpected:
         raise RuntimeError(f"state dict does not match the model: missing "
                            f"{missing}, unexpected {unexpected}")
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference .pt checkpoint -> its (EMA-preferred) float state dict,
+    as the JAX package's `load_torch_checkpoint`: a training checkpoint
+    dict gives its "ema" entry, else its "model"; a bare module or a raw
+    state dict is taken as it is. Load it with
+    `load_reference_state_dict`, which drops the anchor buffers."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and ("ema" in ckpt or "model" in ckpt):
+        model = ckpt.get("ema") or ckpt.get("model")
+    else:
+        model = ckpt
+    if hasattr(model, "float"):
+        return dict(model.float().state_dict())
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in model.items()}
+
+
+def load_inference_weights(path: str) -> Dict[str, Dict[str, Any]]:
+    """The flat .npz of the JAX package's `save_inference_weights` (keys
+    "<collection>/<module>/.../<leaf>") -> the nested variables tree
+    {"params": ..., "batch_stats": ...} of numpy arrays, the input of
+    `jax_to_state_dict`."""
+    cols: Dict[str, Dict[str, Any]] = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            node = cols
+            *parents, leaf = key.split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = flat[key]
+    return cols

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from face_detection_multi_scale_tpu_torch.infer import device_preprocess as DP
+from face_detection_multi_scale_tpu_torch.infer import tiling
 from face_detection_multi_scale_tpu_torch.infer.detector import (
     FaceDetector, full_fp32)
 from face_detection_multi_scale_tpu_torch.models import zoo
@@ -495,3 +496,72 @@ def test_detect_multi_scale_on_card(cuda_device):
     assert K.nms_keep.launches == launches + 3
     assert (out[:, [0, 2]] <= 120).all() and (out[:, [1, 3]] <= 90).all()
     assert set(out[:, 6].tolist()) <= {0, 1}
+
+
+def narrow_tiny():
+    spec = zoo.get_spec("yolov7-tiny-face")
+    spec.width_multiple = 0.25
+    spec._resolved = False
+    return spec
+
+
+def test_tiled_call_on_card_matches_cpu_assembly(cuda_device):
+    """A narrowed tiny detector tiled at 256 (4 tiles of 192 a frame) on
+    the card: one keep-mask launch for the tile batch of both frames and
+    one per frame's seam dedup, each frame's rows equal to the CPU
+    assemble_rows of the same tile rows, one truncation entry a frame."""
+    det = FaceDetector(narrow_tiny(), img_sizes=(256,),
+                       use_api_preprocess=True, tile_top_scale=2,
+                       tile_halo=64, tile_min_size=256, max_candidates=512,
+                       device=cuda_device)
+    frames = np.random.default_rng(3).integers(0, 256, (2, 256, 256, 3),
+                                               dtype=np.uint8)
+    plan = det._tile_plan(256)
+    assert (plan.tile, plan.origins) == (192, (0, 64))
+    tiles = np.concatenate([tiling.extract_tiles(f, plan) for f in frames])
+    rows = det.forward_rows(tiles)
+    conf = (rows[..., 4] * rows[..., 5]).flatten().sort(descending=True)[0]
+    det.conf_thres = float(conf[len(conf) // 8])
+    posts, post = [], det.postprocess
+
+    def record(r):
+        posts.append(post(r))
+        return posts[-1]
+
+    det.postprocess = record
+    launches = K.nms_keep.launches
+    images = det.truncation_report()["images"]
+    out = det._run_tiled_batch(list(frames), plan)
+    torch.cuda.synchronize()
+    assert len(posts) == 1 and posts[0].boxes.shape[0] == 8
+    tile_rows = NMS.detections_to_numpy(posts[0])
+    for i, got in enumerate(out):
+        want = tiling.assemble_rows(tile_rows[4 * i:4 * i + 4], plan,
+                                    det.iou_thres, device="cpu")
+        assert len(want) > 0
+        np.testing.assert_array_equal(got, want)
+    assert K.nms_keep.launches == launches + 1 + len(frames)
+    assert det.truncation_report()["images"] == images + len(frames)
+
+
+def test_micro_batch_on_card_keeps_the_whole_batch(cuda_device):
+    """micro_batch=4 over 8 frames: one keep-mask launch a chunk, the
+    whole batch's keepers per image, rows within ROW_TOL."""
+    kw = dict(img_sizes=(128,), conf_thres=0.01, max_candidates=512,
+              device=cuda_device)
+    whole = FaceDetector(narrow_tiny(), **kw)
+    chunked = FaceDetector(narrow_tiny(), micro_batch=4, **kw)
+    frames = np.random.default_rng(4).integers(0, 256, (8, 128, 128, 3),
+                                               dtype=np.uint8)
+    want = whole.run_network(frames)
+    launches = K.nms_keep.launches
+    got = chunked.run_network(frames)
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == launches + 2
+    assert torch.equal(got.valid.sum(1), want.valid.sum(1))
+    for g, w in zip(NMS.detections_to_numpy(got),
+                    NMS.detections_to_numpy(want)):
+        assert len(g) > 0
+        pair = np.abs(g[:, None, :5] - w[None, :, :5]).max(-1).argmin(1)
+        assert len(set(pair.tolist())) == len(pair)
+        np.testing.assert_allclose(g, w[pair], atol=5e-3, rtol=1e-3)
