@@ -81,19 +81,40 @@ Phases, each fatal on failure (nothing is caught to carry on):
      Detections equal the CPU postprocess of its rows. Then once more with
      fuse_elan="pre:" (5 groups absorb their downsample conv)
   8. path tiny-fused: the same for tiny, 8 launches per request
-  9. one JSON line with every kernel's launches, error, times and bound;
+  9. path w6-bf16: FaceDetector("yolov7-w6-face", dtype=torch.bfloat16)
+     with phase 4's seeded weights and frames: its raws on 2 frames within
+     5e-2 of max |f32 raw| per level of phase 4's card forward (each
+     share printed); Detections equal to the CPU postprocess of the same
+     rows; one nms_keep launch and no fused_elan launch a request; the
+     request's ms (median of 4), img/s, forward+decode and postprocess ms
+ 10. paths w6-bf16-fused (fuse_elan True and "pre:") and tiny-bf16-fused:
+     each group's bf16 kernel output on its own captured inputs within
+     1e-2 of max |plain| of its bf16 reference_elan on the card (float32
+     convs of the bf16 values, TF32 off); the fused raws within 5e-2 of
+     max |raw| per level of phase 9's (w6) or of phase 5's float32 card
+     forward (tiny); 11 and 8 bf16 launches a request, none of the f32
+     kernel; the kernel's ms summed over the groups (CUDA events), the
+     same groups' cuDNN bf16 modules' ms, the bound (FLOPs at 989 TFLOP/s
+     bf16 against bytes at 3.35 TB/s) and the request ms
+ 11. paths w6-tta-bf16 and w6-tiled-bf16: phases 5b and 5c in bf16 (the
+     device preprocess within 2/255 of the CPU's float32 one); then one
+     torch.profiler pass over the b1@2176x3840 bf16 forward, which counts
+     its cuBLAS GEMV launches (the products of cuDNN's FFT convolutions
+     at batch 1 in float32)
+ 12. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
-     of 16 blocks
- 10. the last line: {"ok": true, "device": {...}}
+     of 16 blocks; fused_elan_bf16 beside fused_elan
+ 13. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
 does (H100 SXM, dense): 67 TFLOP/s f32 without tensor cores for nms_keep;
 495 / 3 = 165 TFLOP/s for fused_elan, whose f32-accurate products are three
 TF32 tensor-core products a multiply-add (3xTF32; the 67 TFLOP/s SIMT bound
-is printed beside it); 989 TFLOP/s bf16 for probe_mm. Operations count what
-this run's data needs (`nms_bound`, `elan_cost`, `probe_mm.cost`).
+is printed beside it); 989 TFLOP/s bf16 for probe_mm and the bf16
+fused_elan. Operations count what this run's data needs (`nms_bound`,
+`elan_cost`, `probe_mm.cost`).
 """
 
 from __future__ import annotations
@@ -115,10 +136,13 @@ from face_detection_multi_scale_tpu_torch.ops import elan_kernel as E
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
 from face_detection_multi_scale_tpu_torch.tools import probe_mm as PM
+from face_detection_multi_scale_tpu_torch.tools.forward_format_ab import (
+    kernel_profile)
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32X3_OPS_PER_S = 495e12 / 3  # 3xTF32: three TF32 products a multiply-add
+BF16_OPS_PER_S = 989e12
 OPS_PER_IOU = 12  # 4 min/max, 2 sub, 2 clamp, mul, add, sub, div (+ compare)
 BATCH = 8
 REQUESTS = 4
@@ -126,6 +150,9 @@ SIZE = 640
 MAX_CANDIDATES = 4096  # the serving default; w6@640 has N = 25,500 rows
 ROW_TOL = dict(atol=5e-3, rtol=1e-3)
 ELAN_REL_TOL = 1e-5
+BF16_ELAN_REL_TOL = 1e-2  # a few bf16 roundings (2^-8 each) apart
+BF16_RAW_SHARE = 5e-2     # bf16 raws against float32 ones, per level
+BF16_PIXEL_TOL = 2 / 255  # bf16 preprocess: its roundings of [0, 255]
 GROUPS = {"yolov7-w6-face": 11, "yolov7-tiny-face": 8}
 PROBE_CELLS, PROBE_ITERS = 512, 6  # the JAX tool's defaults
 TTA_SIZES = (640, 3840)  # the JAX FaceDetector's default pyramid
@@ -330,18 +357,44 @@ def rows_within(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
     check(bool((err <= lim).all()), f"{what} beyond {ROW_TOL}")
 
 
+def raw_share(got, want, what: str) -> None:
+    """Per level max |got - want| / max |want| of raw maps, printed; fatal
+    beyond BF16_RAW_SHARE."""
+    shares = [float((g.float() - w.float()).abs().max() / w.float().abs()
+                    .max()) for g, w in zip(got, want)]
+    print(f"{what}: raws off by {[f'{s:.4g}' for s in shares]} of max "
+          f"|raw| per level (bound {BF16_RAW_SHARE})")
+    check(len(got) == len(want) and all(
+        g.shape == w.shape and bool(torch.isfinite(g).all())
+        for g, w in zip(got, want)), f"{what}: bad raws")
+    check(max(shares) < BF16_RAW_SHARE, f"{what}: raws beyond "
+                                        f"{BF16_RAW_SHARE} of max |raw|")
+
+
+def card_raws(det: FaceDetector, frames: np.ndarray):
+    """The detector's raw maps of uint8 frames, on the host as float32."""
+    x = torch.as_tensor(frames).to(det.device).to(det.dtype) / 255.0
+    return [r.float().cpu() for r in det._forward(x)]
+
+
 def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
-               fuse_elan=False, requests=None, ref=None):
-    """Phases 4/5/7/8 for one zoo model. `ref` holds the unfused phase's
-    card and CPU rows on 2 frames; without it the CPU forward is run here.
-    Returns (the launch counts of the requests: seq, fixpoint and fused,
-    the keep mask's inputs from the first request, the rows on 2 frames:
-    card and CPU, the detector)."""
-    tag = name if not fuse_elan else f"{name} fuse_elan={fuse_elan!r}"
+               fuse_elan=False, requests=None, ref=None,
+               dtype=torch.float32, ref_raws=None):
+    """Phases 4/5/7/8 for one zoo model, and 9/10 in bf16. `ref` holds the
+    unfused phase's card and CPU rows on 2 frames; without it the CPU
+    forward is run here (float32 only). In bf16 the raws on 2 frames are
+    held against `ref_raws` (label, raws) instead. Returns (the launch
+    counts of the requests: seq, fixpoint and fused, the keep mask's
+    inputs from the first request, the rows on 2 frames: card and CPU
+    (None in bf16), the detector, its raws on 2 frames)."""
+    bf16 = dtype == torch.bfloat16
+    tag = name + (" bf16" if bf16 else "") + \
+        (f" fuse_elan={fuse_elan!r}" if fuse_elan else "")
     requests = requests or REQUESTS
     det = FaceDetector(name, img_sizes=(SIZE,), conf_thres=0.5,
                        iou_thres=0.5, max_candidates=MAX_CANDIDATES,
-                       seed=seed, fuse_elan=fuse_elan, device="cuda")
+                       seed=seed, fuse_elan=fuse_elan, dtype=dtype,
+                       device="cuda")
     # a gate low enough that the busiest frame overfills K: random weights
     # put conf near 1e-3 at stride 8 and near 0.25 on the rows that the
     # reference's anchor-major view fills from the kpt conv
@@ -351,7 +404,7 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
     det.warmup(SIZE, BATCH)
 
     K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
-    E.fused_elan.launches = 0
+    E.fused_elan.launches = E.fused_elan.bf16_launches = 0
     times, n_gated = [], []
     for r in range(requests):
         t0 = time.perf_counter()
@@ -364,16 +417,20 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
         check(all(bool(torch.isfinite(t).all()) for t in dets[:4]),
               f"{tag}: non-finite detections")
         n_gated += dets.n_gated.cpu().tolist()
-    launches, fused = K.nms_keep.launches, E.fused_elan.launches
+    launches = K.nms_keep.launches
+    fused, other = ((E.fused_elan.bf16_launches, E.fused_elan.launches)
+                    if bf16 else
+                    (E.fused_elan.launches, E.fused_elan.bf16_launches))
     fixpoint = K.nms_keep.fixpoint_launches
     check(launches == requests, f"{tag}: nms_keep launched {launches} "
                                 f"times for {requests} engine calls")
     check(fixpoint == 0, f"{tag}: the fixpoint keep-mask kernel launched "
                          f"{fixpoint} times; serving runs the seq kernel")
     want_fused = GROUPS[name] * requests if fuse_elan else 0
-    check(fused == want_fused, f"{tag}: fused_elan launched {fused} times "
-                               f"for {requests} engine calls, want "
-                               f"{want_fused}")
+    check(fused == want_fused and other == 0,
+          f"{tag}: fused_elan launched {fused} times in this dtype and "
+          f"{other} in the other for {requests} engine calls, want "
+          f"{want_fused} and 0")
     if fuse_elan:
         pres = sum(b.pre is not None for b in det._elan_blocks)
         print(f"{tag}: {len(det._elan_blocks)} fused groups ({pres} with an "
@@ -408,24 +465,32 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
           f"{tag}: card Detections differ from the CPU postprocess")
     stamp(f"{tag}: card Detections == CPU postprocess of the card's rows")
 
-    # the card's float32 forward vs a CPU forward with the same weights
-    rows_card = det.forward_rows(frames[0][:2]).cpu()
-    if ref is None:
-        cpu = FaceDetector(name, img_sizes=(SIZE,), seed=seed, device="cpu")
-        rows_cpu = cpu.forward_rows(frames[0][:2])
+    raws = card_raws(det, frames[0][:2])
+    if bf16:
+        # a bf16 network against a float32 (or another bf16) one
+        rows_card = rows_cpu = None
+        for label, want in ref_raws:
+            raw_share(raws, want, f"{tag}: vs {label}")
     else:
-        rows_unfused, rows_cpu = ref
-        rows_within(rows_card, rows_unfused, f"{tag}: vs the unfused card "
-                                             f"forward")
-    rows_within(rows_card, rows_cpu, f"{tag}: card vs CPU forward")
+        # the card's float32 forward vs a CPU forward with the same weights
+        rows_card = det.forward_rows(frames[0][:2]).cpu()
+        if ref is None:
+            cpu = FaceDetector(name, img_sizes=(SIZE,), seed=seed,
+                               device="cpu")
+            rows_cpu = cpu.forward_rows(frames[0][:2])
+        else:
+            rows_unfused, rows_cpu = ref
+            rows_within(rows_card, rows_unfused, f"{tag}: vs the unfused "
+                                                 f"card forward")
+        rows_within(rows_card, rows_cpu, f"{tag}: card vs CPU forward")
 
     _, _, _, nms_boxes, valid, _, _ = NMS._gather_candidates_planar(
         rows, nc=det.spec.nc, conf_thres=det.conf_thres,
         k=min(det.max_candidates, rows.shape[1]))
     stamp(f"path {tag} done")
     counts = {"seq": launches, "fixpoint": fixpoint, "fused": fused}
-    return (counts, (nms_boxes.contiguous(), valid, det.iou_thres),
-            (rows_card, rows_cpu), det)
+    return (counts, (nms_boxes.float().contiguous(), valid, det.iou_thres),
+            (rows_card, rows_cpu), det, raws)
 
 
 def tta_frames() -> np.ndarray:
@@ -443,13 +508,17 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def drive_tta(smi: str):
-    """Phase 5b: the w6 TTA pyramid through detect_multi_scale with device
-    preprocessing. Returns the nms_keep launches of the counted run and
-    the gate."""
+def drive_tta(smi: str, dtype=torch.float32):
+    """Phase 5b (and in bf16 the first half of 11): the w6 TTA pyramid
+    through detect_multi_scale with device preprocessing; in bf16 also
+    one torch.profiler pass of the top scale's b1 forward. Returns the
+    nms_keep launches of the counted run and the gate."""
+    bf16 = dtype == torch.bfloat16
+    tag = "w6-tta" + ("-bf16" if bf16 else "")
     det = FaceDetector("yolov7-w6-face", img_sizes=TTA_SIZES,
                        max_candidates=MAX_CANDIDATES, seed=0,
-                       use_device_preprocess=True, device="cuda")
+                       use_device_preprocess=True, dtype=dtype,
+                       device="cuda")
     frames = tta_frames()
     raw = det.upload(frames[:1])
     # the gate of phase 4: the small scale gates 1.5 K rows of frame 0
@@ -457,14 +526,17 @@ def drive_tta(smi: str):
     rows = det.forward_input(x)
     conf = (rows[..., 4] * rows[..., 5]).sort(dim=1, descending=True)[0]
     det.conf_thres = float(conf[0, 3 * MAX_CANDIDATES // 2])
+    # bf16: against the CPU's float32 preprocess, within bf16's roundings
+    tol = BF16_PIXEL_TOL if bf16 else 1e-5
     for size in TTA_SIZES:
         x, geom = det.device_input(raw, size, auto=True)
         want = DP.device_letterbox(torch.from_numpy(frames[:1]), geom)
-        err = float((x.cpu() - want).abs().max())
-        print(f"w6-tta: device preprocess {TTA_HW} -> {geom.out_hw} at "
+        err = float((x.float().cpu() - want).abs().max())
+        print(f"{tag}: device preprocess {TTA_HW} -> {geom.out_hw} at "
               f"{size}: card vs CPU max |diff| {err:.3g}")
-        check(x.shape[1:3] == geom.out_hw and err <= 1e-5,
-              f"w6-tta: device preprocess at {size} differs from the CPU")
+        check(x.shape[1:3] == geom.out_hw and x.dtype == dtype
+              and err <= tol,
+              f"{tag}: device preprocess at {size} differs from the CPU")
     det.detect_multi_scale(frames[0])  # first-call allocations
     torch.cuda.synchronize()
 
@@ -484,7 +556,7 @@ def drive_tta(smi: str):
 
     det.postprocess, NMS.weighted_nms_merge = record_post, record_merge
     K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
-    E.fused_elan.launches = 0
+    E.fused_elan.launches = E.fused_elan.bf16_launches = 0
     outs, ms = [], []
     try:
         for frame in frames:
@@ -493,33 +565,33 @@ def drive_tta(smi: str):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             outs.append(out)
-            check(shape == frame.shape, f"w6-tta: img0_shape {shape}")
+            check(shape == frame.shape, f"{tag}: img0_shape {shape}")
     finally:
         del det.postprocess
         NMS.weighted_nms_merge = merge
     seq, fixpoint = K.nms_keep.launches, K.nms_keep.fixpoint_launches
-    fused = E.fused_elan.launches
-    print(f"w6-tta: {TTA_FRAMES} frames, nms_keep launches {seq}, fixpoint "
+    fused = E.fused_elan.launches + E.fused_elan.bf16_launches
+    print(f"{tag}: {TTA_FRAMES} frames, nms_keep launches {seq}, fixpoint "
           f"{fixpoint}, fused_elan {fused}; detect_multi_scale ms per image "
           f"{[round(m, 3) for m in ms]} (host clock, synchronized)")
     want_seq = (len(TTA_SIZES) + 1) * TTA_FRAMES  # every scale + the merge
     check(seq == want_seq and fixpoint == 0 and fused == 0,
-          f"w6-tta: launches seq {seq}, fixpoint {fixpoint}, fused {fused}; "
+          f"{tag}: launches seq {seq}, fixpoint {fixpoint}, fused {fused}; "
           f"want {want_seq}, 0, 0")
     check(len(posts) == len(TTA_SIZES) * TTA_FRAMES
-          and len(merges) == TTA_FRAMES, "w6-tta: calls not recorded")
+          and len(merges) == TTA_FRAMES, f"{tag}: calls not recorded")
     for i, (rows, dets) in enumerate(posts):
         check(same_detections(dets, det.postprocess(rows.cpu())),
-              f"w6-tta: card Detections of call {i} differ from the CPU "
+              f"{tag}: card Detections of call {i} differ from the CPU "
               f"postprocess")
-        print(f"w6-tta: scale {TTA_SIZES[i % len(TTA_SIZES)]} rows "
+        print(f"{tag}: scale {TTA_SIZES[i % len(TTA_SIZES)]} rows "
               f"{tuple(rows.shape)}, n_gated {dets.n_gated.tolist()}, kept "
               f"{int(dets.valid.sum())}; == CPU postprocess")
     for merged, keep in merges:
         want = merge(merged, len(TTA_SIZES), det.iou_thres, device="cpu")
-        check(np.array_equal(keep, want), "w6-tta: the merge's keep indices "
-                                          "differ from the CPU merge's")
-        print(f"w6-tta: merge of {len(merged)} rows kept {len(keep)}; == CPU "
+        check(np.array_equal(keep, want), f"{tag}: the merge's keep indices "
+                                          f"differ from the CPU merge's")
+        print(f"{tag}: merge of {len(merged)} rows kept {len(keep)}; == CPU "
               f"merge")
     h, w = TTA_HW
     for out in outs:
@@ -528,8 +600,8 @@ def drive_tta(smi: str):
               and bool((out[:, [0, 2]] >= 0).all() and (out[:, [0, 2]] <= w)
                        .all() and (out[:, [1, 3]] >= 0).all()
                        and (out[:, [1, 3]] <= h).all())
-              and set(out[:, 6].tolist()) <= {0, 1}, "w6-tta: bad output")
-    print(f"w6-tta: {[len(o) for o in outs]} final detections; "
+              and set(out[:, 6].tolist()) <= {0, 1}, f"{tag}: bad output")
+    print(f"{tag}: {[len(o) for o in outs]} final detections; "
           f"truncation_report {det.truncation_report()}")
 
     # where one image's time goes (frame 0, every part synchronized)
@@ -545,11 +617,26 @@ def drive_tta(smi: str):
     _, t_merge = timed(lambda: merge(merges[0][0], len(TTA_SIZES),
                                      det.iou_thres, device=det.device))
     parts.append(f"merge {t_merge:.3f}")
-    print(f"w6-tta per image ms on {smi}: " + "; ".join(parts))
+    print(f"{tag} per image ms on {smi}: " + "; ".join(parts))
+    if bf16:
+        # x: the top scale's b1 input; do cuDNN's batch-1 FFT convolutions
+        # (and their cuBLAS GEMV products) run in bf16 too?
+        fwd = [timed(lambda: det.forward_input(x))[1]
+               for _ in range(TIMING_ROUNDS)]
+        prof = kernel_profile(lambda: det.forward_input(x))
+        print(f"{tag}: b1@{x.shape[1]}x{x.shape[2]} forward+decode "
+              f"{np.median(fwd):.3f} ms (median of {TIMING_ROUNDS}: "
+              f"{[round(t, 3) for t in fwd]}); under "
+              f"torch.profiler: wall {prof['wall_ms']:.3f} ms, kernels "
+              f"{prof['kernel_ms']:.3f} ms in {prof['launches']} launches, "
+              f"of which {prof['gemv_launches']} cuBLAS GEMV launches "
+              f"({prof['gemv_ms']:.3f} ms); top "
+              + "; ".join(f"{k['name'][:50]} {k['ms']:.2f} ms x"
+                          f"{k['launches']}" for k in prof["top"][:5]))
     conf_thres = det.conf_thres
-    del det
+    del det, x
     torch.cuda.empty_cache()
-    stamp("path w6-tta done")
+    stamp(f"path {tag} done")
     return seq, conf_thres
 
 
@@ -562,27 +649,30 @@ def iou_matrix(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return inter / (area(a)[:, None] + area(b)[None, :] - inter + 1e-9)
 
 
-def drive_tiled(smi: str, conf_thres: float) -> int:
-    """Phase 5c: the w6 top scale tiled, through _run_tiled_batch. Returns
-    the nms_keep launches of the counted run."""
+def drive_tiled(smi: str, conf_thres: float, dtype=torch.float32) -> int:
+    """Phase 5c (and in bf16 the second half of 11): the w6 top scale
+    tiled, through _run_tiled_batch. Returns the nms_keep launches of the
+    counted run."""
+    tag = "w6-tiled" + ("-bf16" if dtype == torch.bfloat16 else "")
     size = TTA_SIZES[-1]
     det = FaceDetector("yolov7-w6-face", img_sizes=TTA_SIZES,
                        use_api_preprocess=True, tile_top_scale=TILE_GRID,
                        tile_halo=TILE_HALO, tile_min_size=TILE_MIN,
-                       max_candidates=MAX_CANDIDATES, seed=0, device="cuda")
+                       max_candidates=MAX_CANDIDATES, seed=0, dtype=dtype,
+                       device="cuda")
     det.conf_thres = conf_thres
     plan = det._tile_plan(size)
     check(plan is not None and plan.tile == 2176 and plan.origins == (0, 1664)
           and det._tile_plan(TTA_SIZES[0]) is None,
-          f"w6-tiled: tile plan {plan}")
+          f"{tag}: tile plan {plan}")
     frames = tta_frames()
     # the API frames, built on the card, rounded to uint8 on the host
     inputs = []
     for frame in frames:
         x, geom = det.device_input(det.upload(frame[None]), size, auto=True)
-        check(geom.out_hw == (size, size), f"w6-tiled: frame {geom.out_hw}")
-        inputs.append(np.rint(x[0].cpu().numpy() * 255.0).clip(0, 255)
-                      .astype(np.uint8))
+        check(geom.out_hw == (size, size), f"{tag}: frame {geom.out_hw}")
+        inputs.append(np.rint(x[0].float().cpu().numpy() * 255.0)
+                      .clip(0, 255).astype(np.uint8))
         del x
 
     # the counted run, each postprocess and merge recorded
@@ -602,21 +692,21 @@ def drive_tiled(smi: str, conf_thres: float) -> int:
     images = det.truncation_report()["images"]
     det.postprocess, NMS.weighted_nms_merge = record_post, record_merge
     K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
-    E.fused_elan.launches = 0
+    E.fused_elan.launches = E.fused_elan.bf16_launches = 0
     try:
         outs, t_first = timed(lambda: det._run_tiled_batch(inputs, plan))
     finally:
         del det.postprocess
         NMS.weighted_nms_merge = merge
     seq, fixpoint = K.nms_keep.launches, K.nms_keep.fixpoint_launches
-    fused = E.fused_elan.launches
+    fused = E.fused_elan.launches + E.fused_elan.bf16_launches
     check(len(posts) == 1 and posts[0][1].boxes.shape[0] == plan.n_tiles
-          * TTA_FRAMES, "w6-tiled: not one engine call for every tile")
+          * TTA_FRAMES, f"{tag}: not one engine call for every tile")
     rows, dets = posts[0]
     check(same_detections(dets, det.postprocess(rows.cpu())),
-          "w6-tiled: the tile batch's Detections differ from the CPU "
-          "postprocess")
-    print(f"w6-tiled: tile batch rows {tuple(rows.shape)}, n_gated "
+          f"{tag}: the tile batch's Detections differ from the CPU "
+          f"postprocess")
+    print(f"{tag}: tile batch rows {tuple(rows.shape)}, n_gated "
           f"{dets.n_gated.tolist()}, kept {dets.valid.sum(1).tolist()}; == "
           f"CPU postprocess")
     del rows
@@ -627,27 +717,27 @@ def drive_tiled(smi: str, conf_thres: float) -> int:
         want = tiling.assemble_rows(tile_rows[i * n:(i + 1) * n], plan,
                                     det.iou_thres, device="cpu")
         check(out.shape == want.shape and np.array_equal(out, want),
-              f"w6-tiled: frame {i}'s card assemble_rows differs from the "
+              f"{tag}: frame {i}'s card assemble_rows differs from the "
               f"CPU's")
         owned += len(want) > 0
         cx, cy = (out[:, 0] + out[:, 2]) / 2, (out[:, 1] + out[:, 3]) / 2
         check(out.shape[1] == 21 and bool(np.isfinite(out).all())
               and bool(((cx >= 0) & (cx < size) & (cy >= 0) & (cy < size))
-                       .all()), f"w6-tiled: frame {i}: bad rows")
-        print(f"w6-tiled: frame {i}: {len(out)} rows; == CPU "
+                       .all()), f"{tag}: frame {i}: bad rows")
+        print(f"{tag}: frame {i}: {len(out)} rows; == CPU "
               f"assemble_rows; centers inside the {size}^2 frame, boxes "
               f"span x [{out[:, 0].min():.1f}, {out[:, 2].max():.1f}], y "
               f"[{out[:, 1].min():.1f}, {out[:, 3].max():.1f}]")
     want_seq = 1 + owned
-    check(len(merges) == owned, f"w6-tiled: {len(merges)} seam merges for "
+    check(len(merges) == owned, f"{tag}: {len(merges)} seam merges for "
                                 f"{owned} frames with owned rows")
     check(seq == want_seq and fixpoint == 0 and fused == 0,
-          f"w6-tiled: launches seq {seq}, fixpoint {fixpoint}, fused {fused};"
+          f"{tag}: launches seq {seq}, fixpoint {fixpoint}, fused {fused};"
           f" want {want_seq}, 0, 0")
     grown = det.truncation_report()["images"] - images
-    check(grown == TTA_FRAMES, f"w6-tiled: truncation_report images grew by "
+    check(grown == TTA_FRAMES, f"{tag}: truncation_report images grew by "
                                f"{grown}, want {TTA_FRAMES}")
-    print(f"w6-tiled: {TTA_FRAMES} frames of {size}^2, {n} tiles of "
+    print(f"{tag}: {TTA_FRAMES} frames of {size}^2, {n} tiles of "
           f"{plan.tile}^2 each (origins {plan.origins}), nms_keep launches "
           f"{seq} (1 engine call + {owned} seam merges of {merges} rows), "
           f"fixpoint {fixpoint}, fused_elan {fused}; first call "
@@ -659,7 +749,7 @@ def drive_tiled(smi: str, conf_thres: float) -> int:
         untiled = NMS.detections_to_numpy(det.run_network(inp[None]))[0]
         hit = (iou_matrix(untiled[:, :4], outs[i][:, :4]).max(1) >= 0.5
                if len(untiled) and len(outs[i]) else np.zeros(0, bool))
-        print(f"w6-tiled: frame {i}: {int(hit.sum())} of {len(untiled)} "
+        print(f"{tag}: frame {i}: {int(hit.sum())} of {len(untiled)} "
               f"untiled rows have a tiled row at IoU >= 0.5 "
               f"({len(outs[i])} tiled rows)")
 
@@ -668,7 +758,7 @@ def drive_tiled(smi: str, conf_thres: float) -> int:
                                            for inp in inputs]))
     frame_dev = det.upload(inputs[0][None])
     geom = DP.letterbox_geometry(TTA_HW, size, auto=True, stride=det.stride)
-    x_dev = DP.device_letterbox(det.upload(frames[:1]), geom)
+    x_dev = DP.device_letterbox(det.upload(frames[:1]), geom, dtype=dtype)
     ms = {k: [] for k in ("call", "forward", "post", "assemble", "untiled",
                           "device")}
     for _ in range(TIMING_ROUNDS):
@@ -688,7 +778,7 @@ def drive_tiled(smi: str, conf_thres: float) -> int:
     med = {k: float(np.median(v)) for k, v in ms.items()}
     per = {k: med[k] / TTA_FRAMES for k in ("call", "forward", "post",
                                             "assemble")}
-    print(f"w6-tiled per frame ms on {smi} (medians of {TIMING_ROUNDS}, host "
+    print(f"{tag} per frame ms on {smi} (medians of {TIMING_ROUNDS}, host "
           f"clock, synchronized): tiled call {per['call']:.3f} (tile "
           f"forward+decode b{n * TTA_FRAMES}@{plan.tile}^2 "
           f"{med['forward']:.3f} / {TTA_FRAMES} = {per['forward']:.3f}, "
@@ -700,7 +790,7 @@ def drive_tiled(smi: str, conf_thres: float) -> int:
           f"{ {k: [round(t, 3) for t in v] for k, v in ms.items()} }")
     del det, tiles_dev, frame_dev, x_dev
     torch.cuda.empty_cache()
-    stamp("path w6-tiled done")
+    stamp(f"path {tag} done")
     return seq
 
 
@@ -724,8 +814,10 @@ def capture_groups(det: FaceDetector, frames: np.ndarray):
 
 
 def elan_cost(x: torch.Tensor, weights, shape, out_hw):
-    """(flops, bytes) the group must do and move: x, weights and out once;
-    2 FLOPs per multiply-add of each conv over the group's output size."""
+    """(flops, bytes) the group must do and move: x, weights and out once
+    (each in its own element size: bf16 x, kernels and out, float32
+    biases in the bf16 form); 2 FLOPs per multiply-add of each conv over
+    the group's output size."""
     b, (h, w) = x.shape[0], out_hw
     macs = 2 * shape.cin * shape.ccv + 9 * shape.ccv * shape.cch + \
         (shape.n_chain - 1) * 9 * shape.cch ** 2 + \
@@ -733,8 +825,8 @@ def elan_cost(x: torch.Tensor, weights, shape, out_hw):
     if shape.has_pre:
         macs += 9 * shape.pre_cin * shape.cin
     flops = 2 * b * h * w * macs
-    nbytes = 4 * (x.numel() + sum(t.numel() for t in weights)
-                  + b * shape.cout * h * w)
+    nbytes = sum(t.numel() * t.element_size() for t in (x, *weights)) + \
+        b * shape.cout * h * w * x.element_size()
     return flops, nbytes
 
 
@@ -756,9 +848,14 @@ def unfused_group(model, blk, x):
 @torch.inference_mode()
 def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
                  timed: bool):
-    """Phase 6 for one fused detector: each group's kernel vs plain on the
-    captured inputs; with `timed`, the kernel, plain, library and bound
-    times. Returns the worst abs and relative errors and the time sums."""
+    """Phase 6 (and 10 in bf16) for one fused detector: each group's
+    kernel vs plain on the captured inputs; with `timed`, the kernel,
+    plain, library and bound times. Returns the worst abs and relative
+    errors and the time sums."""
+    bf16 = det.dtype == torch.bfloat16
+    tol, rate, rate_name = ((BF16_ELAN_REL_TOL, BF16_OPS_PER_S, "bf16")
+                            if bf16 else
+                            (ELAN_REL_TOL, TF32X3_OPS_PER_S, "3xTF32"))
     calls = capture_groups(det, frames)
     check(len(calls) == len(det._elan_blocks),
           f"captured {len(calls)} groups, want {len(det._elan_blocks)}")
@@ -771,16 +868,16 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
         # so an output the kernel failed to write cannot pass
         h, w = x.shape[2] // shape.pre_stride, x.shape[3] // shape.pre_stride
         torch.full((x.shape[0], shape.cout, h, w), float("nan"),
-                   device=x.device)
+                   dtype=x.dtype, device=x.device)
         got = E.fused_elan(x, ws, shape)
         with full_fp32():
             want = E.reference_elan(x, ws, shape)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()),
+        check(bool(torch.isfinite(got).all()) and got.dtype == x.dtype,
               f"fused_elan left non-finite values at nodes {blk.start}-"
               f"{blk.trans}")
-        diff = float((got - want).abs().max())
-        rel = diff / float(want.abs().max())
+        diff = float((got.float() - want.float()).abs().max())
+        rel = diff / float(want.float().abs().max())
         worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel, rel)
         plan = E.elan_plan(shape, x.shape[0], h, w, n_sm)
         share = E.recompute_share(shape, plan, h, w)
@@ -799,7 +896,7 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
                 lib = cuda_ms(lambda: unfused_group(det.model, blk, x), 3)
             flops, nbytes = elan_cost(x, ws, shape, (h, w))
             t_b = nbytes / HBM_BYTES_PER_S * 1e3
-            t_o = flops / TF32X3_OPS_PER_S * 1e3
+            t_o = flops / rate * 1e3
             t_s = flops / F32_OPS_PER_S * 1e3
             for key, v in (("ms", ms), ("plain_ms", plain),
                            ("library_ms", lib), ("t_bytes", t_b),
@@ -807,21 +904,21 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
                 sums[key] += v
             line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s "
                      f"effective), plain {plain:.3f} ms, library {lib:.3f} "
-                     f"ms, bound {max(t_b, t_o):.4f} ms at 3xTF32 "
+                     f"ms, bound {max(t_b, t_o):.4f} ms at {rate_name} "
                      f"({max(t_b, t_s):.4f} at f32 SIMT; {flops / 1e9:.2f} "
                      f"GFLOP, {nbytes / 1e6:.1f} MB)")
-        print(line)
-        check(rel < ELAN_REL_TOL, f"fused_elan differs from reference_elan "
-                                  f"by {rel:.3g} of max |plain| at nodes "
-                                  f"{blk.start}-{blk.trans}")
+        print(("bf16 " if bf16 else "") + line)
+        check(rel < tol, f"fused_elan differs from reference_elan by "
+                         f"{rel:.3g} of max |plain| at nodes "
+                         f"{blk.start}-{blk.trans} ({x.dtype})")
     if timed:
-        print(f"fused_elan {det.spec.name} b{BATCH}@{SIZE} on {smi}, sums "
-              f"over {len(calls)} groups: kernel {sums['ms']:.3f} ms "
-              f"({sums['flops'] / sums['ms'] / 1e9:.2f} TFLOP/s effective), "
-              f"plain {sums['plain_ms']:.3f} ms, library "
+        print(f"fused_elan {x.dtype} {det.spec.name} b{BATCH}@{SIZE} on "
+              f"{smi}, sums over {len(calls)} groups: kernel "
+              f"{sums['ms']:.3f} ms ({sums['flops'] / sums['ms'] / 1e9:.2f} "
+              f"TFLOP/s effective), plain {sums['plain_ms']:.3f} ms, library "
               f"{sums['library_ms']:.3f} ms, bound "
-              f"{max(sums['t_bytes'], sums['t_ops']):.4f} ms at 3xTF32 "
-              f"(the kernels line's), "
+              f"{max(sums['t_bytes'], sums['t_ops']):.4f} ms at {rate_name} "
+              f"(the kernels line's; bytes {sums['t_bytes']:.4f}), "
               f"{max(sums['t_bytes'], sums['t_simt']):.4f} ms at f32 SIMT")
     return worst_abs, worst_rel, sums
 
@@ -851,9 +948,10 @@ def main() -> None:
         0, 256, (REQUESTS, BATCH, SIZE, SIZE, 3), dtype=np.uint8)
         for name, seed in (("yolov7-w6-face", 0), ("yolov7-tiny-face", 1))}
     w6, tiny = "yolov7-w6-face", "yolov7-tiny-face"
-    counts_w6, (boxes, valid, thr), ref_w6, _ = drive_path(
+    counts_w6, (boxes, valid, thr), ref_w6, _, raws_w6 = drive_path(
         w6, smi, 0, frames[w6])
-    _, _, ref_tiny, _ = drive_path(tiny, smi, 1, frames[tiny], requests=2)
+    _, _, ref_tiny, _, raws_tiny = drive_path(tiny, smi, 1, frames[tiny],
+                                              requests=2)
     tta_launches, tta_gate = drive_tta(smi)
     tiled_launches = drive_tiled(smi, tta_gate)
     built(builds, E)
@@ -865,9 +963,9 @@ def main() -> None:
     for name, seed, flag, requests, ref in (
             (w6, 0, True, REQUESTS, ref_w6), (w6, 0, "pre:", 2, ref_w6),
             (tiny, 1, True, REQUESTS, ref_tiny)):
-        counts, _, _, det = drive_path(name, smi, seed, frames[name],
-                                       fuse_elan=flag, requests=requests,
-                                       ref=ref)
+        counts, _, _, det, _ = drive_path(
+            name, smi, seed, frames[name], fuse_elan=flag,
+            requests=requests, ref=ref)
         if name == w6 and flag is True:
             fused_launches = counts["fused"]
         worst_abs, worst_rel, sums = check_groups(
@@ -879,6 +977,40 @@ def main() -> None:
         del det
         torch.cuda.empty_cache()
         stamp(f"groups of {name} fuse_elan={flag!r} checked")
+
+    # phase 9: w6 in bf16, unfused, against phase 4's float32 raws
+    bf16 = torch.bfloat16
+    _, _, _, det, raws_w6_bf16 = drive_path(
+        w6, smi, 0, frames[w6], dtype=bf16,
+        ref_raws=[("the float32 card forward", raws_w6)])
+    del det
+    torch.cuda.empty_cache()
+
+    # phase 10: the bf16 fused paths, each group checked on its own inputs
+    bf16_elan, bf16_sums, bf16_launches = {"abs": 0.0, "rel": 0.0}, None, 0
+    for name, seed, flag, requests, ref_raws in (
+            (w6, 0, True, REQUESTS, [("the bf16 unfused card forward",
+                                      raws_w6_bf16)]),
+            (w6, 0, "pre:", 2, [("the bf16 unfused card forward",
+                                 raws_w6_bf16)]),
+            (tiny, 1, True, REQUESTS, [("the float32 card forward",
+                                        raws_tiny)])):
+        counts, _, _, det, _ = drive_path(
+            name, smi, seed, frames[name], fuse_elan=flag,
+            requests=requests, dtype=bf16, ref_raws=ref_raws)
+        worst_abs, worst_rel, sums = check_groups(
+            det, frames[name][0], smi, timed=flag is True)
+        bf16_elan["abs"] = max(bf16_elan["abs"], worst_abs)
+        bf16_elan["rel"] = max(bf16_elan["rel"], worst_rel)
+        if name == w6 and flag is True:
+            bf16_launches, bf16_sums = counts["fused"], sums
+        del det
+        torch.cuda.empty_cache()
+        stamp(f"bf16 groups of {name} fuse_elan={flag!r} checked")
+
+    # phase 11: the bf16 pyramid and tiles, and the batch-1 3840 profile
+    _, bf16_gate = drive_tta(smi, bf16)
+    drive_tiled(smi, bf16_gate, bf16)
 
     # the keep-mask kernels at the w6 path's own inputs
     keep = K.nms_keep(boxes, valid, thr)
@@ -963,6 +1095,19 @@ def main() -> None:
         "simt_bound_ms": max(s["t_bytes"], s["t_simt"]),
         "library_ms": s["library_ms"],
         "per": "sum over the 11 w6 groups of one b8@640 forward"})
+    s = bf16_sums
+    entries.append({
+        "name": "fused_elan_bf16", "route": "cuda",
+        "source": "face_detection_multi_scale_tpu_torch/csrc/fused_elan.cu",
+        "replaces": "face_detection_multi_scale_tpu/ops/pallas_elan.py:194",
+        "dtype": "bfloat16", "launches": bf16_launches,
+        "max_abs_err": bf16_elan["abs"], "max_rel_err": bf16_elan["rel"],
+        "ms": s["ms"], "plain_ms": s["plain_ms"],
+        "bound_ms": max(s["t_bytes"], s["t_ops"]),
+        "bound_by": "operations" if s["t_ops"] >= s["t_bytes"] else "bytes",
+        "bound_rate": "bf16: 989 TFLOP/s, 3.35 TB/s",
+        "library_ms": s["library_ms"],
+        "per": "sum over the 11 w6 groups of one b8@640 bf16 forward"})
     entries += probe_entries
     stamp("kernel times done")
     print(json.dumps({"kernels": entries}))

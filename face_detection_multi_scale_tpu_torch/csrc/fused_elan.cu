@@ -6,11 +6,13 @@
 //   a  = 1x1(x),  b = 1x1(x)
 //   y1 = 3x3(b),  yk = 3x3(y_{k-1}) for k = 2..n_chain
 //   out = 1x1(concat(members)),  members a subset of {a, b, y1..yn}
-// with SAME zero padding of every 3x3 (pad 1). Activations are NCHW f32,
-// weights OHWI f32 (the wrapper's repack of torch's OIHW), biases (C,).
-// act: silu, leaky 0.1 or relu.
+// with SAME zero padding of every 3x3 (pad 1). Activations are NCHW and
+// weights OHWI (the wrapper's repack of torch's OIHW), both f32 or both
+// bf16; biases (C,) f32. act: silu, leaky 0.1 or relu. One template, two
+// instantiations: f32 (fdms_fused_elan, below) and bf16
+// (fdms_fused_elan_bf16, the last paragraph of this note).
 //
-// What bounds it on the card: operations. The group's arithmetic (about
+// What bounds the f32 form on the card: operations. The group's arithmetic (about
 // 56 GFLOP per 640x640 w6 image) is several times its bytes (x, weights,
 // out once) over 3.35 TB/s, at any rate the card offers for f32-accurate
 // products. The fastest such rate is the tensor cores' in 3xTF32: every f32
@@ -63,10 +65,25 @@
 //     starts from zero (the lesson of csrc/probe_mm.cu).
 // The result is not bit-identical to a f32 convolution; it is held within
 // 1e-5 of max |plain| per group (tests/test_fused_elan.py's bound).
+//
+// The bf16 form computes what _elan_kernel computes with dtype bfloat16:
+// bf16 operands, f32 products and sums (preferred_element_type=f32), bias
+// and activation in f32, then every member, chain step, absorbed pre conv
+// and the output rounded to bf16 (round to nearest even), so the workspace
+// holds bf16 as the TPU kernel's VMEM held x.dtype. Its bound is the
+// group's FLOPs over 989 TFLOP/s (bf16 tensor cores), or its bytes over
+// 3.35 TB/s if larger. The design is the f32 one with 2-byte elements:
+// each k16 step is one wgmma m64n64k16 bf16 -> f32 (A from registers, two
+// bf16 a register; no split); B's core matrices are 8 channels x 8 K
+// values (16 bytes), the same byte strides as TF32's 8 x 4; a 16-byte copy
+// moves 8 values; the NCHW group input and ragged channels, which a
+// 2-byte element cannot cp.async, are read with plain loads. The chunk's
+// products (two wgmma steps) are added into the f32 totals as in f32.
 // Later work: TMA staging with a producer warp, wider block steps,
 // intermediates in distributed shared memory.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,32 +96,44 @@ constexpr int kBM = 128;  // positions per block step
 constexpr int kBN = 64;   // output channels per block step
 constexpr int kKC = 32;   // K rows per chunk: channels of one tap
 constexpr int kStages = 3;
-// A staging rows ([position][k]) of 36 floats: a warp's fragment loads (8
-// rows x 4 columns) hit 32 banks
-constexpr int kLdA = kKC + 4;
-constexpr int kAFloats = kBM * kLdA;  // a chunk's A stage
 // a 3x3 conv over a workspace window stages A once per 32 channels for all
 // nine taps: the rows of the window the block step's taps reach, up to
 // kHaloPoints points (two such stages)
 constexpr int kHaloPoints = 384;
-constexpr int kHaloFloats = kHaloPoints * kLdA;
-constexpr int kQuads = kKC / 4;                     // 16-byte runs a row
-constexpr int kRowsPerPass = kThreads / kQuads;     // workspace gather
-constexpr int kPasses = kBM / kRowsPerPass;
-// B (64 channels x 32 K rows) in wgmma's K-major layout without swizzle:
-// 8 x 4 core matrices of 8 channels x 4 K rows (128 bytes), channel
-// groups 128 bytes apart (SBO), K quads 1024 bytes apart (LBO); the big
-// parts, then the small parts
-constexpr int kBFloats = kBN * kKC;
-constexpr int kBQuadsPerThread = kBFloats / 4 / kThreads;
-constexpr int kBStageFloats = 2 * kBFloats;
-constexpr int kAAreaFloats = kStages * kAFloats > 2 * kHaloFloats
-                                 ? kStages * kAFloats
-                                 : 2 * kHaloFloats;
 // two warpgroups of m64n64 tiles; each warp stages 8 channels of B
 static_assert(kThreads == 256 && kBM == 128 && kBN == 64 && kKC == 32,
               "the warp layouts below assume these sizes");
-constexpr int kSmemBytes = 4 * (kStages * kBStageFloats + kAAreaFloats);
+
+// The sizes that follow from the element type T: float (f32) or uint16_t
+// (the bits of a bf16). A "quad" is one 16-byte run: 4 f32 or 8 bf16.
+template <typename T>
+struct Elem {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  // A staging rows ([position][k]): 36 floats or 40 bf16, so a warp's
+  // fragment loads (8 rows x 4 columns of 4 bytes) hit 32 banks
+  static constexpr int kLdA = kKC + (kBf16 ? 8 : 4);
+  static constexpr int kAElems = kBM * kLdA;  // a chunk's A stage
+  static constexpr int kHaloElems = kHaloPoints * kLdA;
+  static constexpr int kQuads = kKC / kVec;            // 16-byte runs a row
+  static constexpr int kRowsPerPass = kThreads / kQuads;  // workspace gather
+  static constexpr int kPasses = kBM / kRowsPerPass;
+  // B (64 channels x 32 K rows) in wgmma's K-major layout without swizzle:
+  // core matrices of 8 channels x 16 bytes (4 f32 or 8 bf16 K rows),
+  // channel groups 128 bytes apart (SBO), K quads 1024 bytes apart (LBO);
+  // f32: the big parts, then the small parts
+  static constexpr int kBElems = kBN * kKC;
+  static constexpr int kBQuadsPerThread = kBElems / kVec / kThreads;
+  static constexpr int kBStageElems = (kBf16 ? 1 : 2) * kBElems;
+  static constexpr int kAAreaElems = kStages * kAElems > 2 * kHaloElems
+                                          ? kStages * kAElems
+                                          : 2 * kHaloElems;
+  static constexpr int kSmemBytes = static_cast<int>(sizeof(T)) *
+                                    (kStages * kBStageElems + kAAreaElems);
+  // the K column of a thread's first A fragment element: tig (TF32) or
+  // 2 tig (a bf16 pair)
+  static constexpr int kACol = kBf16 ? 2 : 1;
+};
 constexpr int kMaxChain = 8;
 constexpr int kMaxMembers = kMaxChain + 2;
 
@@ -130,15 +159,17 @@ __device__ unsigned long long g_prof[kProfBlocks][2][kPhases];
 #endif
 #define PROF_SINCE(phase, t) PROF_ADD(phase, clock64() - t)
 
+template <typename T>
 struct Params {
-  const float* x;    // (B, cin, H, W) or, with pre, (B, pre_cin, sH, sW)
-  float* out;        // (B, cout, H, W)
-  float* ws;         // global workspace, ws_stride floats per cluster
-  const float *wp, *bp, *wa, *ba, *wb, *bb, *wt, *bt;
-  const float* wc[kMaxChain];
+  const T* x;    // (B, cin, H, W) or, with pre, (B, pre_cin, sH, sW)
+  T* out;        // (B, cout, H, W)
+  T* ws;         // global workspace, ws_stride elements per cluster
+  const T *wp, *wa, *wb, *wt;
+  const float *bp, *ba, *bb, *bt;
+  const T* wc[kMaxChain];
   const float* bc[kMaxChain];
   long long ws_stride;
-  // float offsets of a team's workspace regions, laid out by the wrapper
+  // element offsets of a team's workspace regions, laid out by the wrapper
   // (ops/elan_kernel.py::workspace_layout): x (pre only), b, a (if a
   // member), y1..yn, each holding its window, channels innermost
   long long off_x, off_b, off_a, off_y[kMaxChain];
@@ -148,17 +179,18 @@ struct Params {
 };
 
 // A conv's input. An image source is the NCHW input of one image (`plane`
-// floats a channel, rows of `ld`), read inside its dh x dw domain only and
-// as zero outside. A workspace source is an HWC window whose element (0, 0)
-// is domain point (oy, ox), rows of `ld` points, `cin` floats a point; it
-// covers every tap its consumer reads and holds zeros outside the domain
-// already. `w` points at the OHWI weights of this input's channels, `w_co`
-// floats apart from one output channel to the next.
+// elements a channel, rows of `ld`), read inside its dh x dw domain only
+// and as zero outside. A workspace source is an HWC window whose element
+// (0, 0) is domain point (oy, ox), rows of `ld` points, `cin` elements a
+// point; it covers every tap its consumer reads and holds zeros outside
+// the domain already. `w` points at the OHWI weights of this input's
+// channels, `w_co` elements apart from one output channel to the next.
+template <typename T>
 struct Src {
-  const float* p;
+  const T* p;
   long long plane;
   int oy, ox, ld, dh, dw, cin;
-  const float* w;
+  const T* w;
   long long w_co;
   bool image;
 };
@@ -169,7 +201,20 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v > 0.0f ? v : 0.0f;
 }
 
-__device__ __forceinline__ unsigned smem_addr(const float* p) {
+// v stored as T: f32 as it is, bf16 rounded to nearest even
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(uint16_t* p, float v) {
+  *p = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+// two neighbours at once (p aligned to twice the element)
+__device__ __forceinline__ void put2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void put2(uint16_t* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
@@ -180,7 +225,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 4 : 0));
 }
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
@@ -208,9 +253,15 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big,
   small = tf32_rna(v - __uint_as_float(big));
 }
 
+// cp.async's and plain stores' writes (generic proxy) visible to the
+// tensor cores' reads (async proxy)
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // wgmma's shared-memory matrix descriptor, no swizzle: start address,
 // leading (K) and stride (channel group) byte offsets, each >> 4
-__device__ __forceinline__ uint64_t b_desc(const float* p) {
+__device__ __forceinline__ uint64_t b_desc(const void* p) {
   return static_cast<uint64_t>((smem_addr(p) >> 4) & 0x3fff) |
          static_cast<uint64_t>(1024 >> 4) << 16 |
          static_cast<uint64_t>(128 >> 4) << 32;
@@ -238,14 +289,37 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// d (+)= A B over 16 K rows, bf16 operands, f32 sums: A from registers
+// (rows 16 warp + gid (+8), K columns 2 tig, +1 (+8) of the warp's slice,
+// two bf16 a register), B K-major through its descriptor
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // Where the K chunks of a conv stand: source, first channel, tap (ky, kx).
 // The K order is sources, then blocks of 32 channels, then taps.
 struct Cursor {
   int s, ky, kx, ci0;
 };
 
-__device__ __forceinline__ void advance(Cursor& c, const Src* srcs, int n_src,
-                                        int k) {
+template <typename T>
+__device__ __forceinline__ void advance(Cursor& c, const Src<T>* srcs,
+                                        int n_src, int k) {
   if (++c.kx < k) return;
   c.kx = 0;
   if (++c.ky < k) return;
@@ -257,7 +331,8 @@ __device__ __forceinline__ void advance(Cursor& c, const Src* srcs, int n_src,
 }
 
 // The cursor at chunk `idx` of the conv's K order, once per block step.
-__device__ Cursor cursor_at(const Src* srcs, int n_src, int k, int idx) {
+template <typename T>
+__device__ Cursor cursor_at(const Src<T>* srcs, int n_src, int k, int idx) {
   Cursor c = {0, 0, 0, 0};
   for (int s = 0; s < n_src; ++s) {
     const int n = k * k * ((srcs[s].cin + kKC - 1) / kKC);
@@ -274,12 +349,13 @@ __device__ Cursor cursor_at(const Src* srcs, int n_src, int k, int idx) {
 // The gathering geometry of one block step, set once per step: the tap
 // (0, 0) input point of each position this thread copies, in domain
 // coordinates, and whether the position is a real one. Workspace chunks:
-// kPasses positions (tid / kQuads + kRowsPerPass i) x channels 4 (tid %
-// kQuads) .. +3; image chunks: 2 positions (16 warp + 8 i + lane % 8) x K
+// kPasses positions (tid / kQuads + kRowsPerPass i) x channels kVec (tid
+// % kQuads) .. + kVec - 1; image chunks: 2 positions (16 warp + 8 i + lane % 8) x K
 // rows lane / 8 + 4 j.
+template <typename T>
 struct Gather {
-  int hy[kPasses], hx[kPasses];
-  bool hok[kPasses];
+  int hy[Elem<T>::kPasses], hx[Elem<T>::kPasses];
+  bool hok[Elem<T>::kPasses];
   int iy[2], ix[2];
   bool iok[2];
 };
@@ -293,9 +369,11 @@ __device__ __forceinline__ int b_channel() {
 __device__ __forceinline__ int b_quad(int i) {
   return (threadIdx.x & 31) / 8 + 4 * i;
 }
-// float offset of (channel n, K quad kq) in the B layout
+// element offset of (channel n, K quad kq) in the B layout
+template <typename T>
 __device__ __forceinline__ int b_offset(int n, int kq) {
-  return (kq * (kBN / 8) + n / 8) * 32 + (n % 8) * 4;
+  constexpr int v = Elem<T>::kVec;
+  return (kq * (kBN / 8) + n / 8) * (8 * v) + (n % 8) * v;
 }
 
 // The A rows a block step's 3x3 taps reach in a workspace window: from
@@ -304,34 +382,50 @@ struct Halo {
   int r0, n_pts;
 };
 
+// One element of a source that cp.async cannot stage: the element (4
+// bytes) with cp.async; a bf16 (2 bytes) with a plain load of the
+// read-only group input or weights
+__device__ __forceinline__ void stage1(float* dst, const float* src,
+                                      bool ok) {
+  cp_async4(dst, src, ok);
+}
+__device__ __forceinline__ void stage1(uint16_t* dst, const uint16_t* src,
+                                      bool ok) {
+  *dst = ok ? __ldg(src) : static_cast<uint16_t>(0);
+}
+
 // Stage chunk `c` of the block step: B (64 channels x 32 K rows, core
 // matrices) into `sB` and, unless `sA` is null, A into `sA`: with `halo`
 // the block of 32 channels of the region's points ([point][k]), else the
 // chunk's 128 positions x 32 K rows ([position][k]).
-__device__ __forceinline__ void load_chunk(float* sA, float* sB,
-                                           const Src* srcs, const Cursor& c,
-                                           const Gather& g, const Halo* halo,
-                                           int k, int ct0, int c_out) {
+template <typename T>
+__device__ __forceinline__ void load_chunk(T* sA, T* sB, const Src<T>* srcs,
+                                           const Cursor& c,
+                                           const Gather<T>& g,
+                                           const Halo* halo, int k, int ct0,
+                                           int c_out) {
+  using El = Elem<T>;
+  constexpr int v = El::kVec;
   const int tid = threadIdx.x;
-  const Src& S = srcs[c.s];
+  const Src<T>& S = srcs[c.s];
   if (sA == nullptr) {
     // a tap after the first of a channel block: its A is staged already
   } else if (halo != nullptr) {
     // whole rows, so the region is one run of points
-    const float* base =
+    const T* base =
         S.p + static_cast<long long>(halo->r0) * S.ld * S.cin + c.ci0;
     const bool vec =
-        S.cin % 4 == 0 && (reinterpret_cast<uintptr_t>(S.p) & 15) == 0;
-    for (int q = tid; q < halo->n_pts * kQuads; q += kThreads) {
-      const int pnt = q / kQuads, qq = (q % kQuads) * 4;
-      float* dst = sA + pnt * kLdA + qq;
-      const float* src = base + static_cast<long long>(pnt) * S.cin + qq;
-      if (vec && c.ci0 + qq + 4 <= S.cin) {
+        S.cin % v == 0 && (reinterpret_cast<uintptr_t>(S.p) & 15) == 0;
+    for (int q = tid; q < halo->n_pts * El::kQuads; q += kThreads) {
+      const int pnt = q / El::kQuads, qq = (q % El::kQuads) * v;
+      T* dst = sA + pnt * El::kLdA + qq;
+      const T* src = base + static_cast<long long>(pnt) * S.cin + qq;
+      if (vec && c.ci0 + qq + v <= S.cin) {
         cp_async16(dst, src, true);
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dst[e] = c.ci0 + qq + e < S.cin ? __ldcg(src + e) : 0.0f;
+        for (int e = 0; e < v; ++e)
+          dst[e] = c.ci0 + qq + e < S.cin ? __ldcg(src + e) : T{};
       }
     }
   } else if (S.image) {
@@ -342,35 +436,35 @@ __device__ __forceinline__ void load_chunk(float* sA, float* sB,
       const int p = (tid >> 5) * 16 + 8 * i + lane % 8;
       const int y = g.iy[i] + c.ky, x = g.ix[i] + c.kx;
       const bool in = g.iok[i] && y >= 0 && y < S.dh && x >= 0 && x < S.dw;
-      const float* base =
-          S.p + (in ? static_cast<long long>(y) * S.ld + x : 0);
+      const T* base = S.p + (in ? static_cast<long long>(y) * S.ld + x : 0);
 #pragma unroll
       for (int j = 0; j < kKC / 4; ++j) {
         const int r = lane / 8 + 4 * j;
         const int ci = c.ci0 + r;
         const bool ok = in && ci < S.cin;
-        cp_async4(sA + p * kLdA + r, ok ? base + ci * S.plane : S.p, ok);
+        stage1(sA + p * El::kLdA + r, ok ? base + ci * S.plane : S.p, ok);
       }
     }
   } else {
-    const int q = (tid % kQuads) * 4;
+    const int q = (tid % El::kQuads) * v;
     const int ci = c.ci0 + q;
-    const bool vec = S.cin % 4 == 0 && (reinterpret_cast<uintptr_t>(S.p) & 15) == 0;
+    const bool vec =
+        S.cin % v == 0 && (reinterpret_cast<uintptr_t>(S.p) & 15) == 0;
 #pragma unroll
-    for (int i = 0; i < kPasses; ++i) {
-      const int p = tid / kQuads + kRowsPerPass * i;
-      float* dst = sA + p * kLdA + q;
-      const float* src =
+    for (int i = 0; i < El::kPasses; ++i) {
+      const int p = tid / El::kQuads + El::kRowsPerPass * i;
+      T* dst = sA + p * El::kLdA + q;
+      const T* src =
           S.p + (static_cast<long long>(g.hy[i] + c.ky - S.oy) * S.ld +
                  (g.hx[i] + c.kx - S.ox)) * S.cin + ci;
-      if (vec && ci + 4 <= S.cin) {
+      if (vec && ci + v <= S.cin) {
         cp_async16(dst, g.hok[i] ? src : S.p, g.hok[i]);
       } else {
         // channels that are not a whole, aligned quad: plain L2 loads (the
         // workspace is written by other blocks of the cluster, so never L1)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dst[e] = g.hok[i] && ci + e < S.cin ? __ldcg(src + e) : 0.0f;
+        for (int e = 0; e < v; ++e)
+          dst[e] = g.hok[i] && ci + e < S.cin ? __ldcg(src + e) : T{};
       }
     }
   }
@@ -379,22 +473,21 @@ __device__ __forceinline__ void load_chunk(float* sA, float* sB,
   const int n = b_channel();
   const int co = ct0 + n;
   const bool cok = co < c_out;
-  const float* wrow =
-      S.w + (cok ? co * S.w_co : 0) + (c.ky * k + c.kx) * S.cin;
-  const bool wvec = S.w_co % 4 == 0 && S.cin % 4 == 0 &&
+  const T* wrow = S.w + (cok ? co * S.w_co : 0) + (c.ky * k + c.kx) * S.cin;
+  const bool wvec = S.w_co % v == 0 && S.cin % v == 0 &&
                     (reinterpret_cast<uintptr_t>(S.w) & 15) == 0;
 #pragma unroll
-  for (int i = 0; i < kBQuadsPerThread; ++i) {
+  for (int i = 0; i < El::kBQuadsPerThread; ++i) {
     const int kq = b_quad(i);
-    const int ci = c.ci0 + 4 * kq;
-    float* dst = sB + b_offset(n, kq);
-    if (wvec && ci + 4 <= S.cin) {
+    const int ci = c.ci0 + v * kq;
+    T* dst = sB + b_offset<T>(n, kq);
+    if (wvec && ci + v <= S.cin) {
       cp_async16(dst, cok ? wrow + ci : S.w, cok);
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < v; ++e) {
         const bool ok = cok && ci + e < S.cin;
-        cp_async4(dst + e, ok ? wrow + ci + e : S.w, ok);
+        stage1(dst + e, ok ? wrow + ci + e : S.w, ok);
       }
     }
   }
@@ -404,11 +497,13 @@ __device__ __forceinline__ void load_chunk(float* sA, float* sB,
 // parts in place and small parts in the second B region, then make them
 // visible to the tensor cores' reads (the async proxy).
 __device__ __forceinline__ void split_b(float* sB) {
+  using El = Elem<float>;
   const int n = b_channel();
 #pragma unroll
-  for (int i = 0; i < kBQuadsPerThread; ++i) {
-    float4* big = reinterpret_cast<float4*>(sB + b_offset(n, b_quad(i)));
-    float4* small = big + kBFloats / 4;
+  for (int i = 0; i < El::kBQuadsPerThread; ++i) {
+    float4* big =
+        reinterpret_cast<float4*>(sB + b_offset<float>(n, b_quad(i)));
+    float4* small = big + El::kBElems / 4;
     const float4 v = *big;
     uint32_t b[4], s[4];
     split_tf32(v.x, b[0], s[0]);
@@ -420,8 +515,14 @@ __device__ __forceinline__ void split_b(float* sB) {
     *small = make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]),
                          __uint_as_float(s[2]), __uint_as_float(s[3]));
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_async_proxy();
 }
+
+// What the tensor cores read of a landed B stage: f32 weights split into
+// their big and small parts; bf16 as they are, made visible to the async
+// proxy
+__device__ __forceinline__ void ready_b(float* sB) { split_b(sB); }
+__device__ __forceinline__ void ready_b(uint16_t*) { fence_async_proxy(); }
 
 // The products of one staged chunk (its weights split): acc = A(the
 // warpgroup's 64 positions) B over the chunk's 32 K rows, 3xTF32, the
@@ -444,9 +545,34 @@ __device__ __forceinline__ void mma_chunk(const float* a0, const float* a1,
   for (int s = 0; s < kKC / 8; ++s) {
     const float* big = sB + 2 * s * (kBN / 8) * 32;
     wgmma_tf32(acc, as[s], b_desc(big), s > 0);
-    wgmma_tf32(acc, ab[s], b_desc(big + kBFloats), 1);
+    wgmma_tf32(acc, ab[s], b_desc(big + Elem<float>::kBElems), 1);
     wgmma_tf32(acc, ab[s], b_desc(big), 1);
   }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// The products of one staged bf16 chunk: acc = A B over its 32 K rows, two
+// k16 steps; `a0` and `a1` are this thread's staged A rows gid and gid + 8
+// of its warp, from column 2 tig. Returns when the tensor cores are done
+// with acc.
+__device__ __forceinline__ void mma_chunk(const uint16_t* a0,
+                                          const uint16_t* a1,
+                                          const uint16_t* sB,
+                                          float (&acc)[32]) {
+  uint32_t a[kKC / 16][4];
+#pragma unroll
+  for (int s = 0; s < kKC / 16; ++s) {
+    // row gid, row gid + 8, then both 8 K columns on
+    a[s][0] = *reinterpret_cast<const uint32_t*>(a0 + 16 * s);
+    a[s][1] = *reinterpret_cast<const uint32_t*>(a1 + 16 * s);
+    a[s][2] = *reinterpret_cast<const uint32_t*>(a0 + 16 * s + 8);
+    a[s][3] = *reinterpret_cast<const uint32_t*>(a1 + 16 * s + 8);
+  }
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int s = 0; s < kKC / 16; ++s)
+    wgmma_bf16(acc, a[s], b_desc(sB + 2 * s * (kBN / 8) * 64), s > 0);
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
@@ -455,15 +581,19 @@ __device__ __forceinline__ void mma_chunk(const float* a0, const float* a1,
 // dh x dw with `c_out` channels: sum over `srcs`, + bias, act. Only the
 // window's points inside the domain are computed. With `dst_ld` > 0 the
 // window is stored whole into `dst` (HWC, rows of oh x ow points, c_out
-// floats a point), zero at its points outside the domain (the SAME padding
+// elements a point), zero at its points outside the domain (the SAME padding
 // its 3x3 consumer reads); with dst_ld == 0 the points are stored into the
 // NCHW image `dst` (planes dh x dw). The (position, channel) block steps
 // are dealt out over the `n_ranks` blocks of the cluster; every thread of
 // the block takes part.
-__device__ void conv_stage(float* smem, const Src* srcs, int n_src, int k,
+template <typename T>
+__device__ void conv_stage(T* smem, const Src<T>* srcs, int n_src, int k,
                            int stride, const float* bias, int act, int oy,
                            int ox, int oh, int ow, int dh, int dw, int c_out,
-                           float* dst, int dst_ld, int rank, int n_ranks) {
+                           T* dst, int dst_ld, int rank, int n_ranks) {
+  using El = Elem<T>;
+  constexpr int kLdA = El::kLdA, kQuads = El::kQuads;
+  constexpr int kPasses = El::kPasses, kRowsPerPass = El::kRowsPerPass;
   PROF_T(t_setup);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -478,8 +608,8 @@ __device__ void conv_stage(float* smem, const Src* srcs, int n_src, int k,
          pt += n_ranks * kThreads) {
       const int gy = oy + pt / ow, gx = ox + pt % ow;
       if (gy < 0 || gy >= dh || gx < 0 || gx >= dw) {
-        float* d = dst + static_cast<long long>(pt) * c_out;
-        for (int c = 0; c < c_out; ++c) d[c] = 0.0f;
+        T* d = dst + static_cast<long long>(pt) * c_out;
+        for (int c = 0; c < c_out; ++c) d[c] = T{};
       }
     }
   }
@@ -491,17 +621,17 @@ __device__ void conv_stage(float* smem, const Src* srcs, int n_src, int k,
     n_chunks += taps * ((srcs[s].cin + kKC - 1) / kKC);
   // a 3x3 conv over one workspace window stages A once for its nine taps
   // when the rows a block step reaches fit a halo stage
-  const Src& S0 = srcs[0];
+  const Src<T>& S0 = srcs[0];
   const bool use_halo =
       k == 3 && n_src == 1 && stride == 1 && !S0.image && in_w > 0 &&
       ((kBM + in_w - 1) / in_w + 3) * S0.ld <= kHaloPoints;
-  float* const sA0 = smem + kStages * kBStageFloats;  // the A area
+  T* const sA0 = smem + kStages * El::kBStageElems;  // the A area
   PROF_SINCE(kSetup, t_setup);
   for (int t = rank; t < n_pt * n_ct; t += n_ranks) {
     PROF_T(t_step);
     const int pt = t / n_ct, ct = t % n_ct;
     const int ct0 = ct * kBN;
-    Gather g;
+    Gather<T> g;
 #pragma unroll
     for (int i = 0; i < kPasses; ++i) {
       const int pos = pt * kBM + tid / kQuads + kRowsPerPass * i;
@@ -551,13 +681,13 @@ __device__ void conv_stage(float* smem, const Src* srcs, int n_src, int k,
     Cursor ahead = cursor_at(srcs, n_src, k, blockIdx.x % n_chunks / taps *
                                                  taps);
     auto issue = [&](int c) {
-      float* sA = nullptr;
+      T* sA = nullptr;
       if (!use_halo)
-        sA = sA0 + (c % kStages) * kAFloats;
+        sA = sA0 + (c % kStages) * El::kAElems;
       else if (c % taps == 0)
-        sA = sA0 + (c / taps % 2) * kHaloFloats;
-      load_chunk(sA, smem + (c % kStages) * kBStageFloats, srcs, ahead, g,
-                 use_halo ? &halo : nullptr, k, ct0, c_out);
+        sA = sA0 + (c / taps % 2) * El::kHaloElems;
+      load_chunk(sA, smem + (c % kStages) * El::kBStageElems, srcs, ahead,
+                 g, use_halo ? &halo : nullptr, k, ct0, c_out);
       advance(ahead, srcs, n_src, k);
     };
     for (int c = 0; c < kStages - 1; ++c) {
@@ -568,22 +698,24 @@ __device__ void conv_stage(float* smem, const Src* srcs, int n_src, int k,
       PROF_T(t0);
       cp_async_wait_ring();
       PROF_T(t1);
-      float* sB = smem + (c % kStages) * kBStageFloats;
-      split_b(sB);
+      T* sB = smem + (c % kStages) * El::kBStageElems;
+      ready_b(sB);
       PROF_T(t2);
       __syncthreads();  // chunk c landed and split; chunk c - 1 is done
       PROF_T(t3);
       if (c + kStages - 1 < n_chunks) issue(c + kStages - 1);
       cp_async_commit();
       PROF_T(t4);
-      const float *a0, *a1;
+      const T *a0, *a1;
       if (use_halo) {
-        const float* base = sA0 + (c / taps % 2) * kHaloFloats + tig;
+        const T* base =
+            sA0 + (c / taps % 2) * El::kHaloElems + tig * El::kACol;
         const int off = (c % taps / 3) * S0.ld + c % 3;
         a0 = base + (hb[0] + off) * kLdA;
         a1 = base + (hb[1] + off) * kLdA;
       } else {
-        a0 = sA0 + (c % kStages) * kAFloats + (16 * warp + gid) * kLdA + tig;
+        a0 = sA0 + (c % kStages) * El::kAElems + (16 * warp + gid) * kLdA +
+             tig * El::kACol;
         a1 = a0 + 8 * kLdA;
       }
       mma_chunk(a0, a1, sB, acc);
@@ -615,19 +747,20 @@ __device__ void conv_stage(float* smem, const Src* srcs, int n_src, int k,
             two ? activate(tot[4 * j + 2 * h + 1] + bias[co + 1], act) : 0.0f;
         if (dst_ld > 0) {
           // HWC: the two channels side by side
-          float* d = dst + (static_cast<long long>(gy - oy) * dst_ld +
-                            (gx - ox)) * c_out + co;
-          if (two && (reinterpret_cast<uintptr_t>(d) & 7) == 0) {
-            *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+          T* d = dst + (static_cast<long long>(gy - oy) * dst_ld +
+                        (gx - ox)) * c_out + co;
+          if (two &&
+              (reinterpret_cast<uintptr_t>(d) & (2 * sizeof(T) - 1)) == 0) {
+            put2(d, v0, v1);
           } else {
-            d[0] = v0;
-            if (two) d[1] = v1;
+            put(d, v0);
+            if (two) put(d + 1, v1);
           }
         } else {
           const long long plane = static_cast<long long>(dh) * dw;
-          float* d = dst + co * plane + static_cast<long long>(gy) * dw + gx;
-          d[0] = v0;
-          if (two) d[plane] = v1;
+          T* d = dst + co * plane + static_cast<long long>(gy) * dw + gx;
+          put(d, v0);
+          if (two) put(d + plane, v1);
         }
       }
     }
@@ -635,10 +768,11 @@ __device__ void conv_stage(float* smem, const Src* srcs, int n_src, int k,
   }
 }
 
-__device__ __forceinline__ Src window(const float* p, int oy, int ox, int cols,
-                                      int dh, int dw, int cin, const float* w,
-                                      long long w_co) {
-  Src s;
+template <typename T>
+__device__ __forceinline__ Src<T> window(const T* p, int oy, int ox,
+                                         int cols, int dh, int dw, int cin,
+                                         const T* w, long long w_co) {
+  Src<T> s;
   s.p = p;
   s.plane = 0;
   s.oy = oy;
@@ -653,9 +787,10 @@ __device__ __forceinline__ Src window(const float* p, int oy, int ox, int cols,
   return s;
 }
 
-__device__ __forceinline__ Src image(const float* p, int dh, int dw, int cin,
-                                     const float* w, long long w_co) {
-  Src s = window(p, 0, 0, dw, dh, dw, cin, w, w_co);
+template <typename T>
+__device__ __forceinline__ Src<T> image(const T* p, int dh, int dw, int cin,
+                                        const T* w, long long w_co) {
+  Src<T> s = window(p, 0, 0, dw, dh, dw, cin, w, w_co);
   s.plane = static_cast<long long>(dh) * dw;
   s.image = true;
   return s;
@@ -672,15 +807,17 @@ __device__ __forceinline__ void sync_cluster(int n_ranks) {
   PROF_SINCE(kClusterSync, t);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_elan_kernel(const Params P) {
-  extern __shared__ __align__(16) float smem[];
+fused_elan_kernel(const Params<T> P) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* const smem = reinterpret_cast<T*>(smem_bytes);
   PROF_T(t_kernel);
   // a cluster of `n_ranks` blocks shares each tile and its workspace
   const int n_ranks = P.cluster;
   const int rank = static_cast<int>(blockIdx.x) % n_ranks;
   const long long team = blockIdx.x / n_ranks, n_teams = gridDim.x / n_ranks;
-  float* ws = P.ws + team * P.ws_stride;
+  T* ws = P.ws + team * P.ws_stride;
   const int TH = P.tile_h, TW = P.tile_w, p = P.n_chain;
   const int EH = TH + 2 * p, EW = TW + 2 * p;  // the b window
   const int H = P.h, W = P.w;
@@ -692,10 +829,10 @@ fused_elan_kernel(const Params P) {
   for (int m = 0; m < P.n_members; ++m) has_a |= P.members[m] == -2;
 
   // the team's workspace regions, where the wrapper put them
-  float* xbuf = ws + P.off_x;
-  float* bbuf = ws + P.off_b;
-  float* abuf = ws + P.off_a;
-  float* ybuf[kMaxChain];
+  T* xbuf = ws + P.off_x;
+  T* bbuf = ws + P.off_b;
+  T* abuf = ws + P.off_a;
+  T* ybuf[kMaxChain];
   for (int kk = 0; kk < P.n_chain; ++kk) ybuf[kk] = ws + P.off_y[kk];
 
   for (long long tile = team; tile < n_tiles; tile += n_teams) {
@@ -705,22 +842,23 @@ fused_elan_kernel(const Params P) {
     sync_cluster(n_ranks);  // the previous tile's readers are done
 
     // the group input x over the b window (halo p)
-    Src src[kMaxMembers];
-    Src xs;
+    Src<T> src[kMaxMembers];
+    Src<T> xs;
     if (has_pre) {
       const int s = P.pre_stride;
-      const float* img = P.x + static_cast<long long>(n) * P.pre_cin *
-                                   (static_cast<long long>(H) * s) * (W * s);
+      const T* img = P.x + static_cast<long long>(n) * P.pre_cin *
+                               (static_cast<long long>(H) * s) * (W * s);
       src[0] = image(img, H * s, W * s, P.pre_cin, P.wp,
                      static_cast<long long>(P.pre_cin) * 9);
       conv_stage(smem, src, 1, 3, s, P.bp, P.act, ty - p, tx - p, EH, EW, H,
                  W, P.cin, xbuf, EW, rank, n_ranks);
       sync_cluster(n_ranks);
-      xs = window(xbuf, ty - p, tx - p, EW, H, W, P.cin, nullptr, P.cin);
+      xs = window<T>(xbuf, ty - p, tx - p, EW, H, W, P.cin, nullptr,
+                     P.cin);
     } else {
-      const float* img =
+      const T* img =
           P.x + static_cast<long long>(n) * P.cin * static_cast<long long>(H) * W;
-      xs = image(img, H, W, P.cin, nullptr, P.cin);
+      xs = image<T>(img, H, W, P.cin, nullptr, P.cin);
     }
 
     // the two 1x1 branches
@@ -766,8 +904,8 @@ fused_elan_kernel(const Params P) {
       }
     }
     for (int m = 0; m < P.n_members; ++m) src[m].w_co = off;
-    float* out = P.out + static_cast<long long>(n) * P.cout *
-                             static_cast<long long>(H) * W;
+    T* out = P.out + static_cast<long long>(n) * P.cout *
+                         static_cast<long long>(H) * W;
     conv_stage(smem, src, P.n_members, 1, 1, P.bt, P.act, ty, tx, TH, TW, H,
                W, P.cout, out, 0, rank, n_ranks);
   }
@@ -791,29 +929,25 @@ extern "C" int fdms_fused_elan_profile(unsigned long long* out, int blocks) {
 }
 #endif
 
-// Launches one group on `stream` of `device`; returns cudaGetLastError()
-// (0 on success). ptrs: x, out, workspace, wp, bp (null without pre), wa,
-// ba, wb, bb, wt, bt, then n_chain pairs (w_k, b_k). ints: batch, h, w,
-// cin, ccv, cch, cout, n_chain, pre_cin, pre_stride, act, tile_h, tile_w,
-// grid, ws_stride, cluster, n_members, then the n_members member ids (-2 =
-// a, -1 = b, k = y_{k+1}), then the workspace offsets: x, b, a,
-// y1..y_{n_chain}. grid is a multiple of cluster (at most 8, the portable
-// cluster size).
-extern "C" int fdms_fused_elan(void* const* ptrs, const long long* ints,
-                               int device, void* stream) {
+namespace {
+
+// fdms_fused_elan(_bf16)'s body for element type T
+template <typename T>
+int launch(void* const* ptrs, const long long* ints, int device,
+           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  Params P;
-  P.x = static_cast<const float*>(ptrs[0]);
-  P.out = static_cast<float*>(ptrs[1]);
-  P.ws = static_cast<float*>(ptrs[2]);
-  P.wp = static_cast<const float*>(ptrs[3]);
+  Params<T> P;
+  P.x = static_cast<const T*>(ptrs[0]);
+  P.out = static_cast<T*>(ptrs[1]);
+  P.ws = static_cast<T*>(ptrs[2]);
+  P.wp = static_cast<const T*>(ptrs[3]);
   P.bp = static_cast<const float*>(ptrs[4]);
-  P.wa = static_cast<const float*>(ptrs[5]);
+  P.wa = static_cast<const T*>(ptrs[5]);
   P.ba = static_cast<const float*>(ptrs[6]);
-  P.wb = static_cast<const float*>(ptrs[7]);
+  P.wb = static_cast<const T*>(ptrs[7]);
   P.bb = static_cast<const float*>(ptrs[8]);
-  P.wt = static_cast<const float*>(ptrs[9]);
+  P.wt = static_cast<const T*>(ptrs[9]);
   P.bt = static_cast<const float*>(ptrs[10]);
   P.batch = static_cast<int>(ints[0]);
   P.h = static_cast<int>(ints[1]);
@@ -837,7 +971,7 @@ extern "C" int fdms_fused_elan(void* const* ptrs, const long long* ints,
       grid % P.cluster != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int kk = 0; kk < P.n_chain; ++kk) {
-    P.wc[kk] = static_cast<const float*>(ptrs[11 + 2 * kk]);
+    P.wc[kk] = static_cast<const T*>(ptrs[11 + 2 * kk]);
     P.bc[kk] = static_cast<const float*>(ptrs[12 + 2 * kk]);
   }
   for (int m = 0; m < P.n_members; ++m)
@@ -847,14 +981,14 @@ extern "C" int fdms_fused_elan(void* const* ptrs, const long long* ints,
   P.off_b = off[1];
   P.off_a = off[2];
   for (int kk = 0; kk < P.n_chain; ++kk) P.off_y[kk] = off[3 + kk];
-  err = cudaFuncSetAttribute(fused_elan_kernel,
+  err = cudaFuncSetAttribute(fused_elan_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemBytes);
+                             Elem<T>::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.dynamicSmemBytes = Elem<T>::kSmemBytes;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -863,7 +997,27 @@ extern "C" int fdms_fused_elan(void* const* ptrs, const long long* ints,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, fused_elan_kernel, P);
+  err = cudaLaunchKernelEx(&cfg, fused_elan_kernel<T>, P);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launches one group on `stream` of `device`; returns cudaGetLastError()
+// (0 on success). ptrs: x, out, workspace, wp, bp (null without pre), wa,
+// ba, wb, bb, wt, bt, then n_chain pairs (w_k, b_k). ints: batch, h, w,
+// cin, ccv, cch, cout, n_chain, pre_cin, pre_stride, act, tile_h, tile_w,
+// grid, ws_stride, cluster, n_members, then the n_members member ids (-2 =
+// a, -1 = b, k = y_{k+1}), then the workspace offsets (in elements): x, b,
+// a, y1..y_{n_chain}. grid is a multiple of cluster (at most 8, the
+// portable cluster size). fdms_fused_elan: every tensor f32;
+// fdms_fused_elan_bf16: x, out, workspace and kernels bf16, biases f32.
+extern "C" int fdms_fused_elan(void* const* ptrs, const long long* ints,
+                               int device, void* stream) {
+  return launch<float>(ptrs, ints, device, stream);
+}
+extern "C" int fdms_fused_elan_bf16(void* const* ptrs, const long long* ints,
+                                    int device, void* stream) {
+  return launch<uint16_t>(ptrs, ints, device, stream);
 }

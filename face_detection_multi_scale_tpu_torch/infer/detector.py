@@ -41,10 +41,10 @@ from face_detection_multi_scale_tpu_torch.models.convert import (
     load_torch_checkpoint)
 from face_detection_multi_scale_tpu_torch.models.fuse import fold_bn
 from face_detection_multi_scale_tpu_torch.models.fused import (
-    apply_variant, find_elan_blocks, fused_apply)
+    apply_variant, elan_weights, find_elan_blocks, fused_apply)
 from face_detection_multi_scale_tpu_torch.models.head import decode
 from face_detection_multi_scale_tpu_torch.models.model import (
-    YoloFace, init_weights)
+    YoloFace, cast_model, init_weights)
 from face_detection_multi_scale_tpu_torch.models.spec import ModelSpec
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.utils.general import check_img_size
@@ -70,12 +70,31 @@ def _device(device) -> torch.device:
     return device
 
 
-class FaceDetector:
-    """Face detector over a zoo model (or a resolved spec) in float32.
+# the serving dtypes of the JAX FaceDetector that the port runs, by name
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-    The forward runs in full float32: cuDNN's TF32 is switched off around
-    it (`full_fp32`), so the card computes what the CPU computes, up to the
-    order of sums.
+
+class FaceDetector:
+    """Face detector over a zoo model (or a resolved spec), in float32 by
+    default or in bfloat16.
+
+    In float32 the forward runs in full float32: cuDNN's TF32 is switched
+    off around it (`full_fp32`), so the card computes what the CPU
+    computes, up to the order of sums.
+
+    `dtype=torch.bfloat16` serves as the JAX FaceDetector's
+    `dtype=jnp.bfloat16` (its batch tool's default): BN is folded in
+    float32 and the model then cast (models/model.cast_model), the uint8
+    input cast to bf16 before the /255 (and the device preprocess resizes
+    and pads in bf16), every conv runs in bf16, and with `fuse_elan` each
+    group runs the bf16 form of the fused kernel (bf16 kernels, float32
+    biases). As in the JAX package, the head's implicit priors stay
+    float32, so the raw maps of these implicit heads, the decode, the
+    rows and `Detections` are float32 (the kpt channels carry bf16
+    values); the postprocess takes bf16 rows as well, with the keep mask
+    on float32 boxes as the JAX package's TPU route, and
+    `detections_to_numpy` returns float32. Any other dtype raises
+    NotImplementedError.
 
     Args mirror the JAX FaceDetector: `variables` is either a JAX-layout
     variables tree of numpy arrays (carried over by the weight bridge,
@@ -113,7 +132,8 @@ class FaceDetector:
                  variables=None, torch_weights: Optional[str] = None,
                  img_sizes: Sequence[int] = (640, 3840),
                  conf_thres: float = 0.5, iou_thres: float = 0.5,
-                 use_api_preprocess: bool = False, max_det: int = 300,
+                 use_api_preprocess: bool = False,
+                 dtype: torch.dtype = torch.float32, max_det: int = 300,
                  max_candidates: int = 4096, seed: int = 0,
                  fuse: bool = True, fuse_elan: Union[bool, str] = False,
                  use_device_preprocess: bool = False,
@@ -121,6 +141,11 @@ class FaceDetector:
                  tile_top_scale: Union[bool, int] = False,
                  tile_halo: int = 256, tile_min_size: int = 2048,
                  device="cuda"):
+        if dtype not in DTYPES.values():
+            raise NotImplementedError(
+                f"FaceDetector: dtype {dtype} is not ported (float32 and "
+                f"bfloat16 are)")
+        self.dtype = dtype
         self.device = _device(device)
         spec = zoo.get_spec(model) if isinstance(model, str) else model
         self.spec = spec.resolve()
@@ -139,7 +164,6 @@ class FaceDetector:
                                       if "params" in variables else variables)
         if fuse:
             fold_bn(net)
-        self.model = net.eval().to(self.device)
         self._elan_blocks = []
         if fuse_elan:
             expr = fuse_elan if isinstance(fuse_elan, str) else ""
@@ -150,8 +174,13 @@ class FaceDetector:
                 blocks = [dataclasses.replace(
                     b, shape=apply_variant(b.shape, expr)) for b in blocks]
             self._elan_blocks = blocks
-        # packed group weights, filled once per block on first use
-        self._elan_weights = {}
+        # packed group weights from the float32 model, before the cast:
+        # kernels in `dtype`, biases float32 (the JAX packer's)
+        self._elan_weights = {
+            blk: [t.to(self.device) for t in ws]
+            for blk, ws in elan_weights(net, self._elan_blocks,
+                                        dtype).items()}
+        self.model = cast_model(net.eval().to(self.device), dtype)
 
         self.stride = self.spec.max_stride
         self.img_sizes = [check_img_size(s, self.stride) for s in img_sizes]
@@ -214,22 +243,28 @@ class FaceDetector:
 
     @torch.inference_mode()
     def forward_rows(self, images_u8) -> torch.Tensor:
-        """uint8 NHWC (bs, h, w, 3) -> decoded rows (bs, N, no) on the
-        detector's device."""
+        """uint8 NHWC (bs, h, w, 3) -> decoded rows (bs, N, no) in the
+        detector's dtype on its device (the cast before the /255, as the
+        JAX engine's `images_u8.astype(dtype) / 255.0`)."""
         x = torch.as_tensor(images_u8).to(self.device)
-        return self.forward_input(x.to(torch.float32) / 255.0)
+        return self.forward_input(x.to(self.dtype) / 255.0)
 
     @torch.inference_mode()
     def forward_input(self, x: torch.Tensor) -> torch.Tensor:
-        """float32 NHWC network input in [0, 1] on the detector's device ->
-        decoded rows (bs, N, no)."""
+        """NHWC network input in [0, 1] in the detector's dtype on its
+        device -> decoded rows (bs, N, no)."""
+        return decode(self._forward(x), self.spec)
+
+    @torch.inference_mode()
+    def _forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The network of every engine call (the JAX `_forward`): the
+        model, or the fused-ELAN executor with `fuse_elan`; raw per-level
+        maps."""
         with full_fp32():
             if self._elan_blocks:
-                raws = fused_apply(self.model, x, self._elan_blocks,
+                return fused_apply(self.model, x, self._elan_blocks,
                                    self._elan_weights)
-            else:
-                raws = self.model(x)
-        return decode(raws, self.spec)
+            return self.model(x)
 
     @torch.inference_mode()
     def postprocess(self, preds: torch.Tensor) -> NMS.Detections:
@@ -275,16 +310,18 @@ class FaceDetector:
     def device_input(self, raw_u8: torch.Tensor, img_size: int,
                      auto: bool):
         """Device preprocess of raw uint8 NHWC BGR frames on the detector's
-        device -> (float32 NHWC network input, LetterboxGeometry), whose
-        `out_hw` is the input shape the coordinate inverse needs."""
+        device -> (NHWC network input in the detector's dtype,
+        LetterboxGeometry), whose `out_hw` is the input shape the
+        coordinate inverse needs."""
         src_hw = tuple(raw_u8.shape[1:3])
         if self.use_api_preprocess:
             # raw frames are BGR (cv2); the API chain expects RGB
-            return (DP.device_preprocess_api(raw_u8.flip(-1), img_size),
+            return (DP.device_preprocess_api(raw_u8.flip(-1), img_size,
+                                             dtype=self.dtype),
                     DP.geometry_for_api(src_hw, img_size))
         geom = DP.letterbox_geometry(src_hw, img_size, auto=auto,
                                      stride=self.stride)
-        return DP.device_letterbox(raw_u8, geom), geom
+        return DP.device_letterbox(raw_u8, geom, dtype=self.dtype), geom
 
     def run_network_raw(self, raw_u8: torch.Tensor, img_size: int,
                         auto: bool):

@@ -84,13 +84,14 @@ def _resize(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
                          antialias=False)
 
 
-def device_letterbox(images_u8: torch.Tensor,
-                     geom: LetterboxGeometry) -> torch.Tensor:
-    """uint8 NHWC raw BGR frames -> float32 NHWC letterboxed RGB network
-    input in [0, 1], on the frames' device: channel swap, bilinear resize,
-    114-gray pad, /255. The result is an NHWC view of NCHW memory, the
-    layout the network's first convolution reads."""
-    x = images_u8.flip(-1).to(torch.float32).permute(0, 3, 1, 2)
+def device_letterbox(images_u8: torch.Tensor, geom: LetterboxGeometry, *,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 NHWC raw BGR frames -> NHWC letterboxed RGB network input in
+    [0, 1] in `dtype`, on the frames' device: channel swap, the cast, then
+    bilinear resize, 114-gray pad and /255 in `dtype` (the JAX order). The
+    result is an NHWC view of NCHW memory, the layout the network's first
+    convolution reads."""
+    x = images_u8.flip(-1).to(dtype).permute(0, 3, 1, 2)
     uw, uh = geom.new_unpad
     if (uh, uw) != geom.src_hw:
         x = _resize(x, (uh, uw))
@@ -100,15 +101,17 @@ def device_letterbox(images_u8: torch.Tensor,
     return (x / 255.0).permute(0, 2, 3, 1)
 
 
-def device_preprocess_api(images_u8: torch.Tensor,
-                          img_size: int) -> torch.Tensor:
+def device_preprocess_api(images_u8: torch.Tensor, img_size: int, *,
+                          dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
     """The production API chain on the card (utils/preprocess_yolo_predict.py:
     273-378): zero-pad right/bottom to a square, then resize to (img_size,
-    img_size), /255. Input is RGB already (the API chain never swaps
-    channels): RGB uint8 NHWC in, float32 NHWC in [0, 1] out."""
+    img_size), /255, after a cast to `dtype` (the JAX order). Input is RGB
+    already (the API chain never swaps channels): RGB uint8 NHWC in, NHWC
+    in [0, 1] in `dtype` out."""
     _, h, w, _ = images_u8.shape
     side = max(h, w)
-    x = images_u8.to(torch.float32).permute(0, 3, 1, 2)
+    x = images_u8.to(dtype).permute(0, 3, 1, 2)
     if (h, w) != (side, side):
         x = F.pad(x, (0, side - w, 0, side - h))
     if side != img_size:

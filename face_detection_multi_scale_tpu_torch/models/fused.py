@@ -22,6 +22,13 @@ group unfused when its TPU VMEM plan finds no strip height
 block-private workspace instead), so at 640 px w6 makes 11 launches per
 forward and tiny 8. Outputs agree within float32 tolerance either way.
 
+bfloat16, as the JAX executor's `dtype=`: the model's modules in bf16 run
+every node outside a group, and each group gets bf16 conv kernels with
+float32 biases (`pack_elan_weights(..., dtype)`), packed from the
+float32 folded model so that the biases are the JAX package's float32
+ones (`elan_weights`, which the FaceDetector calls before it casts its
+model).
+
 Inference only: the fused kernel has no backward.
 """
 
@@ -233,31 +240,56 @@ def find_elan_blocks(spec: ModelSpec,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def _conv_eff(model: YoloFace, idx: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Effective OIHW kernel and (C,) bias of ConvBN node `idx` with the
-    BN folded. After models/fuse.fold_bn (`bn` is None) they are the conv's
-    own; otherwise w' = w * g, b' = beta - mean * g, g = gamma /
-    sqrt(var + eps), in float32 as the JAX packer computes them."""
+def _conv_eff(model: YoloFace, idx: int, dtype: torch.dtype
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Effective OIHW kernel in `dtype` and (C,) float32 bias of ConvBN
+    node `idx` with the BN folded. After models/fuse.fold_bn (`bn` is
+    None) they are the conv's own; otherwise w' = w * g, b' = beta - mean
+    * g, g = gamma / sqrt(var + eps), in float32 as the JAX packer
+    computes them; the kernel is then cast to `dtype` and the bias stays
+    float32 (the JAX `_conv_eff`)."""
     mod = model.model[idx]
     w = mod.conv.weight.detach().float()
     if mod.bn is None:
-        return w.contiguous(), mod.conv.bias.detach().float().contiguous()
-    bn = mod.bn
-    g = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-    bias = bn.bias.float() - bn.running_mean.float() * g
-    return (w * g.reshape(-1, 1, 1, 1)).contiguous(), bias.contiguous()
+        bias = mod.conv.bias.detach().float()
+    else:
+        bn = mod.bn
+        g = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+        bias = bn.bias.float() - bn.running_mean.float() * g
+        w = w * g.reshape(-1, 1, 1, 1)
+    return w.to(dtype).contiguous(), bias.contiguous()
 
 
-def pack_elan_weights(model: YoloFace, block: ElanBlock) -> List[torch.Tensor]:
+def pack_elan_weights(model: YoloFace, block: ElanBlock,
+                      dtype: Optional[torch.dtype] = None
+                      ) -> List[torch.Tensor]:
     """The flat weight list of ops/elan_kernel.fused_elan for `block`, on
     the model's device: [pre,] a, b, chain..., transition, each as
-    (OIHW kernel, (C,) bias)."""
+    (OIHW kernel in `dtype`, (C,) float32 bias). `dtype` defaults to the
+    model's own."""
+    if dtype is None:
+        dtype = next(model.parameters()).dtype
     idxs = ([block.pre] if block.pre is not None else []) + \
         [block.a, block.b, *block.chain, block.trans]
     ws: List[torch.Tensor] = []
     for idx in idxs:
-        ws += list(_conv_eff(model, idx))
+        ws += list(_conv_eff(model, idx, dtype))
     return ws
+
+
+def elan_weights(model: YoloFace, blocks: Sequence[ElanBlock],
+                 dtype: torch.dtype
+                 ) -> Dict[ElanBlock, List[torch.Tensor]]:
+    """`fused_apply`'s weight cache filled for `blocks`: the packed weights
+    of every block and, for a block with an absorbed pre conv, of its bare
+    form too (the fall-back when the input does not divide by the pre
+    conv's stride)."""
+    out: Dict[ElanBlock, List[torch.Tensor]] = {}
+    for blk in blocks:
+        for b in (blk, _bare(blk)):
+            if b not in out:
+                out[b] = pack_elan_weights(model, b, dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -277,13 +309,16 @@ def fused_apply(model: YoloFace, x: torch.Tensor,
                 ) -> List[torch.Tensor]:
     """Inference forward matching `model(x)` (NHWC float images in, raw
     per-level maps (bs, na, ny, nx, no) out), with the given ELAN blocks
-    run as fused kernels.
+    run as fused kernels, in the model's dtype (x's dtype must match).
 
     `blocks=None` fuses every block of the spec; `blocks=[]` runs every
     node through its own module. `weights` caches the packed weights per
-    block (pack_elan_weights); missing entries are packed and added. When
-    the input of a block with an absorbed pre conv is not divisible by the
-    conv's stride, the pre conv runs as a node and the group fuses bare."""
+    block (pack_elan_weights); missing entries are packed from `model` in
+    its dtype and added (a bf16 model's biases are then bf16 values: fill
+    the cache from the float32 model with `elan_weights` for the JAX
+    package's float32 biases). When the input of a block with an absorbed
+    pre conv is not divisible by the conv's stride, the pre conv runs as a
+    node and the group fuses bare."""
     spec = model.spec
     if blocks is None:
         blocks = find_elan_blocks(spec)

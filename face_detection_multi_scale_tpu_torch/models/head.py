@@ -68,7 +68,9 @@ class DetectionHead(nn.Module):
         outs = []
         for i, x in enumerate(xs):
             xa = self.ia[i](x) if self.implicit else x
-            det = self.m[i](xa)
+            # the conv runs in its own dtype (flax's Conv(dtype=) casts its
+            # input): in a bf16 model ImplicitA's output is float32
+            det = self.m[i](xa.to(self.m[i].weight.dtype))
             if self.implicit:
                 det = self.im[i](det)
             if self.nkpt:

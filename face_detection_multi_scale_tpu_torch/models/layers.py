@@ -119,7 +119,9 @@ class SPPCSPC(nn.Module):
 
 class ImplicitA(nn.Module):
     """Learned additive prior, parameter shape (1, C, 1, 1) as in the
-    reference (models/common.py:55-63)."""
+    reference (models/common.py:55-63). Its parameter stays float32 in a
+    bf16 model (models/model.cast_model), as the JAX module has no dtype:
+    a bf16 input gives a float32 output by type promotion."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -130,7 +132,8 @@ class ImplicitA(nn.Module):
 
 
 class ImplicitM(nn.Module):
-    """Learned multiplicative prior (reference models/common.py:66-74)."""
+    """Learned multiplicative prior (reference models/common.py:66-74);
+    float32 in a bf16 model, as ImplicitA."""
 
     def __init__(self, channels: int):
         super().__init__()

@@ -143,6 +143,22 @@ class YoloFace(nn.Module):
         raise RuntimeError("spec has no detection head as its last node")
 
 
+def cast_model(model: YoloFace, dtype: torch.dtype) -> YoloFace:
+    """Cast a (BN-folded) model to `dtype` in place as the JAX
+    `YoloFace(dtype=)` computes: every conv, its bias and the decode's
+    input in `dtype`, except the head's implicit priors, which the JAX
+    package keeps float32 (ImplicitA/ImplicitM take no dtype). So in
+    bf16 an implicit head's det conv sees bf16(x + ia), its output times
+    im is float32, the concatenated raw maps are float32, and the decode
+    runs in float32; the kpt channels carry bf16 values. Returns
+    `model`."""
+    model.to(dtype)
+    for mod in model.modules():
+        if isinstance(mod, (L.ImplicitA, L.ImplicitM)):
+            mod.float()
+    return model
+
+
 @torch.no_grad()
 def init_weights(model: YoloFace, generator: torch.Generator) -> YoloFace:
     """Seeded random init that follows the JAX init where it matters:

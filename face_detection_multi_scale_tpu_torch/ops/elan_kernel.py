@@ -13,8 +13,8 @@ conv followed by act(conv + bias) with BN already folded:
 `fused_elan`). Source: csrc/fused_elan.cu, CUDA C++ for sm_90a, compiled
 by nvcc at first use (ops/cuda_build.py) and bound with ctypes.
 
-What bounds it on the card: operations. The kernel computes each conv on
-the tensor cores in 3xTF32 (every f32 operand split into two TF32 parts,
+What bounds it on the card: operations. In float32 the kernel computes
+each conv on the tensor cores in 3xTF32 (every f32 operand split into two TF32 parts,
 `tf32_split`, three TF32 products a multiply-add, f32 sums; wgmma), so
 its bound is the group's FLOPs over 495 / 3 = 165 TFLOP/s, or its bytes
 over 3.35 TB/s if larger. The result is within 1e-5 of max |plain| per
@@ -27,6 +27,16 @@ to 8 blocks that split each conv; K chunks are staged through a
 three-stage cp.async ring (`elan_plan` picks the tiles and clusters;
 PERF.md has the A/B evidence). See the source for the layout.
 
+bfloat16 (the JAX package's `dtype=jnp.bfloat16`): x and the conv kernels
+bf16, the biases float32, the output bf16. The same kernel source in its
+bf16 instantiation computes each conv as one bf16 tensor-core product a
+multiply-add with f32 sums, then bias and activation in f32 and a round
+to bf16 of every intermediate and of the output, where the TPU kernel
+casts them (pallas_elan.py:407-432, 526); its workspace holds bf16. Its
+bound is the group's FLOPs over 989 TFLOP/s, or its bytes over 3.35 TB/s
+if larger. `reference_elan` rounds at the same points. The launches count
+apart: `fused_elan.launches` (float32), `fused_elan.bf16_launches`.
+
 Layout: activations NCHW and weights OIHW, the executor's own tensors and
 torch's conv weights, so the fused path adds no transposes; the JAX
 package's function takes NHWC / HWIO (tests transpose). The JAX kernel's
@@ -37,7 +47,8 @@ and ignored here except `group`'s batch assertion. `strip_footprint` and
 `choose_strip_height` plan TPU VMEM and are not ported.
 
 On a CPU tensor `fused_elan` runs `reference_elan`, conv by conv; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. Any other mix of dtypes
+raises TypeError.
 """
 
 from __future__ import annotations
@@ -131,22 +142,28 @@ def weight_shapes(shape: ElanShape):
 def reference_elan(x: torch.Tensor, weights: Sequence[torch.Tensor],
                    shape: ElanShape) -> torch.Tensor:
     """Plain PyTorch execution of the same folded group, conv by conv
-    (pallas_elan.py::reference_elan in NCHW / OIHW)."""
-    act = _act_fn(shape.act)
+    (pallas_elan.py::reference_elan in NCHW / OIHW). In bf16 each conv is
+    a float32 conv of the bf16 values (exact products, f32 sums) plus the
+    f32 bias, the activation in f32, then a cast to bf16, as the JAX
+    reference and kernel round; in float32 the casts are no-ops."""
+    act, dt = _act_fn(shape.act), x.dtype
+
+    def conv(v, w, b, **kw):
+        return act(F.conv2d(v.float(), w.float(), b, **kw)).to(dt)
+
     if shape.has_pre:
-        x = act(F.conv2d(x, weights[0], weights[1], stride=shape.pre_stride,
-                         padding=1))
+        x = conv(x, weights[0], weights[1], stride=shape.pre_stride,
+                 padding=1)
         weights = weights[2:]
     wa, ba, wb, bb = weights[:4]
-    outs = {"a": act(F.conv2d(x, wa, ba)), "b": act(F.conv2d(x, wb, bb))}
+    outs = {"a": conv(x, wa, ba), "b": conv(x, wb, bb)}
     cur = outs["b"]
     for k in range(shape.n_chain):
-        cur = act(F.conv2d(cur, weights[4 + 2 * k], weights[5 + 2 * k],
-                           padding=1))
+        cur = conv(cur, weights[4 + 2 * k], weights[5 + 2 * k], padding=1)
         outs[f"y{k + 1}"] = cur
     wt, bt = weights[4 + 2 * shape.n_chain], weights[5 + 2 * shape.n_chain]
     cat = torch.cat([outs[m] for m in shape.members], dim=1)
-    return act(F.conv2d(cat, wt, bt))
+    return conv(cat, wt, bt)
 
 
 def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -175,9 +192,10 @@ def _member_id(m: str) -> int:
 def workspace_layout(shape: ElanShape, th: int, tw: int
                      ) -> Tuple[List[int], int]:
     """The one layout of a th x tw tile's workspace, which the kernel takes
-    as given: the float offsets of its regions x (the pre conv's output;
-    empty without pre), b, a (empty unless a member), y1..yn, and the
-    total floats. Each region holds its window, channels innermost (a
+    as given: the element offsets of its regions x (the pre conv's
+    output; empty without pre), b, a (empty unless a member), y1..yn, and
+    the total elements, each an element of the group's dtype (4 bytes in
+    float32, 2 in bf16). Each region holds its window, channels innermost (a
     point's channels are contiguous): x and b the tile plus the halo
     n_chain, y_k the tile plus n_chain - k, a the bare tile."""
     p = shape.halo
@@ -194,7 +212,8 @@ def workspace_layout(shape: ElanShape, th: int, tw: int
 def elan_plan(shape: ElanShape, batch: int, h: int, w: int,
               n_sm: int) -> Dict[str, object]:
     """How the kernel runs one group at (batch, h, w): the tile, its
-    workspace layout (offsets and floats), the cluster size and the grid.
+    workspace layout (offsets and "floats", the elements of the group's
+    dtype a team's slice holds), the cluster size and the grid.
 
     Tiles are the whole image up to SMALL_IMAGE a side (no recompute),
     half of it a side up to twice that, else WS_TILE_H x WS_TILE_W;
@@ -255,9 +274,10 @@ def recompute_share(shape: ElanShape, plan: Dict[str, object], h: int,
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    lib.fdms_fused_elan.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_int, ctypes.c_void_p]
-    lib.fdms_fused_elan.restype = ctypes.c_int
+    for fn in (lib.fdms_fused_elan, lib.fdms_fused_elan_bf16):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -301,9 +321,15 @@ def _check(x: torch.Tensor, weights: Sequence[torch.Tensor],
     for i, (t, s) in enumerate(zip(weights, want)):
         if tuple(t.shape) != s:
             raise ValueError(f"weight {i}: shape {tuple(t.shape)}, want {s}")
-    for t in (x, *weights):
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused ELAN takes float32, got {t.dtype}")
+    for i, t in enumerate(weights):
+        # conv kernels in x's dtype, biases float32
+        want_dt = x.dtype if t.dim() == 4 else torch.float32
+        if (x.dtype not in (torch.float32, torch.bfloat16)
+                or t.dtype != want_dt):
+            raise TypeError(
+                f"fused ELAN takes float32 x and weights, or bf16 x and "
+                f"kernels with float32 biases; got x {x.dtype}, weight {i} "
+                f"{t.dtype}")
         if t.device != x.device:
             raise ValueError(f"x on {x.device}, a weight on {t.device}")
     return h, w
@@ -313,14 +339,16 @@ def fused_elan(x: torch.Tensor, weights: Sequence[torch.Tensor],
                shape: ElanShape) -> torch.Tensor:
     """Run one fused ELAN group.
 
-    x: (B, cin, H, W) float32, or with shape.has_pre the absorbed conv's
-    own input (B, pre_cin, s*H, s*W). weights: the flat list
+    x: (B, cin, H, W) float32 or bf16, or with shape.has_pre the absorbed
+    conv's own input (B, pre_cin, s*H, s*W). weights: the flat list
     [wp (cin, pre_cin, 3, 3), bp (cin,),]   (only when has_pre)
     [wa (ccv, cin, 1, 1), ba (ccv,), wb, bb, w1 (cch, ccv, 3, 3), b1, ...,
     wn, bn, wt (cout, concat_width, 1, 1), bt (cout,)], BN folded in
-    (models/fused.pack_elan_weights). Returns (B, cout, H, W) float32.
-    CPU tensors: `reference_elan`. CUDA tensors: the kernel, contiguous
-    inputs only; `fused_elan.launches` counts its launches."""
+    (models/fused.pack_elan_weights): kernels in x's dtype, biases
+    float32. Returns (B, cout, H, W) in x's dtype. CPU tensors:
+    `reference_elan`. CUDA tensors: the kernel, contiguous inputs only;
+    `fused_elan.launches` counts its float32 launches and
+    `fused_elan.bf16_launches` its bf16 ones."""
     h, w = _check(x, weights, shape)
     if x.device.type == "cpu":
         return reference_elan(x, weights, shape)
@@ -332,13 +360,13 @@ def fused_elan(x: torch.Tensor, weights: Sequence[torch.Tensor],
         raise ValueError(f"fused ELAN: n_chain {shape.n_chain} > "
                          f"{MAX_CHAIN}")
     bsz = x.shape[0]
-    out = torch.empty((bsz, shape.cout, h, w), dtype=torch.float32,
+    out = torch.empty((bsz, shape.cout, h, w), dtype=x.dtype,
                       device=x.device)
     if bsz == 0 or h == 0 or w == 0:
         return out
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = elan_plan(shape, bsz, h, w, n_sm)
-    ws = torch.empty(plan["teams"] * plan["floats"], dtype=torch.float32,
+    ws = torch.empty(plan["teams"] * plan["floats"], dtype=x.dtype,
                      device=x.device)
     if shape.has_pre:
         wp, bp, *rest = weights
@@ -364,12 +392,19 @@ def fused_elan(x: torch.Tensor, weights: Sequence[torch.Tensor],
     c_ptrs = (ctypes.c_void_p * len(ptr))(*ptr)
     c_ints = (ctypes.c_longlong * len(ints))(*ints)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _library().fdms_fused_elan(c_ptrs, c_ints, x.device.index, stream)
+    bf16 = x.dtype == torch.bfloat16
+    lib = _library()
+    launch = lib.fdms_fused_elan_bf16 if bf16 else lib.fdms_fused_elan
+    err = launch(c_ptrs, c_ints, x.device.index, stream)
     if err != 0:
         raise RuntimeError(f"fused_elan kernel launch failed: CUDA error "
                            f"{err}")
-    fused_elan.launches += 1
+    if bf16:
+        fused_elan.bf16_launches += 1
+    else:
+        fused_elan.launches += 1
     return out
 
 
 fused_elan.launches = 0
+fused_elan.bf16_launches = 0

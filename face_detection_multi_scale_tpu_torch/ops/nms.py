@@ -169,9 +169,11 @@ def non_max_suppression(pred: torch.Tensor, conf_thres: float = 0.25,
 def detections_to_numpy(dets: Detections):
     """Fixed-capacity Detections -> list of (n_i, 6+E) numpy arrays
     [x1, y1, x2, y2, conf, cls, extras...] (reference utils/general.py:509
-    format)."""
+    format). numpy has no bf16: bf16 fields come out as float32, the same
+    values."""
     boxes, scores, classes, extras, valid = (
-        t.detach().cpu().numpy() for t in dets[:5])
+        (t.float() if t.dtype == torch.bfloat16 else t).detach().cpu()
+        .numpy() for t in dets[:5])
     return [np.concatenate([boxes[i][valid[i]], scores[i][valid[i]][:, None],
                             classes[i][valid[i]][:, None],
                             extras[i][valid[i]]], axis=1)

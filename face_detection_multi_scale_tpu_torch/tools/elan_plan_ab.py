@@ -3,20 +3,21 @@ of the kernel's launch plan, on one CUDA card.
 
     python -m face_detection_multi_scale_tpu_torch.tools.elan_plan_ab \\
         --model yolov7-tiny-face --rounds 7 base BLOCKS_PER_SM=1 \\
-        WS_TILE_H=16,WS_TILE_W=16
+        WS_TILE_H=16,WS_TILE_W=16 [--dtype bfloat16]
 
 A variant is "base" (the plan as it stands) or comma-separated NAME=VALUE
 overrides of ops/elan_kernel.py's module constants, which `elan_plan` and
 the build read at call time (a Path constant such as SOURCE takes a file
 path, to time a changed kernel source). The group inputs are captured from
-one b8@640 forward of FaceDetector(model, fuse_elan=True) with seeded
-weights and noise frames. Each round times every variant, in an order
+one b8@640 forward of FaceDetector(model, fuse_elan=True, dtype=--dtype)
+with seeded weights and noise frames (bfloat16: the bf16 kernel). Each
+round times every variant, in an order
 that rotates from round to round, each group by CUDA events (mean of 3
 runs after one warm-up). Each block starts its K loop at a chunk that
 depends on its place in the grid, so another plan (or another kernel,
 SOURCE) sums in another order: every variant is held within 1e-5 of max
-|base| per group, the bound the kernel is held to against its plain
-version. Prints each round's per-variant sums, then per variant the
+|base| per group (1e-2 in bf16), the bound the kernel is held to against
+its plain version. Prints each round's per-variant sums, then per variant the
 median, min and max of the sums and the per-group medians.
 """
 
@@ -31,9 +32,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from face_detection_multi_scale_tpu_torch.infer.detector import FaceDetector
+from face_detection_multi_scale_tpu_torch.infer.detector import (
+    DTYPES, FaceDetector)
 from face_detection_multi_scale_tpu_torch.models import fused as FUSED
 from face_detection_multi_scale_tpu_torch.ops import elan_kernel as E
+
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
 def parse_variant(text: str):
@@ -85,8 +89,10 @@ def main() -> None:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--size", type=int, default=640)
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
     ap.add_argument("variants", nargs="*", default=["base"])
     args = ap.parse_args()
+    dtype = DTYPES[args.dtype]
     if not torch.cuda.is_available():
         raise SystemExit("elan_plan_ab needs a CUDA card")
     variants = {v: parse_variant(v) for v in ["base"] + [
@@ -101,7 +107,7 @@ def main() -> None:
     frames = np.random.default_rng(0).integers(
         0, 256, (args.batch, args.size, args.size, 3), dtype=np.uint8)
     det = FaceDetector(args.model, img_sizes=(args.size,), fuse_elan=True,
-                       device="cuda")
+                       dtype=dtype, device="cuda")
     calls = capture(det, frames)
     want = [E.fused_elan(x, ws, shape) for x, ws, shape in calls]
     for name, ov in variants.items():
@@ -111,8 +117,9 @@ def main() -> None:
         print(f"{name}: build {time.perf_counter() - t0:.2f} s")
         for (x, ws, shape), ref in zip(calls, want):
             got = E.fused_elan(x, ws, shape)
-            rel = float((got - ref).abs().max() / ref.abs().max())
-            if not rel < 1e-5:
+            rel = float((got.float() - ref.float()).abs().max()
+                        / ref.float().abs().max())
+            if not rel < REL_TOL[dtype]:
                 raise SystemExit(f"{name}: output differs from base by "
                                  f"{rel:.3g} of max |base|")
     names = list(variants)
@@ -132,8 +139,9 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(f"{args.model} b{args.batch}@{args.size}, {len(calls)} groups, "
-          f"{args.rounds} rounds on {smi}:")
+    tag = "" if dtype == torch.float32 else f" {args.dtype}"
+    print(f"{args.model}{tag} b{args.batch}@{args.size}, {len(calls)} "
+          f"groups, {args.rounds} rounds on {smi}:")
     for name in names:
         sums = [sum(t[r] for t in per[name]) for r in range(args.rounds)]
         print(f"  {name}: sum median {statistics.median(sums):.3f} ms, min "

@@ -1,12 +1,13 @@
 """Where the fused-ELAN kernel's time goes, phase by phase, on one CUDA card.
 
     python -m face_detection_multi_scale_tpu_torch.tools.elan_profile \\
-        --model yolov7-w6-face
+        --model yolov7-w6-face [--dtype bfloat16]
 
 Builds csrc/fused_elan.cu with -DFDMS_ELAN_PROFILE (the first thread of
 each warpgroup adds the SM clocks of each phase into its block's
 counters), runs every fused group of one b8@640 forward of
-FaceDetector(model, fuse_elan=True) (seeded weights, noise frames) after a
+FaceDetector(model, fuse_elan=True, dtype=--dtype) (seeded weights, noise
+frames; bfloat16 runs the bf16 kernel, whose split phase is empty) after a
 warm-up, and prints per group its time (CUDA events, profiling build) and
 each phase's share of the kernel's clocks, summed over blocks and
 warpgroups, then the same over all groups. The phases: wait (a chunk's
@@ -27,7 +28,8 @@ import subprocess
 import numpy as np
 import torch
 
-from face_detection_multi_scale_tpu_torch.infer.detector import FaceDetector
+from face_detection_multi_scale_tpu_torch.infer.detector import (
+    DTYPES, FaceDetector)
 from face_detection_multi_scale_tpu_torch.ops import elan_kernel as E
 from face_detection_multi_scale_tpu_torch.tools.elan_plan_ab import (
     capture, time_ms)
@@ -61,13 +63,14 @@ def main() -> None:
     ap.add_argument("--model", default="yolov7-w6-face")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--size", type=int, default=640)
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="float32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("elan_profile needs a CUDA card")
     frames = np.random.default_rng(0).integers(
         0, 256, (args.batch, args.size, args.size, 3), dtype=np.uint8)
     det = FaceDetector(args.model, img_sizes=(args.size,), fuse_elan=True,
-                       device="cuda")
+                       dtype=DTYPES[args.dtype], device="cuda")
     calls = capture(det, frames)
     E.NVCC_FLAGS = E.NVCC_FLAGS + ("-DFDMS_ELAN_PROFILE",)
     E._library.cache_clear()
@@ -77,8 +80,9 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(f"{args.model} b{args.batch}@{args.size}, {len(calls)} groups, "
-          f"profiling build on {smi}:")
+    tag = "" if args.dtype == "float32" else f" {args.dtype}"
+    print(f"{args.model}{tag} b{args.batch}@{args.size}, {len(calls)} "
+          f"groups, profiling build on {smi}:")
     total = np.zeros(len(PHASES))
     for g, (x, ws, shape) in enumerate(calls):
         h, w = E._check(x, ws, shape)

@@ -369,6 +369,131 @@ def test_fused_engine_on_card_matches_cpu_postprocess(cuda_device):
     assert dets.valid.any()
 
 
+BF16_REL_TOL = 1e-2  # a few bf16 roundings apart (2^-8 each)
+# the cases of tests/test_fused_elan.py (GROUP_CASES of
+# tests/test_torch_fused_elan.py): ElanShape fields and the input's (h, w)
+GROUP_CASES = [
+    dict(cin=12, ccv=8, cch=8, cout=16, n_chain=4,
+         members=("y4", "y2", "b", "a")),
+    dict(cin=12, ccv=16, cch=8, cout=16, n_chain=4,
+         members=("y4", "y3", "y2", "y1", "b", "a")),
+    dict(cin=12, ccv=8, cch=8, cout=16, n_chain=2,
+         members=("y2", "y1", "b", "a"), act="leaky"),
+    dict(cin=12, ccv=8, cch=8, cout=16, n_chain=4,
+         members=("y4", "y2", "b", "a"), pre_cin=6, pre_stride=1),
+    dict(cin=12, ccv=8, cch=8, cout=16, n_chain=4,
+         members=("y4", "y2", "b", "a"), pre_cin=6, pre_stride=2),
+    dict(cin=8, ccv=8, cch=8, cout=8, n_chain=4, members=("y3", "b"),
+         act="relu"),
+]
+GROUP_HW = [(16, 16), (16, 16), (16, 16), (16, 20), (32, 40), (12, 20)]
+
+
+def bf16_inputs(shape, h, w, seed, device):
+    """elan_inputs in the bf16 form: x and the conv kernels bf16, the
+    biases float32 (models/fused.pack_elan_weights with dtype bf16)."""
+    x, ws = elan_inputs(shape, h, w, seed, device)
+    return x.bfloat16(), [t.bfloat16() if t.dim() == 4 else t for t in ws]
+
+
+def check_bf16_group(x, ws, shape):
+    """One bf16 launch (counted apart from the float32 ones), a bf16
+    output within BF16_REL_TOL of max |plain| of reference_elan (float32
+    convs of the bf16 values through cuDNN with TF32 off, each
+    intermediate rounded to bf16)."""
+    f32, bf16 = E.fused_elan.launches, E.fused_elan.bf16_launches
+    got = E.fused_elan(x, ws, shape)
+    torch.cuda.synchronize()
+    assert (E.fused_elan.launches, E.fused_elan.bf16_launches) == (f32,
+                                                                   bf16 + 1)
+    with full_fp32():
+        want = E.reference_elan(x, ws, shape)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    assert err < BF16_REL_TOL, err
+
+
+@pytest.mark.parametrize("idx", range(len(GROUP_CASES)))
+def test_fused_elan_bf16_group_cases(cuda_device, idx):
+    """The bf16 kernel on the shapes of the CPU tests' group cases
+    (narrow, ragged channel counts: 12 and 6 channels are no whole
+    16-byte run of bf16)."""
+    shape = E.ElanShape(**GROUP_CASES[idx])
+    h, w = GROUP_HW[idx]
+    s = shape.pre_stride if shape.has_pre else 1
+    x, ws = bf16_inputs(shape, h // s, w // s, seed=idx, device=cuda_device)
+    check_bf16_group(x, ws, shape)
+
+
+@pytest.mark.parametrize("hw", [(12, 20), (30, 37), (72, 76)])
+@pytest.mark.parametrize("idx", range(22))
+def test_fused_elan_bf16_matches_reference(cuda_device, idx, hw):
+    """The bf16 kernel on every full-width w6 and tiny group shape, bare
+    and with the absorbed pre conv: one tile an image, 2 x 2 tiles, and
+    the workspace tiles with ragged last tiles."""
+    shape = elan_shapes()[idx]
+    x, ws = bf16_inputs(shape, *hw, seed=idx, device=cuda_device)
+    check_bf16_group(x, ws, shape)
+
+
+def test_fused_elan_dtype_routes(cuda_device):
+    """float32 inputs still launch the float32 kernel (its counter only,
+    a float32 result within 1e-5 of plain); bf16 the bf16 kernel; any
+    other mix raises TypeError."""
+    shape = elan_shapes()[5]
+    x, ws = elan_inputs(shape, 20, 24, seed=9, device=cuda_device)
+    f32, bf16 = E.fused_elan.launches, E.fused_elan.bf16_launches
+    got = E.fused_elan(x, ws, shape)
+    torch.cuda.synchronize()
+    assert (E.fused_elan.launches, E.fused_elan.bf16_launches) == (f32 + 1,
+                                                                   bf16)
+    with full_fp32():
+        want = E.reference_elan(x, ws, shape)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-5
+    xb, wb = bf16_inputs(shape, 20, 24, seed=9, device=cuda_device)
+    check_bf16_group(xb, wb, shape)
+    for bad in ([t.bfloat16() for t in ws],            # bf16 biases
+                [t.float() for t in wb],               # f32 kernels
+                [t.half() if t.dim() == 4 else t for t in ws]):
+        with pytest.raises(TypeError):
+            E.fused_elan(xb, bad, shape)
+    with pytest.raises(TypeError):
+        E.fused_elan(x.half(), [t.half() if t.dim() == 4 else t
+                                for t in ws], shape)
+
+
+@pytest.mark.parametrize("fuse_elan", [False, True])
+def test_bf16_engine_on_card_matches_cpu_postprocess(cuda_device,
+                                                     fuse_elan):
+    """A narrowed tiny bf16 detector on the card, unfused and fused: bf16
+    convs, one keep-mask launch a request, 8 bf16 fused launches a request
+    (none of the float32 kernel), and Detections equal to the CPU
+    postprocess of the same rows."""
+    det = FaceDetector(narrow_tiny(), img_sizes=(128,), conf_thres=0.01,
+                       max_candidates=512, fuse_elan=fuse_elan,
+                       dtype=torch.bfloat16, device=cuda_device)
+    frames = np.random.default_rng(0).integers(0, 256, (4, 128, 128, 3),
+                                               dtype=np.uint8)
+    seq = K.nms_keep.launches
+    f32, bf16 = E.fused_elan.launches, E.fused_elan.bf16_launches
+    dets = det.run_network(frames)
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == seq + 1
+    assert E.fused_elan.launches == f32
+    assert E.fused_elan.bf16_launches == bf16 + (8 if fuse_elan else 0)
+    rows = det.forward_rows(frames)
+    # float32: the head's implicit priors stay float32 and promote (JAX)
+    assert rows.dtype == torch.float32
+    for got, want in zip(det.postprocess(rows), det.postprocess(rows.cpu())):
+        assert torch.equal(got.cpu(), want)
+    assert dets.valid.any()
+    assert all(r.dtype == np.float32 for r in NMS.detections_to_numpy(dets))
+
+
 @pytest.mark.parametrize("cells", [1, 133, 512])
 @pytest.mark.parametrize("variant", PM.VARIANTS)
 def test_probe_mm_matches_plain(cuda_device, variant, cells):
