@@ -101,11 +101,34 @@ Phases, each fatal on failure (nothing is caught to carry on):
      torch.profiler pass over the b1@2176x3840 bf16 forward, which counts
      its cuBLAS GEMV launches (the products of cuDNN's FFT convolutions
      at batch 1 in float32)
- 12. one JSON line with every kernel's launches, error, times and bound;
+ 12. paths yolov7-face, yolov7s-face, yolov7-lite-t, yolov7-lite-s: phase
+     4 for each of the other four zoo models at full width and depth
+     (seeded weights, b8@640 noise frames, 2 requests): one nms_keep
+     launch a request, no fixpoint or fused_elan launch; Detections equal
+     to the CPU postprocess of the card's rows; the float32 forward (TF32
+     off) within atol 5e-3 / rtol 1e-3 of a CPU forward on 2 frames; then
+     hub.create("yolov7-lite-s") on the card with the lite-s path's seed
+     and gate serves one request (one nms_keep launch) whose Detections
+     equal the lite-s path's on the same frames
+ 13. the same four in bf16: raws within 5e-2 of max |f32 raw| per level
+     of phase 12's card forward; Detections equal to the CPU postprocess
+ 14. fused paths of yolov7-face and yolov7s-face (fuse_elan True and
+     "pre:", float32 then bf16): 8 launches of the dtype's kernel a
+     request, none of the other; every group on its own captured inputs
+     within 1e-5 (f32) or 1e-2 (bf16) of max |plain|; the fused rows
+     within the phase 4 tolerance of the unfused card and CPU forwards
+     (f32), the fused raws within 5e-2 of max |raw| per level of the
+     unfused bf16 card forward (bf16); with True, the kernel's ms summed
+     over the groups (CUDA events) beside the same groups' cuDNN modules,
+     their plain version and the bound
+ 15. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
-     of 16 blocks; fused_elan_bf16 beside fused_elan
- 13. the last line: {"ok": true, "device": {...}}
+     of 16 blocks; fused_elan_bf16 beside fused_elan; `launches` sums
+     every counted path's run, `launches_by_path` splits it, and the
+     fused entries' `by_model` hold the yolov7-face and yolov7s-face group
+     sums
+ 16. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
@@ -129,6 +152,7 @@ import torch
 
 from face_detection_multi_scale_tpu_torch.infer import device_preprocess as DP
 from face_detection_multi_scale_tpu_torch.infer import tiling
+from face_detection_multi_scale_tpu_torch import hub
 from face_detection_multi_scale_tpu_torch.infer.detector import (
     FaceDetector, full_fp32)
 from face_detection_multi_scale_tpu_torch.models import fused as FUSED
@@ -153,7 +177,13 @@ ELAN_REL_TOL = 1e-5
 BF16_ELAN_REL_TOL = 1e-2  # a few bf16 roundings (2^-8 each) apart
 BF16_RAW_SHARE = 5e-2     # bf16 raws against float32 ones, per level
 BF16_PIXEL_TOL = 2 / 255  # bf16 preprocess: its roundings of [0, 255]
-GROUPS = {"yolov7-w6-face": 11, "yolov7-tiny-face": 8}
+GROUPS = {"yolov7-w6-face": 11, "yolov7-tiny-face": 8, "yolov7-face": 8,
+          "yolov7s-face": 8, "yolov7-lite-t": 0, "yolov7-lite-s": 0}
+NEW_MODELS = (("yolov7-face", 3), ("yolov7s-face", 4), ("yolov7-lite-t", 5),
+              ("yolov7-lite-s", 6))  # (zoo name, seed of weights and frames)
+NEW_REQUESTS = 2
+# each counted path's run: {tag: {"seq": n, "fixpoint": n, "fused": n}}
+PATH_LAUNCHES = {}
 PROBE_CELLS, PROBE_ITERS = 512, 6  # the JAX tool's defaults
 TTA_SIZES = (640, 3840)  # the JAX FaceDetector's default pyramid
 TTA_FRAMES, TTA_HW = 2, (1080, 1920)  # video frames of the production pipeline
@@ -380,7 +410,8 @@ def card_raws(det: FaceDetector, frames: np.ndarray):
 def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
                fuse_elan=False, requests=None, ref=None,
                dtype=torch.float32, ref_raws=None):
-    """Phases 4/5/7/8 for one zoo model, and 9/10 in bf16. `ref` holds the
+    """Phases 4/5/7/8/12/14 for one zoo model, and 9/10/13/14 in bf16.
+    `ref` holds the
     unfused phase's card and CPU rows on 2 frames; without it the CPU
     forward is run here (float32 only). In bf16 the raws on 2 frames are
     held against `ref_raws` (label, raws) instead. Returns (the launch
@@ -489,6 +520,7 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
         k=min(det.max_candidates, rows.shape[1]))
     stamp(f"path {tag} done")
     counts = {"seq": launches, "fixpoint": fixpoint, "fused": fused}
+    PATH_LAUNCHES[tag] = counts
     return (counts, (nms_boxes.float().contiguous(), valid, det.iou_thres),
             (rows_card, rows_cpu), det, raws)
 
@@ -923,6 +955,91 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
     return worst_abs, worst_rel, sums
 
 
+def drive_new_models(smi: str):
+    """Phases 12-14: the other four zoo models, unfused in float32 and
+    bf16, hub.create on the card, and the fused paths of the two with
+    E-ELAN groups. Returns the worst group errors and the timed group sums
+    per (model, dtype)."""
+    bf16 = torch.bfloat16
+    frames = {name: np.random.default_rng(seed).integers(
+        0, 256, (NEW_REQUESTS, BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+        for name, seed in NEW_MODELS}
+    refs, raws32, raws_bf = {}, {}, {}
+    # phase 12: float32, unfused; then hub.create beside the lite-s path
+    for name, seed in NEW_MODELS:
+        _, _, refs[name], det, raws32[name] = drive_path(
+            name, smi, seed, frames[name], requests=NEW_REQUESTS)
+        if name == "yolov7-lite-s":
+            hub_det = hub.create(name, img_sizes=(SIZE,),
+                                 conf_thres=det.conf_thres,
+                                 iou_thres=det.iou_thres,
+                                 max_candidates=MAX_CANDIDATES, seed=seed)
+            check(hub_det.device.type == "cuda" and hub_det.spec.name == name,
+                  "hub.create: not the lite-s model on the card")
+            K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
+            E.fused_elan.launches = E.fused_elan.bf16_launches = 0
+            got = hub_det.run_network(frames[name][0])
+            torch.cuda.synchronize()
+            counts = {"seq": K.nms_keep.launches,
+                      "fixpoint": K.nms_keep.fixpoint_launches,
+                      "fused": E.fused_elan.launches
+                      + E.fused_elan.bf16_launches}
+            PATH_LAUNCHES["hub.create(yolov7-lite-s)"] = counts
+            check(counts == {"seq": 1, "fixpoint": 0, "fused": 0},
+                  f"hub.create(yolov7-lite-s): launches {counts}, want one "
+                  f"nms_keep and nothing else")
+            want = det.run_network(frames[name][0])
+            check(same_detections(got, want), "hub.create(yolov7-lite-s)'s "
+                  "Detections differ from the lite-s path's")
+            print(f"hub.create({name!r}) on {smi}: one request, kept per "
+                  f"image {got.valid.sum(1).cpu().tolist()}, launches "
+                  f"{counts}; Detections == the {name} path's")
+            del hub_det
+        del det
+        torch.cuda.empty_cache()
+    # phase 13: bf16, unfused, against phase 12's float32 card raws
+    for name, seed in NEW_MODELS:
+        *_, det, raws_bf[name] = drive_path(
+            name, smi, seed, frames[name], requests=NEW_REQUESTS, dtype=bf16,
+            ref_raws=[("the float32 card forward", raws32[name])])
+        del det
+        torch.cuda.empty_cache()
+    # phase 14: the fused paths, each group checked on its own inputs
+    worst = {torch.float32: [0.0, 0.0], bf16: [0.0, 0.0]}
+    sums = {}
+    for dtype in (torch.float32, bf16):
+        for name, seed in NEW_MODELS:
+            if not GROUPS[name]:
+                continue
+            for flag in (True, "pre:"):
+                ref_raws = [("the bf16 unfused card forward", raws_bf[name])]
+                *_, det, _ = drive_path(
+                    name, smi, seed, frames[name], fuse_elan=flag,
+                    requests=NEW_REQUESTS, dtype=dtype,
+                    ref=refs[name] if dtype == torch.float32 else None,
+                    ref_raws=ref_raws)
+                w_abs, w_rel, group_sums = check_groups(
+                    det, frames[name][0], smi, timed=flag is True)
+                worst[dtype] = [max(worst[dtype][0], w_abs),
+                                max(worst[dtype][1], w_rel)]
+                if flag is True:
+                    sums[(name, dtype)] = group_sums
+                del det
+                torch.cuda.empty_cache()
+                stamp(f"groups of {name} {dtype} fuse_elan={flag!r} "
+                      f"checked")
+    return worst, sums
+
+
+def group_entry(s):
+    """The time fields of a kernels-line entry from check_groups' sums."""
+    return {"ms": s["ms"], "plain_ms": s["plain_ms"],
+            "library_ms": s["library_ms"],
+            "bound_ms": max(s["t_bytes"], s["t_ops"]),
+            "bound_by": "operations" if s["t_ops"] >= s["t_bytes"]
+            else "bytes"}
+
+
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
     smi = subprocess.run(
@@ -1012,6 +1129,20 @@ def main() -> None:
     _, bf16_gate = drive_tta(smi, bf16)
     drive_tiled(smi, bf16_gate, bf16)
 
+    # phases 12-14: the other four zoo models
+    new_worst, new_sums = drive_new_models(smi)
+    for d, acc in ((torch.float32, elan), (bf16, bf16_elan)):
+        acc["abs"] = max(acc["abs"], new_worst[d][0])
+        acc["rel"] = max(acc["rel"], new_worst[d][1])
+    by_model = {d: {name: group_entry(new_sums[(name, d)])
+                    for name, seed in NEW_MODELS if (name, d) in new_sums}
+                for d in (torch.float32, bf16)}
+    total = {key: sum(c[key] for c in PATH_LAUNCHES.values())
+             for key in ("seq", "fixpoint")}
+    fused_by_path = {d: {tag: c["fused"] for tag, c in PATH_LAUNCHES.items()
+                         if c["fused"] and ("bf16" in tag) == (d == bf16)}
+                     for d in (torch.float32, bf16)}
+
     # the keep-mask kernels at the w6 path's own inputs
     keep = K.nms_keep(boxes, valid, thr)
     want = K.nms_keep_plain(boxes, valid, thr)
@@ -1019,7 +1150,8 @@ def main() -> None:
     bound_ms, bound_by = nms_bound(keep, valid)
     plain_ms = cuda_ms(lambda: K.nms_keep_plain(boxes, valid, thr), 5)
     for version, name, line, launches, iters in (
-            ("seq", "nms_keep", 94, counts_w6["seq"], 20),
+            ("seq", "nms_keep", 94,
+             total["seq"] + tta_launches + tiled_launches, 20),
             ("fixpoint", "nms_keep_fixpoint", 35, fixpoint_launches, 20)):
         got = K.nms_keep(boxes, valid, thr, kernel_version=version)
         err = int((got.int() - want.int()).abs().max())
@@ -1045,7 +1177,9 @@ def main() -> None:
             # fixpoint kernel is checked to launch 0 times
             "tta_launches": tta_launches if version == "seq" else 0,
             "tiled_launches": tiled_launches if version == "seq" else 0,
-            "serving_launches": counts_w6[version],
+            "serving_launches": total[version],
+            "launches_by_path": {tag: c[version] for tag, c in
+                                 PATH_LAUNCHES.items()},
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     b, k = valid.shape
     dense_ms = b * k * k / 2 * OPS_PER_IOU / F32_OPS_PER_S * 1e3
@@ -1087,27 +1221,27 @@ def main() -> None:
         "name": "fused_elan", "route": "cuda",
         "source": "face_detection_multi_scale_tpu_torch/csrc/fused_elan.cu",
         "replaces": "face_detection_multi_scale_tpu/ops/pallas_elan.py:194",
-        "launches": fused_launches, "max_abs_err": elan["abs"],
-        "max_rel_err": elan["rel"], "ms": s["ms"], "plain_ms": s["plain_ms"],
-        "bound_ms": max(s["t_bytes"], s["t_ops"]),
-        "bound_by": "operations" if s["t_ops"] >= s["t_bytes"] else "bytes",
+        "launches": sum(fused_by_path[torch.float32].values()),
+        "launches_by_path": fused_by_path[torch.float32],
+        "w6_launches": fused_launches, "max_abs_err": elan["abs"],
+        "max_rel_err": elan["rel"], **group_entry(s),
         "bound_rate": "3xTF32: 495/3 = 165 TFLOP/s, 3.35 TB/s",
         "simt_bound_ms": max(s["t_bytes"], s["t_simt"]),
-        "library_ms": s["library_ms"],
-        "per": "sum over the 11 w6 groups of one b8@640 forward"})
+        "per": "sum over the 11 w6 groups of one b8@640 forward",
+        "by_model": by_model[torch.float32]})
     s = bf16_sums
     entries.append({
         "name": "fused_elan_bf16", "route": "cuda",
         "source": "face_detection_multi_scale_tpu_torch/csrc/fused_elan.cu",
         "replaces": "face_detection_multi_scale_tpu/ops/pallas_elan.py:194",
-        "dtype": "bfloat16", "launches": bf16_launches,
+        "dtype": "bfloat16",
+        "launches": sum(fused_by_path[bf16].values()),
+        "launches_by_path": fused_by_path[bf16],
+        "w6_launches": bf16_launches,
         "max_abs_err": bf16_elan["abs"], "max_rel_err": bf16_elan["rel"],
-        "ms": s["ms"], "plain_ms": s["plain_ms"],
-        "bound_ms": max(s["t_bytes"], s["t_ops"]),
-        "bound_by": "operations" if s["t_ops"] >= s["t_bytes"] else "bytes",
-        "bound_rate": "bf16: 989 TFLOP/s, 3.35 TB/s",
-        "library_ms": s["library_ms"],
-        "per": "sum over the 11 w6 groups of one b8@640 bf16 forward"})
+        **group_entry(s), "bound_rate": "bf16: 989 TFLOP/s, 3.35 TB/s",
+        "per": "sum over the 11 w6 groups of one b8@640 bf16 forward",
+        "by_model": by_model[bf16]})
     entries += probe_entries
     stamp("kernel times done")
     print(json.dumps({"kernels": entries}))

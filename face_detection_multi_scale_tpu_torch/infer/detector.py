@@ -44,7 +44,7 @@ from face_detection_multi_scale_tpu_torch.models.fused import (
     apply_variant, elan_weights, find_elan_blocks, fused_apply)
 from face_detection_multi_scale_tpu_torch.models.head import decode
 from face_detection_multi_scale_tpu_torch.models.model import (
-    YoloFace, cast_model, init_weights)
+    YoloFace, cast_model, compute_strides, init_weights)
 from face_detection_multi_scale_tpu_torch.models.spec import ModelSpec
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.utils.general import check_img_size
@@ -75,8 +75,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class FaceDetector:
-    """Face detector over a zoo model (or a resolved spec), in float32 by
-    default or in bfloat16.
+    """Face detector over a zoo model (or a custom spec, whose strides
+    `compute_strides` derives), in float32 by default or in bfloat16.
 
     In float32 the forward runs in full float32: cuDNN's TF32 is switched
     off around it (`full_fp32`), so the card computes what the CPU
@@ -147,7 +147,14 @@ class FaceDetector:
                 f"bfloat16 are)")
         self.dtype = dtype
         self.device = _device(device)
-        spec = zoo.get_spec(model) if isinstance(model, str) else model
+        if isinstance(model, str):
+            spec = zoo.get_spec(model)  # pinned strides
+        else:
+            # a custom spec (hub.custom, a cfg yaml): strides from a
+            # shape-only forward, as the JAX detector does; the parser's
+            # P3-start default is wrong for a P4/P5 cfg
+            spec = model
+            compute_strides(spec)
         self.spec = spec.resolve()
         net = YoloFace(self.spec)
         if torch_weights is not None:

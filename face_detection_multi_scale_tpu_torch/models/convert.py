@@ -7,8 +7,13 @@ to mirror the reference torch module paths:
   ("model_105", "m_kpt_0_3", "conv", ...)   -> "model.105.m_kpt.0.3.conv..."
 
 Rules:
-  * a trailing run of "_<digits>" in a path component splits off as
-    ".<digits>" components (the inverse of convert.py's numeric merge)
+  * a trailing run of "_<digits>" splits off as ".<digits>" components
+    (the inverse of convert.py's numeric merge) only where the JAX names
+    came from such a merge: `model_{i}` (and `model_{i}_{j}` of a
+    repeated node), the head's `m_{l}`, `ia_{l}`, `im_{l}`,
+    `m_kpt_{l}(_{k})`, a CSP block's `m_{j}`, and the Sequential indices
+    `branchK_N` and `conv_N`; a name such as StemBlock's `stem_1` stays
+    whole
   * conv kernels HWIO (kh, kw, I/g, O) -> OIHW (O, I/g, kh, kw)
   * BN params scale/bias -> weight/bias; batch_stats mean/var ->
     running_mean/running_var; num_batches_tracked is added as 0
@@ -29,6 +34,8 @@ import numpy as np
 import torch
 
 _NUMERIC_TAIL = re.compile(r"^(.*?)((?:_\d+)*)$")
+# the bases whose numeric tails came from merging torch path components
+_MERGED_BASES = re.compile(r"^(model|m|m_kpt|ia|im|conv|branch\d+)$")
 # last key components of a reference state dict that are no weights: the
 # head's anchor buffers (the model takes anchors from its spec) and BN's
 # batch counter
@@ -37,6 +44,8 @@ SKIPPED_LEAVES = ("anchors", "anchor_grid", "num_batches_tracked")
 
 def _split_component(name: str) -> str:
     base, tail = _NUMERIC_TAIL.match(name).groups()
+    if not _MERGED_BASES.match(base):
+        return name
     return ".".join([base] + [d for d in tail.split("_") if d])
 
 

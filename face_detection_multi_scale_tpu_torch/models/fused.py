@@ -243,14 +243,14 @@ def find_elan_blocks(spec: ModelSpec,
 def _conv_eff(model: YoloFace, idx: int, dtype: torch.dtype
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Effective OIHW kernel in `dtype` and (C,) float32 bias of ConvBN
-    node `idx` with the BN folded. After models/fuse.fold_bn (`bn` is
-    None) they are the conv's own; otherwise w' = w * g, b' = beta - mean
+    node `idx` with the BN folded. After models/fuse.fold_bn (`bn` is an
+    identity) they are the conv's own; otherwise w' = w * g, b' = beta - mean
     * g, g = gamma / sqrt(var + eps), in float32 as the JAX packer
     computes them; the kernel is then cast to `dtype` and the bias stays
     float32 (the JAX `_conv_eff`)."""
     mod = model.model[idx]
     w = mod.conv.weight.detach().float()
-    if mod.bn is None:
+    if not isinstance(mod.bn, torch.nn.BatchNorm2d):
         bias = mod.conv.bias.detach().float()
     else:
         bn = mod.bn

@@ -1,17 +1,26 @@
-"""Building blocks of yolov7-w6-face and yolov7-tiny-face as torch modules.
+"""Building blocks of the YOLOv7-face model family as torch modules.
 
-Counterpart of the JAX package's models/layers.py. The JAX modules are
-NHWC; these run NCHW, PyTorch's native layout, and the model's public
-functions convert at the boundary. Submodule names follow the reference
-PyTorch module paths (`conv`, `bn`, `cv1`..`cv7`, `implicit`), so a
-reference state dict loads by name.
+Counterpart of the JAX package's models/layers.py, every module of it.
+The JAX modules are NHWC; these run NCHW, PyTorch's native layout, and
+the model's public functions convert at the boundary. Submodule names
+follow the reference PyTorch module paths (`conv`, `bn`, `cv1`..`cv7`,
+`m`, `stem_1`, `conv1`/`bn1`, `branch1`/`branch2` as Sequentials,
+`implicit`), so a reference state dict loads by name. Every BatchNorm
+has eps 1e-3.
 
 Parity targets (reference file:line):
   Conv/DWConv            models/common.py:85-105
   MP/SP/SPF              models/common.py:28-52
   ImplicitA/ImplicitM    models/common.py:55-74
   ReOrg                  models/common.py:77-82
+  SPPF                   models/common.py:335-348
   SPPCSPC                models/common.py:294-312
+  SPPFCSPC               models/common.py:314-333
+  StemBlock              models/common.py:422-437
+  DWConvblock            models/common.py:452-471
+  Shuffle_Block          models/common.py:483-539
+  Bottleneck/C3/CSP fam  models/common.py:153-243
+  Focus                  models/common.py:350-364
 """
 
 from __future__ import annotations
@@ -48,10 +57,11 @@ def act_fn(name):
     raise ValueError(f"unknown activation {name!r}")
 
 
-def max_pool(x: torch.Tensor, k: int, s: int, p: int = 0) -> torch.Tensor:
-    """NCHW max pool with torch.nn.MaxPool2d(k, s, p) semantics (padding
-    counts as -inf), the JAX package's `max_pool` without ceil_mode."""
-    return F.max_pool2d(x, k, s, p)
+def max_pool(x: torch.Tensor, k: int, s: int, p: int = 0,
+             ceil_mode: bool = False) -> torch.Tensor:
+    """NCHW max pool with torch.nn.MaxPool2d(k, s, p, ceil_mode)
+    semantics (padding counts as -inf), the JAX package's `max_pool`."""
+    return F.max_pool2d(x, k, s, p, ceil_mode=ceil_mode)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -66,10 +76,23 @@ def reorg(x: torch.Tensor) -> torch.Tensor:
                       x[:, :, 0::2, 1::2], x[:, :, 1::2, 1::2]], dim=1)
 
 
+def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
+    """ShuffleNet channel shuffle (reference models/common.py:483-492):
+    NCHW viewed as (b, groups, c / groups, h, w), dims 1-2 swapped."""
+    b, c, h, w = x.shape
+    return x.reshape(b, groups, c // groups, h, w).transpose(1, 2).reshape(
+        b, c, h, w)
+
+
+def batch_norm(c: int) -> nn.BatchNorm2d:
+    """The model family's BatchNorm (eps 1e-3, momentum 0.03)."""
+    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
 class ConvBN(nn.Module):
     """conv2d(bias=False) + BatchNorm(eps=1e-3) + activation == reference
     `Conv`. `models/fuse.fold_bn` folds the BN into the conv for serving
-    and sets `bn` to None."""
+    and replaces `bn` with an identity."""
 
     def __init__(self, c1: int, c2: int, k=1, s: int = 1, p=None, g: int = 1,
                  act=True):
@@ -78,14 +101,11 @@ class ConvBN(nn.Module):
         pad = tuple(p) if isinstance(p, (tuple, list)) else \
             tuple(autopad(kk, p) for kk in k)
         self.conv = nn.Conv2d(c1, c2, k, s, pad, groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = batch_norm(c2)
         self.act = act_fn(act)
 
     def forward(self, x):
-        x = self.conv(x)
-        if self.bn is not None:
-            x = self.bn(x)
-        return self.act(x)
+        return self.act(self.bn(self.conv(x)))
 
 
 def DWConvBN(c1: int, c2: int, k: int = 1, s: int = 1, act=True) -> ConvBN:
@@ -115,6 +135,239 @@ class SPPCSPC(nn.Module):
         y1 = self.cv6(self.cv5(torch.cat([x1] + pools, dim=1)))
         y2 = self.cv2(x)
         return self.cv7(torch.cat([y1, y2], dim=1))
+
+
+class SPF(nn.Module):
+    """Stacked 3x3 stride-s max pools equivalent to a k x k pool
+    (reference models/common.py:45-52)."""
+
+    def __init__(self, k: int = 3, s: int = 1):
+        super().__init__()
+        self.k, self.s = k, s
+
+    def forward(self, x):
+        for _ in range((self.k - 1) // 2):
+            x = max_pool(x, 3, self.s, 1)
+        return x
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling, fast (reference models/common.py:335-348)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = k
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(4 * c_, c2, 1, 1)
+
+    def forward(self, x):
+        x = self.cv1(x)
+        y1 = max_pool(x, self.k, 1, self.k // 2)
+        y2 = max_pool(y1, self.k, 1, self.k // 2)
+        y3 = max_pool(y2, self.k, 1, self.k // 2)
+        return self.cv2(torch.cat([x, y1, y2, y3], dim=1))
+
+
+class SPPFCSPC(nn.Module):
+    """CSP SPP with sequential (fast) pools (reference
+    models/common.py:314-333)."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5, k: int = 5):
+        super().__init__()
+        c_ = int(2 * c2 * e)
+        self.k = k
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c1, c_, 1, 1)
+        self.cv3 = ConvBN(c_, c_, 3, 1)
+        self.cv4 = ConvBN(c_, c_, 1, 1)
+        self.cv5 = ConvBN(4 * c_, c_, 1, 1)
+        self.cv6 = ConvBN(c_, c_, 3, 1)
+        self.cv7 = ConvBN(2 * c_, c2, 1, 1)
+
+    def forward(self, x):
+        x1 = self.cv4(self.cv3(self.cv1(x)))
+        x2 = max_pool(x1, self.k, 1, self.k // 2)
+        x3 = max_pool(x2, self.k, 1, self.k // 2)
+        x4 = max_pool(x3, self.k, 1, self.k // 2)
+        y1 = self.cv6(self.cv5(torch.cat([x1, x2, x3, x4], dim=1)))
+        return self.cv7(torch.cat([y1, self.cv2(x)], dim=1))
+
+
+class SPP(nn.Module):
+    """Classic SPP, each k x k pool as stacked 3x3 pools (reference
+    models/common.py:246-268)."""
+
+    def __init__(self, c1: int, c2: int, k: Tuple[int, ...] = (3, 3, 3)):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = ConvBN(c_ * (len(self.k) + 1), c2, 1, 1)
+
+    def forward(self, x):
+        x = self.cv1(x)
+        outs = [x]
+        for pk in self.k:
+            y = x
+            for _ in range(1 + (pk - 3) // 2):
+                y = max_pool(y, 3, 1, 1)
+            outs.append(y)
+        return self.cv2(torch.cat(outs, dim=1))
+
+
+class StemBlock(nn.Module):
+    """PeleeNet-style stem (reference models/common.py:422-437)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.stem_1 = ConvBN(c1, c2, k, s)
+        self.stem_2a = ConvBN(c2, c2 // 2, 1, 1, p=0)
+        self.stem_2b = ConvBN(c2 // 2, c2, 3, 2, p=1)
+        self.stem_3 = ConvBN(2 * c2, c2, 1, 1, p=0)
+
+    def forward(self, x):
+        s1 = self.stem_1(x)
+        s2b = self.stem_2b(self.stem_2a(s1))
+        s2p = max_pool(s1, 2, 2, 0, ceil_mode=True)
+        return self.stem_3(torch.cat([s2b, s2p], dim=1))
+
+
+class DWConvblock(nn.Module):
+    """Depthwise + pointwise conv pair (reference models/common.py:452-471):
+    conv1/bn1 depthwise k x k stride s, conv2/bn2 pointwise, SiLU after
+    each."""
+
+    def __init__(self, c1: int, c2: int, k: int, s: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(c1, c1, k, s, k // 2, groups=c1, bias=False)
+        self.bn1 = batch_norm(c1)
+        self.conv2 = nn.Conv2d(c1, c2, 1, 1, 0, bias=False)
+        self.bn2 = batch_norm(c2)
+
+    def forward(self, x):
+        x = F.silu(self.bn1(self.conv1(x)))
+        return F.silu(self.bn2(self.conv2(x)))
+
+
+class ShuffleBlock(nn.Module):
+    """ShuffleNetV2 unit (reference models/common.py:494-539). `branch1`
+    and `branch2` are Sequentials with the reference's indices (convs,
+    BNs and SiLUs); with stride 1, branch1 is empty and the input's two
+    channel halves feed the identity and branch2."""
+
+    def __init__(self, c1: int, c2: int, stride: int):
+        super().__init__()
+        self.stride = stride
+        bf = c2 // 2
+        if stride > 1:
+            self.branch1 = nn.Sequential(
+                nn.Conv2d(c1, c1, 3, stride, 1, groups=c1, bias=False),
+                batch_norm(c1),
+                nn.Conv2d(c1, bf, 1, 1, 0, bias=False),
+                batch_norm(bf), nn.SiLU())
+            c_in = c1
+        else:
+            self.branch1 = nn.Sequential()
+            c_in = bf
+        self.branch2 = nn.Sequential(
+            nn.Conv2d(c_in, bf, 1, 1, 0, bias=False), batch_norm(bf),
+            nn.SiLU(),
+            nn.Conv2d(bf, bf, 3, stride, 1, groups=bf, bias=False),
+            batch_norm(bf),
+            nn.Conv2d(bf, bf, 1, 1, 0, bias=False), batch_norm(bf),
+            nn.SiLU())
+
+    def forward(self, x):
+        if self.stride > 1:
+            b1, x2 = self.branch1(x), x
+        else:
+            b1, x2 = x.chunk(2, dim=1)
+        return channel_shuffle(torch.cat([b1, self.branch2(x2)], dim=1), 2)
+
+
+class ConvBnReluMaxpool(nn.Module):
+    """3x3/2 conv + BN + SiLU, then a 3x3/2 max pool (reference
+    models/common.py:439-450); `conv` is a Sequential (conv.0, conv.1)."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.conv = nn.Sequential(nn.Conv2d(c1, c2, 3, 2, 1, bias=False),
+                                  batch_norm(c2), nn.SiLU())
+
+    def forward(self, x):
+        return max_pool(self.conv(x), 3, 2, 1)
+
+
+class Bottleneck(nn.Module):
+    """Standard bottleneck (reference models/common.py:153-163)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, act=True):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1, 1, act=act)
+        self.cv2 = ConvBN(c_, c2, 3, 1, g=g, act=act)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs (reference models/common.py:223-235)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5, act=True):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1, 1, act=act)
+        self.cv2 = ConvBN(c1, c_, 1, 1, act=act)
+        self.cv3 = ConvBN(2 * c_, c2, 1, act=act)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, 1.0, act=act)
+                                 for _ in range(n)))
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], dim=1))
+
+
+class BottleneckCSP(nn.Module):
+    """CSP bottleneck (reference models/common.py:166-182): cv2 and cv3
+    are bare convs whose concat feeds one BatchNorm `bn` (a precomputed
+    affine after models/fuse.fold_bn)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1, 1)
+        self.cv2 = nn.Conv2d(c1, c_, 1, 1, bias=False)
+        self.cv3 = nn.Conv2d(c_, c_, 1, 1, bias=False)
+        self.cv4 = ConvBN(2 * c_, c2, 1, 1)
+        self.bn = batch_norm(2 * c_)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, 1.0)
+                                 for _ in range(n)))
+
+    def forward(self, x):
+        y1 = self.cv3(self.m(self.cv1(x)))
+        y2 = self.cv2(x)
+        return self.cv4(F.silu(self.bn(torch.cat([y1, y2], dim=1))))
+
+
+class Focus(nn.Module):
+    """Space-to-depth stem (reference models/common.py:350-364), with the
+    JAX package's channel order: channel (2 sh + sw) * C + c takes the
+    pixel at offset (sh, sw) of each 2 x 2 cell."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, act=True):
+        super().__init__()
+        self.conv = ConvBN(4 * c1, c2, k, s, act=act)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        y = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+        return self.conv(y.reshape(b, 4 * c, h // 2, w // 2))
 
 
 class ImplicitA(nn.Module):

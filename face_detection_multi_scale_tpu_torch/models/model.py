@@ -6,16 +6,20 @@ models/yolo.py Model.forward_once). The top-level modules live in
 `self.model` as an nn.ModuleList, so state-dict keys read
 `model.{i}.<submodule>...` exactly as in the reference checkpoints.
 
-This slice's executor covers the ops of yolov7-w6-face and
-yolov7-tiny-face; any other op raises NotImplementedError naming it.
+The executor covers every op of the JAX package's models/layers.py, so
+all six zoo models build; a repeated node (n > 1 after the depth
+multiple) is an nn.Sequential of its blocks, keys `model.{i}.{j}.*`.
+The ops of the JAX package's layers_extra.py (GhostConv, C3TR, ...) are
+not ported and raise NotImplementedError naming the op.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from face_detection_multi_scale_tpu_torch.models import layers as L
@@ -37,11 +41,16 @@ def resolve_act(spec: ModelSpec, node_args, default=True):
 
 
 def build_node_block(spec: ModelSpec, node: Node) -> nn.Module:
-    """The torch module for one parametric node."""
-    op, args, c1, c2 = node.op, node.args, node.c1, node.c2
+    """The torch module for one parametric node: one block, or an
+    nn.Sequential of node.n_resolved blocks."""
     if node.n_resolved > 1:
-        raise NotImplementedError(
-            f"op {op!r} repeated {node.n_resolved}x is not ported yet")
+        return nn.Sequential(*(_build_block(spec, node)
+                               for _ in range(node.n_resolved)))
+    return _build_block(spec, node)
+
+
+def _build_block(spec: ModelSpec, node: Node) -> nn.Module:
+    op, args, c1, c2 = node.op, node.args, node.c1, node.c2
     if op == "Conv":
         k = args[1] if len(args) > 1 else 1
         k = tuple(int(v) for v in k) if isinstance(k, (list, tuple)) \
@@ -55,13 +64,40 @@ def build_node_block(spec: ModelSpec, node: Node) -> nn.Module:
         k = int(args[1]) if len(args) > 1 else 1
         s = int(args[2]) if len(args) > 2 else 1
         return L.DWConvBN(c1, c2, k, s, act=resolve_act(spec, args))
+    if op == "SPPF":
+        return L.SPPF(c1, c2, int(args[1]) if len(args) > 1 else 5)
     if op == "SPPCSPC":
         return L.SPPCSPC(c1, c2)
+    if op == "SPPFCSPC":
+        return L.SPPFCSPC(c1, c2)
+    if op == "SPP":
+        return L.SPP(c1, c2, tuple(args[1]) if len(args) > 1 else (3, 3, 3))
+    if op == "StemBlock":
+        k = int(args[1]) if len(args) > 1 else 3
+        s = int(args[2]) if len(args) > 2 else 2
+        return L.StemBlock(c1, c2, k, s)
+    if op == "Shuffle_Block":
+        return L.ShuffleBlock(c1, c2, int(args[1]))
+    if op == "DWConvblock":
+        return L.DWConvblock(c1, c2, int(args[1]), int(args[2]))
+    if op == "conv_bn_relu_maxpool":
+        return L.ConvBnReluMaxpool(c1, c2)
+    sc = bool(args[1]) if len(args) > 1 else True
+    if op == "Bottleneck":
+        return L.Bottleneck(c1, c2, sc, act=resolve_act(spec, args))
+    if op == "C3":
+        return L.C3(c1, c2, node.repeats, sc, act=resolve_act(spec, args))
+    if op == "BottleneckCSP":
+        return L.BottleneckCSP(c1, c2, node.repeats, sc)
+    if op == "Focus":
+        k = int(args[1]) if len(args) > 1 else 1
+        return L.Focus(c1, c2, k, act=resolve_act(spec, args))
     raise NotImplementedError(f"op {op!r} is not ported to the torch "
-                              "executor yet")
+                              "executor (the JAX package's layers_extra.py)")
 
 
-STATELESS_OPS = {"Concat", "Upsample", "MP", "SP", "SPF", "ReOrg"}
+STATELESS_OPS = {"Concat", "ADD", "Upsample", "ZeroPad2d", "MaxPool2d",
+                 "MP", "SP", "SPF", "ReOrg"}
 
 
 def apply_stateless_op(op: str, args, inp):
@@ -69,8 +105,21 @@ def apply_stateless_op(op: str, args, inp):
     routed input (a list for multi-input ops)."""
     if op == "Concat":
         return torch.cat(inp, dim=1)
+    if op == "ADD":
+        # torch.add(x1, x2, alpha): the lite cfgs pass alpha 1; the
+        # reference class default 0.5 is never used by a face cfg
+        alpha = float(args[0]) if args else 0.5
+        return inp[0] + alpha * inp[1]
     if op == "Upsample":
         return L.upsample2x_nearest(inp)
+    if op == "ZeroPad2d":
+        # torch padding order (left, right, top, bottom)
+        return F.pad(inp, tuple(int(v) for v in args[0]))
+    if op == "MaxPool2d":
+        k = int(args[0])
+        s = int(args[1]) if len(args) > 1 else k
+        p = int(args[2]) if len(args) > 2 else 0
+        return L.max_pool(inp, k, s, p)
     if op == "MP":
         k = int(args[0]) if args else 2
         return L.max_pool(inp, k, k, 0)
@@ -79,11 +128,7 @@ def apply_stateless_op(op: str, args, inp):
         s = int(args[1]) if len(args) > 1 else 1
         return L.max_pool(inp, k, s, k // 2)
     if op == "SPF":
-        k = int(args[0]) if args else 3
-        x = inp
-        for _ in range((k - 1) // 2):
-            x = L.max_pool(x, 3, 1, 1)
-        return x
+        return L.SPF(int(args[0]) if args else 3)(inp)
     if op == "ReOrg":
         return L.reorg(inp)
     raise NotImplementedError(f"stateless op {op!r}")
@@ -143,6 +188,21 @@ class YoloFace(nn.Module):
         raise RuntimeError("spec has no detection head as its last node")
 
 
+def compute_strides(spec: ModelSpec, img_size: int = 128
+                    ) -> Tuple[int, ...]:
+    """Derive the per-level strides from a shape-only forward on the meta
+    device (no weights, no arithmetic; the reference's stride computation,
+    models/yolo.py:345, and the JAX `compute_strides`) and write them back
+    into `spec`. A cfg whose pyramid does not start at P3 (a P4/P5 head)
+    needs it: the cfg parser assumes (8, 16, 32, ...)."""
+    spec.resolve()
+    with torch.device("meta"):
+        raws = YoloFace(spec)(torch.zeros(1, img_size, img_size,
+                                          spec.in_ch))
+    spec.strides = tuple(img_size // r.shape[2] for r in raws)
+    return spec.strides
+
+
 def cast_model(model: YoloFace, dtype: torch.dtype) -> YoloFace:
     """Cast a (BN-folded) model to `dtype` in place as the JAX
     `YoloFace(dtype=)` computes: every conv, its bias and the decode's
@@ -150,8 +210,10 @@ def cast_model(model: YoloFace, dtype: torch.dtype) -> YoloFace:
     package keeps float32 (ImplicitA/ImplicitM take no dtype). So in
     bf16 an implicit head's det conv sees bf16(x + ia), its output times
     im is float32, the concatenated raw maps are float32, and the decode
-    runs in float32; the kpt channels carry bf16 values. Returns
-    `model`."""
+    runs in float32; the kpt channels carry bf16 values. A plain
+    `Detect` head has no priors, so its raws and decode are bf16, as in
+    the JAX package. Every BatchNorm left after the fold (BottleneckCSP's
+    concat-fed affine) computes in `dtype` too. Returns `model`."""
     model.to(dtype)
     for mod in model.modules():
         if isinstance(mod, (L.ImplicitA, L.ImplicitM)):

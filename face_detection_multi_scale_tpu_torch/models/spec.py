@@ -1,17 +1,25 @@
-"""Model architecture specs and the graph/channel resolver (a copy of the
-JAX package's `Node`, `ModelSpec` and `resolve()`; framework-free).
+"""Model architecture specs, the graph/channel resolver and the cfg
+parser (a copy of the JAX package's `Node`, `ModelSpec`, `resolve()`,
+`spec_from_yolo_yaml` and `load_spec`; framework-free).
 
 A `ModelSpec` is a flat list of nodes with `from`-routing plus
 detection-head metadata. `resolve()` performs the channel arithmetic of the
 reference `parse_model` (reference models/yolo.py:475-535): width/depth
 multiples, make_divisible(c2 * gw, 8) rounding, per-op output-channel
 rules, and the savelist of outputs needed by later skip connections.
+
+`spec_from_yolo_yaml()` ingests the reference cfg/*.yaml dict format
+(module names like "Conv", "nn.Upsample", activation instances like
+"nn.LeakyReLU(0.1)"), so users of the reference bring their own configs
+unchanged; `load_spec(path)` reads such a file (PyYAML, imported there
+only).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Tuple, Union
+import os
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from face_detection_multi_scale_tpu_torch.utils.general import make_divisible
 
@@ -144,3 +152,66 @@ class ModelSpec:
         })
         self._resolved = True
         return self
+
+
+def _parse_yaml_module(name: str) -> str:
+    return {"nn.Upsample": "Upsample", "nn.BatchNorm2d": "BatchNorm",
+            "nn.MaxPool2d": "MaxPool2d",
+            "nn.ZeroPad2d": "ZeroPad2d"}.get(name, name)
+
+
+def _parse_yaml_arg(a: Any) -> Any:
+    """Translate reference YAML arg tokens: activation instances become
+    string tags; 'nearest'/None/numbers pass through."""
+    if isinstance(a, str):
+        if a.startswith("nn.LeakyReLU"):
+            return "leaky"
+        if a.startswith("nn.ReLU"):
+            return "relu"
+        if a.startswith("nn.SiLU"):
+            return "silu"
+        if a == "None":
+            return None
+    return a
+
+
+def spec_from_yolo_yaml(d: Dict[str, Any], name: str = "model",
+                        strides: Optional[Sequence[int]] = None
+                        ) -> ModelSpec:
+    """Build a resolved ModelSpec from a reference-format cfg dict
+    (nc/nkpt/depth_multiple/width_multiple/anchors/backbone/head rows of
+    [from, number, module, args]). Without `strides` the levels are taken
+    as P3 onwards, (8, 16, 32[, 64]); `models.model.compute_strides`
+    derives the real ones."""
+    anchors = tuple(tuple(float(v) for v in row) for row in d["anchors"])
+    if strides is None:
+        strides = tuple(8 * 2 ** i for i in range(len(anchors)))
+    nodes: List[Node] = []
+    for f, n, m, args in list(d["backbone"]) + list(d["head"]):
+        op = _parse_yaml_module(m)
+        args = [_parse_yaml_arg(a) for a in args]
+        if op in HEAD_OPS or op == "Upsample":
+            # head params come from the spec's fields; Upsample is always
+            # [None, 2, 'nearest'] in the model family
+            args = []
+        f = tuple(f) if isinstance(f, list) else f
+        nodes.append(Node(f=f, n=int(n), op=op, args=tuple(args)))
+    act = d.get("act")
+    return ModelSpec(
+        name=name, nc=int(d["nc"]), nkpt=int(d.get("nkpt", 0) or 0),
+        anchors=anchors, strides=tuple(strides), nodes=nodes,
+        depth_multiple=float(d.get("depth_multiple", 1.0)),
+        width_multiple=float(d.get("width_multiple", 1.0)),
+        dw_conv_kpt=bool(d.get("dw_conv_kpt", False)),
+        act=_parse_yaml_arg(act) if act else None).resolve()
+
+
+def load_spec(path: str, name: Optional[str] = None) -> ModelSpec:
+    """Load a reference-format YAML cfg file; the spec is named after the
+    file unless `name` is given."""
+    import yaml
+
+    with open(path) as f:
+        d = yaml.safe_load(f)
+    return spec_from_yolo_yaml(
+        d, name or os.path.splitext(os.path.basename(path))[0])

@@ -369,9 +369,44 @@ def test_fused_engine_on_card_matches_cpu_postprocess(cuda_device):
     assert dets.valid.any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,groups", [
+    ("yolov7-face", 8), ("yolov7s-face", 8), ("yolov7-lite-t", 0),
+    ("yolov7-lite-s", 0)])
+def test_new_models_on_card_match_cpu_postprocess(cuda_device, name, groups,
+                                                  dtype):
+    """The other four zoo models narrowed (width 0.25) on the card with
+    fuse_elan="pre:": one launch of the dtype's fused kernel per group and
+    engine call (none for the lite models, which serve unfused), one
+    nms_keep launch, and Detections equal to the CPU postprocess of the
+    same rows."""
+    spec = zoo.get_spec(name)
+    spec.width_multiple = 0.25
+    spec._resolved = False
+    det = FaceDetector(spec, img_sizes=(128,), conf_thres=0.01,
+                       max_candidates=512, fuse_elan="pre:", dtype=dtype,
+                       device=cuda_device)
+    assert len(det._elan_blocks) == groups
+    frames = np.random.default_rng(1).integers(0, 256, (4, 128, 128, 3),
+                                               dtype=np.uint8)
+    counts = (E.fused_elan.launches, E.fused_elan.bf16_launches,
+              K.nms_keep.launches)
+    dets = det.run_network(frames)
+    bf16 = dtype == torch.bfloat16
+    assert (E.fused_elan.launches, E.fused_elan.bf16_launches,
+            K.nms_keep.launches) == (counts[0] + groups * (not bf16),
+                                       counts[1] + groups * bf16,
+                                       counts[2] + 1)
+    rows = det.forward_rows(frames)
+    for got, want in zip(det.postprocess(rows), det.postprocess(rows.cpu())):
+        assert torch.equal(got.cpu(), want)
+    assert dets.valid.any()
+
+
 BF16_REL_TOL = 1e-2  # a few bf16 roundings apart (2^-8 each)
 # the cases of tests/test_fused_elan.py (GROUP_CASES of
-# tests/test_torch_fused_elan.py): ElanShape fields and the input's (h, w)
+# tests/test_torch_fused_elan.py), then the groups of the other zoo
+# models: ElanShape fields and the input's (h, w)
 GROUP_CASES = [
     dict(cin=12, ccv=8, cch=8, cout=16, n_chain=4,
          members=("y4", "y2", "b", "a")),
@@ -385,8 +420,22 @@ GROUP_CASES = [
          members=("y4", "y2", "b", "a"), pre_cin=6, pre_stride=2),
     dict(cin=8, ccv=8, cch=8, cout=8, n_chain=4, members=("y3", "b"),
          act="relu"),
+    # the groups of yolov7s-face and yolov7-face: channel counts that are
+    # no multiple of the kernel's 32-channel K chunk or 64-channel N tile,
+    # the absorbed stride-2 conv, and yolov7-face's widest group
+    dict(cin=56, ccv=32, cch=32, cout=104, n_chain=4,
+         members=("y4", "y2", "b", "a")),
+    dict(cin=216, ccv=104, cch=56, cout=104, n_chain=4,
+         members=("y4", "y3", "y2", "y1", "b", "a")),
+    dict(cin=416, ccv=208, cch=104, cout=208, n_chain=4,
+         members=("y4", "y3", "y2", "y1", "b", "a")),
+    dict(cin=56, ccv=32, cch=32, cout=104, n_chain=4,
+         members=("y4", "y2", "b", "a"), pre_cin=32, pre_stride=2),
+    dict(cin=1024, ccv=512, cch=256, cout=512, n_chain=4,
+         members=("y4", "y3", "y2", "y1", "b", "a")),
 ]
-GROUP_HW = [(16, 16), (16, 16), (16, 16), (16, 20), (32, 40), (12, 20)]
+GROUP_HW = [(16, 16), (16, 16), (16, 16), (16, 20), (32, 40), (12, 20),
+            (20, 24), (16, 16), (12, 20), (40, 48), (10, 10)]
 
 
 def bf16_inputs(shape, h, w, seed, device):
@@ -417,10 +466,29 @@ def check_bf16_group(x, ws, shape):
 
 
 @pytest.mark.parametrize("idx", range(len(GROUP_CASES)))
+def test_fused_elan_group_cases(cuda_device, idx):
+    """The float32 kernel on GROUP_CASES, within 1e-5 of max |plain| of
+    reference_elan through cuDNN with TF32 off, one launch each."""
+    shape = E.ElanShape(**GROUP_CASES[idx])
+    h, w = GROUP_HW[idx]
+    s = shape.pre_stride if shape.has_pre else 1
+    x, ws = elan_inputs(shape, h // s, w // s, seed=idx, device=cuda_device)
+    launches = E.fused_elan.launches
+    got = E.fused_elan(x, ws, shape)
+    torch.cuda.synchronize()
+    assert E.fused_elan.launches == launches + 1
+    with full_fp32():
+        want = E.reference_elan(x, ws, shape)
+    assert got.shape == want.shape
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err < 1e-5, err
+
+
+@pytest.mark.parametrize("idx", range(len(GROUP_CASES)))
 def test_fused_elan_bf16_group_cases(cuda_device, idx):
-    """The bf16 kernel on the shapes of the CPU tests' group cases
-    (narrow, ragged channel counts: 12 and 6 channels are no whole
-    16-byte run of bf16)."""
+    """The bf16 kernel on GROUP_CASES (ragged channel counts: 12 and 6
+    channels are no whole 16-byte run of bf16; 56, 104 and 216 no whole
+    K chunk or N tile)."""
     shape = E.ElanShape(**GROUP_CASES[idx])
     h, w = GROUP_HW[idx]
     s = shape.pre_stride if shape.has_pre else 1

@@ -95,11 +95,15 @@ def test_zoo_matches_jax_zoo():
             [dataclasses.astuple(n) for n in want.nodes], name
 
 
-@pytest.mark.parametrize("name", ["yolov7-w6-face", "yolov7-tiny-face"])
+@pytest.mark.parametrize("name", ["yolov7-w6-face", "yolov7-tiny-face",
+                                  "yolov7-face", "yolov7s-face",
+                                  "yolov7-lite-t", "yolov7-lite-s"])
 def test_bridge_round_trip(name):
     """Every JAX leaf lands in exactly one state-dict entry of the right
-    shape; the JAX package's own converter maps the result back to the
-    same tree, value for value."""
+    shape, and the keys are exactly the port model's (StemBlock's
+    `stem_1` stays whole; a repeated node's `model_{i}_{j}` becomes
+    `model.{i}.{j}`); the JAX package's own converter maps the result
+    back to the same tree, value for value."""
     spec_j, spec_t = narrowed(JZ, name), narrowed(TZ, name)
     variables = random_variables(spec_j, seed=0)
     state = jax_to_state_dict(variables)
@@ -192,7 +196,13 @@ def test_seeded_init_is_deterministic_and_follows_jax_priors():
 
 
 def test_unported_ops_raise_naming_the_op():
-    for name, op in [("yolov7-face", "SPPFCSPC"), ("yolov7s-face", "SPPF"),
-                     ("yolov7-lite-t", "StemBlock")]:
+    """Every zoo model builds; a spec with an op of the JAX package's
+    layers_extra.py (not ported) raises naming the op."""
+    for name in TZ.available():
+        TM.YoloFace(TZ.get_spec(name))
+    for op, args in [("GhostConv", (64, 3, 2)), ("C3TR", (64,)),
+                     ("CrossConv", (64, 3, 1))]:
+        spec = TZ.get_spec("yolov7-tiny-face")
+        spec.nodes[1] = Node(0, 1, op, args)
         with pytest.raises(NotImplementedError, match=op):
-            TM.YoloFace(TZ.get_spec(name))
+            TM.YoloFace(spec)
