@@ -121,14 +121,44 @@ Phases, each fatal on failure (nothing is caught to carry on):
      unfused bf16 card forward (bf16); with True, the kernel's ms summed
      over the groups (CUDA events) beside the same groups' cuDNN modules,
      their plain version and the bound
- 15. one JSON line with every kernel's launches, error, times and bound;
+ 15. predict: FaceDetector("yolov7-w6-face") with phase 4's seeded
+     weights, then hub.create("yolov7-lite-s"): det([a, b]) on two
+     640x640 and det(c) on one 512x640 uint8 RGB array (already at the
+     common rectangle, so no OpenCV): one nms_keep launch a call, nothing
+     else; `s` the common rectangle; each image's rows equal to the CPU
+     postprocess of the rows the card's engine saw (captured), through
+     the same inverse letterbox; res.t and the call's ms printed
+ 16. non_max_suppression_from_raws: w6 b8@640 raws in the JAX conv layout
+     (reshape_heads=False), float32 and bf16, K = 2048 (the JAX default);
+     max_det = K; the gate and IoU threshold where no decision differs
+     between the card's and the CPU's decoded values (`decisive_settings`:
+     random weights put most conf values within ulps of one another, and
+     the sigmoids differ by an ulp between the devices); one nms_keep
+     launch; the CPU version on the same raws gives the same n_gated and
+     valid counts and the same kept rows within atol 1e-3 / rtol 1e-5,
+     and so does the card's decode + non_max_suppression; ms of both
+     routes
+ 17. agnostic= and merge_nms_boxes: seeded nc = 3 rows at B = 8, N =
+     25,500 through non_max_suppression(agnostic=False/True): one nms_keep
+     launch each, Detections equal to the CPU's bit for bit; then
+     merge_nms_boxes on phase 16's w6 Detections within 1e-5 of max |box|
+     of the CPU
+ 18. forward_augment and forward_flip_test of the w6 model at b2@640:
+     rows within phase 4's forward tolerance of the CPU's, then
+     non_max_suppression (one nms_keep launch), Detections equal to the
+     CPU postprocess of the card's rows
+ 19. EnsembleDetector((w6, tiny)) at b8@640, N = 50,700 rows: one nms_keep
+     launch and no fused_elan launch a run_network; Detections equal to
+     the CPU postprocess of the concatenated rows its NMS got
+ 20. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
      of 16 blocks; fused_elan_bf16 beside fused_elan; `launches` sums
-     every counted path's run, `launches_by_path` splits it, and the
-     fused entries' `by_model` hold the yolov7-face and yolov7s-face group
-     sums
- 16. the last line: {"ok": true, "device": {...}}
+     every counted path's run, `launches_by_path` splits it,
+     `api_launches` holds phases 15-19's counted calls (nms_keep's
+     `launches` includes them), and the fused entries' `by_model` hold
+     the yolov7-face and yolov7s-face group sums
+ 21. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
@@ -150,12 +180,19 @@ import time
 import numpy as np
 import torch
 
+from face_detection_multi_scale_tpu_torch.data import letterbox as LB
+from face_detection_multi_scale_tpu_torch.infer import augment as AUG
 from face_detection_multi_scale_tpu_torch.infer import device_preprocess as DP
+from face_detection_multi_scale_tpu_torch.infer import ensemble as ENS
 from face_detection_multi_scale_tpu_torch.infer import tiling
 from face_detection_multi_scale_tpu_torch import hub
 from face_detection_multi_scale_tpu_torch.infer.detector import (
     FaceDetector, full_fp32)
+from face_detection_multi_scale_tpu_torch.infer.results import Detections
 from face_detection_multi_scale_tpu_torch.models import fused as FUSED
+from face_detection_multi_scale_tpu_torch.models.head import (
+    decode, reshape_level)
+from face_detection_multi_scale_tpu_torch.ops.boxes import box_iou
 from face_detection_multi_scale_tpu_torch.ops import elan_kernel as E
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
@@ -189,6 +226,15 @@ TTA_SIZES = (640, 3840)  # the JAX FaceDetector's default pyramid
 TTA_FRAMES, TTA_HW = 2, (1080, 1920)  # video frames of the production pipeline
 TILE_GRID, TILE_HALO, TILE_MIN = 2, 256, 2048  # the JAX tiling example
 TIMING_ROUNDS = 3
+API_K = 2048  # max_candidates of phases 15-19 (JAX from_raws' default)
+API_ROUNDS = 3  # timed repeats of each phase 15-19 call (host clock)
+MERGE_REL_TOL = 1e-5  # merge_nms_boxes card vs CPU, of max |box|
+# raws -> Detections card vs CPU: the sigmoids differ by ulps, so boxes
+# (up to ~1000 px through (2 sigmoid)^2 * anchor) by ~1e-4 px at most
+RAWS_TOL = dict(atol=1e-3, rtol=1e-5)
+# each counted call of phases 15-19: {tag: {"seq": n, "fixpoint": n,
+# "fused": n}}
+API_LAUNCHES = {}
 T_START = time.perf_counter()
 
 
@@ -407,6 +453,16 @@ def card_raws(det: FaceDetector, frames: np.ndarray):
     return [r.float().cpu() for r in det._forward(x)]
 
 
+def set_gate(det: FaceDetector, batch: np.ndarray) -> None:
+    """A gate low enough that the busiest frame of `batch` overfills the
+    detector's K: random weights put conf near 1e-3 at stride 8 and near
+    0.25 on the rows that the reference's anchor-major view fills from the
+    kpt conv."""
+    rows = det.forward_rows(batch)
+    conf = (rows[..., 4] * rows[..., 5]).sort(dim=1, descending=True)[0]
+    det.conf_thres = float(conf[:, 3 * det.max_candidates // 2].max())
+
+
 def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
                fuse_elan=False, requests=None, ref=None,
                dtype=torch.float32, ref_raws=None):
@@ -426,12 +482,7 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
                        iou_thres=0.5, max_candidates=MAX_CANDIDATES,
                        seed=seed, fuse_elan=fuse_elan, dtype=dtype,
                        device="cuda")
-    # a gate low enough that the busiest frame overfills K: random weights
-    # put conf near 1e-3 at stride 8 and near 0.25 on the rows that the
-    # reference's anchor-major view fills from the kpt conv
-    rows = det.forward_rows(frames[0])
-    conf = (rows[..., 4] * rows[..., 5]).sort(dim=1, descending=True)[0]
-    det.conf_thres = float(conf[:, 3 * MAX_CANDIDATES // 2].max())
+    set_gate(det, frames[0])
     det.warmup(SIZE, BATCH)
 
     K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
@@ -1031,6 +1082,388 @@ def drive_new_models(smi: str):
     return worst, sums
 
 
+# ---------------------------------------------------------------------------
+# phases 15-19: the inference API (predict, the other NMS entry points,
+# augment, the ensemble)
+# ---------------------------------------------------------------------------
+
+def counted(tag: str, fn):
+    """fn() with every launch counter zeroed just before and read just
+    after; the counts go into API_LAUNCHES[tag]. Returns (fn(), its
+    host-clock ms)."""
+    K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
+    E.fused_elan.launches = E.fused_elan.bf16_launches = 0
+    out, ms = timed(fn)
+    API_LAUNCHES[tag] = {"seq": K.nms_keep.launches,
+                         "fixpoint": K.nms_keep.fixpoint_launches,
+                         "fused": E.fused_elan.launches
+                         + E.fused_elan.bf16_launches}
+    return out, ms
+
+
+def check_launches(tag: str, seq: int) -> None:
+    got = API_LAUNCHES[tag]
+    check(got == {"seq": seq, "fixpoint": 0, "fused": 0},
+          f"{tag}: launches {got}, want {seq} nms_keep and nothing else")
+
+
+def match_rows(got: np.ndarray, want: np.ndarray, tol: dict, what: str):
+    """Equal row counts, then each card row paired with the nearest CPU
+    row (box and score), one to one, within `tol`; returns the worst
+    |diff|."""
+    check(got.shape == want.shape, f"{what}: rows {got.shape} against "
+                                   f"{want.shape}")
+    if not len(got):
+        return 0.0
+    pair = np.abs(got[:, None, :5] - want[None, :, :5]).max(-1).argmin(1)
+    check(len(set(pair.tolist())) == len(pair), f"{what}: rows pair up "
+                                                f"twice")
+    err = np.abs(got - want[pair])
+    check(bool(np.isfinite(got).all()) and bool(
+        (err <= tol["atol"] + tol["rtol"] * np.abs(want[pair])).all()),
+        f"{what}: rows beyond {tol}, max |diff| {err.max():.3g}")
+    return float(err.max())
+
+
+def conv_to_levels(raws, spec):
+    """Conv-layout raws (B, ny, nx, na*no) -> the (B, na, ny, nx, no)
+    levels `decode` takes."""
+    return [reshape_level(r.permute(0, 3, 1, 2), spec.na, spec.no)
+            for r in raws]
+
+
+def decisive_settings(rows_card: torch.Tensor, rows_cpu: torch.Tensor,
+                      k: int):
+    """(conf_thres, iou_thres) at which the card's and the CPU's decoded
+    rows (B, N, no) of the same raws, whose sigmoids differ by an ulp on
+    some rows, make every decision of the postprocess alike:
+
+    - the gate is a midpoint of a gap of the UNION of both devices' conf
+      values, so no row is gated on one device only; it gates at most K
+      rows of any image, so no top-K cut decides;
+    - the IoU threshold is the midpoint of the widest gap in [0.4, 0.6] of
+      the union of both devices' IoUs over the gated pairs, so no
+      suppression test differs;
+    - the greedy scan depends on the order only between candidates that
+      suppress one another, and random weights put many conf values
+      within ulps of each other: the gate is the lowest at which every
+      such pair is ordered alike on both devices (stable descending
+      sorts). Fewer gated rows keep that, so a binary search finds it.
+
+    With max_det >= K the kept candidates are then the same on both
+    devices."""
+    dev = rows_card.device
+    rows_cpu = rows_cpu.to(dev)
+    conf = [(r[..., 4] * r[..., 5]).float() for r in (rows_card, rows_cpu)]
+    xyxy = [torch.cat([r[..., :2] - r[..., 2:4] / 2,
+                       r[..., :2] + r[..., 2:4] / 2], -1).float()
+            for r in (rows_card, rows_cpu)]
+    u = torch.cat([c.flatten() for c in conf]).unique().double()
+    mid = ((u[:-1] + u[1:]) / 2).float()
+    cands = mid[(mid.double() > u[:-1]) & (mid.double() < u[1:])].flip(0)
+    asc = conf[1].sort(dim=1)[0]
+    busiest = torch.stack([asc.shape[1] - torch.searchsorted(
+        a.contiguous(), cands, right=True) for a in asc]).amax(0)
+    last = int((busiest <= k).nonzero().max())  # the lowest gate <= K rows
+    ious = []
+    gated = conf[1] > float(cands[last])
+    for xy in xyxy:
+        for b in range(len(xy)):
+            iou = box_iou(xy[b][gated[b]], xy[b][gated[b]])
+            ious.append(iou[(iou > 0.4) & (iou < 0.6)].double())
+    band = torch.cat(ious + [torch.tensor([0.4, 0.6], dtype=torch.float64,
+                                          device=dev)]).unique()
+    g = int(torch.diff(band).argmax())
+    iou_thres = float((band[g] + band[g + 1]) / 2)
+
+    def alike(t: float) -> bool:
+        for b in range(len(conf[0])):
+            sel = conf[1][b] > t
+            pos = []
+            for c in conf:
+                order = torch.sort(c[b][sel], descending=True,
+                                   stable=True)[1]
+                p = torch.empty_like(order)
+                p[order] = torch.arange(len(order), device=dev)
+                pos.append(p)
+            clash = box_iou(xyxy[1][b][sel], xyxy[1][b][sel]) > iou_thres
+            before = [p[:, None] < p[None, :] for p in pos]
+            if bool((clash & (before[0] != before[1])).any()):
+                return False
+        return True
+
+    good, bad = 0, last + 1  # cands[good] keeps the order, cands[bad] not
+    check(alike(float(cands[0])), "the top conf values already order "
+                                  "clashing candidates differently")
+    if alike(float(cands[last])):
+        good = last
+    while bad - good > 1:
+        m = (good + bad) // 2
+        good, bad = (m, bad) if alike(float(cands[m])) else (good, m)
+    return float(cands[good]), iou_thres
+
+
+def check_predict(det: FaceDetector, tag: str, smi: str, seed: int) -> None:
+    """Phase 15 for one detector: det([a, b]) on two 640x640 RGB arrays
+    and det(c) on one 512x640 array (already at the common rectangle, so
+    no OpenCV), each one counted call; the rows in each image's frame
+    equal to the CPU postprocess of the rows the card's engine saw, put
+    through the same inverse letterbox; `s` as the common rectangle."""
+    rng = np.random.default_rng(seed)
+    a, b = rng.integers(0, 256, (2, SIZE, SIZE, 3), dtype=np.uint8)
+    c = rng.integers(0, 256, (SIZE * 4 // 5, SIZE, 3), dtype=np.uint8)
+    set_gate(det, np.stack([a, b]))
+    det.predict([a, b], size=SIZE)  # warm-up
+    for batch, want_s in (([a, b], (2, SIZE, SIZE, 3)),
+                          (c, (1, SIZE * 4 // 5, SIZE, 3))):
+        seen = []
+        post = det.postprocess
+        det.postprocess = lambda rows: seen.append(rows) or post(rows)
+        try:
+            call = f"{tag} predict {want_s[0]}x{want_s[1]}x{want_s[2]}"
+            res, ms = counted(call, lambda: det(batch, size=SIZE))
+        finally:
+            del det.postprocess
+        check_launches(call, 1)
+        check(isinstance(res, Detections) and res.s == want_s
+              and len(res) == want_s[0], f"{call}: s {res.s}, want "
+                                         f"{want_s}")
+        want = NMS.detections_to_numpy(det.postprocess(seen[0].cpu()))
+        kept = []
+        for got, w in zip(res.pred, want):
+            w = w[:, :6].astype(np.float64)
+            if len(w):
+                LB.scale_coords(want_s[1:3], w[:, :4], want_s[1:3])
+            check(np.array_equal(got, w), f"{call}: rows differ from the "
+                                          f"CPU postprocess")
+            kept.append(len(got))
+        times = [timed(lambda: det(batch, size=SIZE))[1]
+                 for _ in range(API_ROUNDS)]
+        print(f"{call} on {smi}: kept {kept}, t (pre, inference, NMS ms "
+              f"an image) {[round(t, 3) for t in res.t]}, call ms "
+              f"{[round(ms, 3)] + [round(t, 3) for t in times]}, nms_keep "
+              f"launches {API_LAUNCHES[call]['seq']}; rows == CPU "
+              f"postprocess")
+
+
+def drive_predict(smi: str) -> None:
+    """Phase 15: predict on w6 and on hub.create("yolov7-lite-s")."""
+    det = FaceDetector("yolov7-w6-face", img_sizes=(SIZE,), iou_thres=0.5,
+                       max_candidates=API_K, seed=0, device="cuda")
+    check_predict(det, "w6", smi, seed=20)
+    del det
+    hub_det = hub.create("yolov7-lite-s", max_candidates=API_K, seed=6)
+    check(hub_det.device.type == "cuda", "hub.create: not on the card")
+    check_predict(hub_det, "hub.create(yolov7-lite-s)", smi, seed=21)
+    del hub_det
+    torch.cuda.empty_cache()
+    stamp("phase 15 (predict) done")
+
+
+def drive_from_raws(smi: str, batch: np.ndarray):
+    """Phase 16: w6 b8@640 conv-layout raws (reshape_heads=False) in
+    float32 and bf16 through non_max_suppression_from_raws on the card
+    (max_det = K), against the same function on the same raws on the CPU
+    (same n_gated and valid counts, the same kept candidates within
+    RAWS_TOL) and against the card's decode + non_max_suppression at the
+    same K, under `decisive_settings`. Returns the w6 float32 Detections
+    of decode + non_max_suppression, the candidates they came from and the
+    IoU threshold, for phase 17."""
+    out = None
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "w6" + (" bf16" if dtype == torch.bfloat16 else "")
+        det = FaceDetector("yolov7-w6-face", img_sizes=(SIZE,),
+                           max_candidates=API_K, seed=0, dtype=dtype,
+                           device="cuda")
+        spec = det.spec
+        x = torch.as_tensor(batch).cuda().to(dtype) / 255.0
+        raws = det._forward(x, reshape_heads=False)
+        check([tuple(r.shape) for r in raws] == [
+            (BATCH, SIZE // s, SIZE // s, spec.na * spec.no)
+            for s in spec.strides], f"{tag}: conv-layout raw shapes")
+        raws_cpu = [r.cpu() for r in raws]
+        with torch.inference_mode():
+            rows = decode(conv_to_levels(raws, spec), spec)
+            rows_cpu = decode(conv_to_levels(raws_cpu, spec), spec)
+        conf, iou = decisive_settings(rows, rows_cpu, API_K)
+        run = lambda: NMS.non_max_suppression_from_raws(  # noqa: E731
+            raws, spec, conf, iou, max_candidates=API_K, max_det=API_K)
+        run()  # warm-up
+        call = f"{tag} non_max_suppression_from_raws"
+        got, ms = counted(call, run)
+        check_launches(call, 1)
+        want = NMS.non_max_suppression_from_raws(
+            raws_cpu, spec, conf, iou, max_candidates=API_K, max_det=API_K)
+        std_run = lambda: NMS.non_max_suppression(  # noqa: E731
+            rows, conf, iou, nc=spec.nc, max_candidates=API_K,
+            max_det=API_K)
+        std = std_run()
+        worst = {}
+        for label, ref in (("CPU", want), ("decode + non_max_suppression",
+                                           std)):
+            check(torch.equal(got.n_gated.cpu(), ref.n_gated.cpu())
+                  and torch.equal(got.valid.sum(1).cpu(),
+                                  ref.valid.sum(1).cpu()),
+                  f"{call}: n_gated / valid counts differ from the {label}'s")
+            worst[label] = max(
+                match_rows(g, w, RAWS_TOL, f"{call} vs {label}")
+                for g, w in zip(NMS.detections_to_numpy(got),
+                                NMS.detections_to_numpy(ref)))
+        ms_raws = sorted(timed(run)[1] for _ in range(API_ROUNDS))
+        ms_std = sorted(timed(std_run)[1] for _ in range(API_ROUNDS))
+        ms_dec = sorted(timed(lambda: decode(conv_to_levels(raws, spec),
+                                             spec))[1]
+                        for _ in range(API_ROUNDS))
+        print(f"{call} b{BATCH}@{SIZE} K={API_K} on {smi}: conf_thres "
+              f"{conf:.9g}, iou_thres {iou:.9g}, n_gated "
+              f"{got.n_gated.tolist()}, kept {got.valid.sum(1).tolist()}; "
+              f"max |diff| vs the CPU {worst['CPU']:.3g}, vs decode + "
+              f"non_max_suppression "
+              f"{worst['decode + non_max_suppression']:.3g} (bound "
+              f"{RAWS_TOL}); ms {[round(t, 3) for t in [ms] + ms_raws]} "
+              f"against decode {ms_dec[1]:.3f} + non_max_suppression "
+              f"{ms_std[1]:.3f} (medians of {API_ROUNDS}); nms_keep "
+              f"launches {API_LAUNCHES[call]['seq']}")
+        if dtype == torch.float32:
+            cand = NMS._gather_candidates_planar(rows, nc=spec.nc,
+                                                 conf_thres=conf, k=API_K)
+            out = (std, cand, iou)
+        del det, raws, rows
+        torch.cuda.empty_cache()
+    stamp("phase 16 (non_max_suppression_from_raws) done")
+    return out
+
+
+def drive_agnostic_merge(smi: str, w6_dets) -> None:
+    """Phase 17: seeded nc = 3 decoded rows at B = 8, N = 25,500 through
+    non_max_suppression(agnostic=False/True) on the card, each equal to
+    the CPU's bit for bit; then merge_nms_boxes on phase 16's w6
+    Detections and their gated top-K candidates, within MERGE_REL_TOL of
+    max |box| of the CPU."""
+    rng = np.random.default_rng(30)
+    n = 25500
+    centers = rng.uniform(0, SIZE, (BATCH, 64, 2))
+    cxy = np.take_along_axis(centers, rng.integers(0, 64, (BATCH, n, 1)),
+                             1) + rng.normal(0, 12, (BATCH, n, 2))
+    pred = np.concatenate([cxy, rng.uniform(8, 120, (BATCH, n, 2)),
+                           rng.uniform(0, 1, (BATCH, n, 4)),
+                           rng.uniform(0, SIZE, (BATCH, n, 15))], -1)
+    pred = torch.from_numpy(pred.astype(np.float32))
+    pred_card = pred.cuda()
+    for agnostic in (False, True):
+        run = lambda: NMS.non_max_suppression(  # noqa: E731
+            pred_card, 0.3, 0.45, nc=3, max_candidates=API_K,
+            agnostic=agnostic)
+        run()
+        call = f"nc=3 non_max_suppression agnostic={agnostic}"
+        got, ms = counted(call, run)
+        check_launches(call, 1)
+        want = NMS.non_max_suppression(pred, 0.3, 0.45, nc=3,
+                                       max_candidates=API_K,
+                                       agnostic=agnostic)
+        check(same_detections(got, want), f"{call}: card Detections "
+                                          f"differ from the CPU's")
+        times = [timed(run)[1] for _ in range(API_ROUNDS)]
+        print(f"{call} b{BATCH} N={n} K={API_K} on {smi}: kept "
+              f"{got.valid.sum(1).tolist()}, n_gated "
+              f"{got.n_gated.tolist()}, ms "
+              f"{[round(t, 3) for t in [ms] + times]}"
+              f"; Detections == CPU, bit for bit")
+    dets, (boxes, conf, _, _, valid, _, _), iou = w6_dets
+    all_conf = torch.where(valid, conf, torch.zeros_like(conf))
+    merged, ms = timed(lambda: NMS.merge_nms_boxes(dets, boxes, all_conf,
+                                                   iou))
+    want = NMS.merge_nms_boxes(NMS.Detections(*(
+        t.cpu() for t in dets[:5]), dets.n_gated.cpu()), boxes.cpu(),
+        all_conf.cpu(), iou)
+    scale = float(want.boxes.abs().max())
+    err = float((merged.boxes.cpu() - want.boxes).abs().max())
+    check(bool(torch.isfinite(merged.boxes).all())
+          and err <= MERGE_REL_TOL * scale,
+          f"merge_nms_boxes: card off the CPU by {err:.3g}, beyond "
+          f"{MERGE_REL_TOL} of max |box| {scale:.4g}")
+    print(f"merge_nms_boxes on the w6 Detections (B={BATCH}, max_det "
+          f"{dets.boxes.shape[1]}, K={boxes.shape[1]}) on {smi}: max |diff| "
+          f"{err:.3g} ({err / scale:.3g} of max |box|), {ms:.3f} ms")
+    stamp("phase 17 (agnostic=, merge_nms_boxes) done")
+
+
+def drive_augment(smi: str, frames: np.ndarray) -> None:
+    """Phase 18: forward_augment and forward_flip_test of the w6 model at
+    b2@640 on the card, their rows within phase 4's forward tolerance of
+    the CPU's; then non_max_suppression of the card's rows (one counted
+    keep-mask launch), equal to the CPU postprocess of those rows."""
+    det = FaceDetector("yolov7-w6-face", img_sizes=(SIZE,),
+                       max_candidates=API_K, seed=0, device="cuda")
+    cpu = FaceDetector("yolov7-w6-face", img_sizes=(SIZE,), seed=0,
+                       device="cpu")
+    x = torch.as_tensor(frames[:2]).float() / 255.0
+    for name, fn in (("forward_augment", AUG.forward_augment),
+                     ("forward_flip_test", AUG.forward_flip_test)):
+        fn(det.model, x.cuda())  # warm-up
+        rows, ms = timed(lambda: fn(det.model, x.cuda()))
+        rows_within(rows.cpu(), fn(cpu.model, x), f"w6 {name} b2@{SIZE}: "
+                                                  f"card vs CPU")
+        conf = (rows[..., 4] * rows[..., 5]).sort(dim=1, descending=True)[0]
+        thr = float(conf[:, 3 * API_K // 2].max())
+        call = f"w6 {name} + non_max_suppression"
+        dets, nms_ms = counted(call, lambda: NMS.non_max_suppression(
+            rows, thr, 0.5, max_candidates=API_K))
+        check_launches(call, 1)
+        check(same_detections(dets, NMS.non_max_suppression(
+            rows.cpu(), thr, 0.5, max_candidates=API_K)),
+            f"{call}: card Detections differ from the CPU postprocess")
+        print(f"w6 {name} b2@{SIZE} on {smi}: rows {tuple(rows.shape)}, "
+              f"{ms:.3f} ms, then non_max_suppression {nms_ms:.3f} ms "
+              f"(conf_thres {thr:.6g}, kept {dets.valid.sum(1).tolist()}, "
+              f"nms_keep launches {API_LAUNCHES[call]['seq']}); Detections "
+              f"== CPU postprocess")
+    del det, cpu
+    torch.cuda.empty_cache()
+    stamp("phase 18 (forward_augment, forward_flip_test) done")
+
+
+def drive_ensemble(smi: str, frames: np.ndarray) -> None:
+    """Phase 19: EnsembleDetector over (w6, tiny) at b8@640: one counted
+    run_network (N = 50,700 rows, one keep-mask launch, no fused_elan),
+    its Detections equal to the CPU postprocess of the concatenated rows
+    the card's NMS got (captured)."""
+    members = [FaceDetector(name, img_sizes=(SIZE,), max_candidates=API_K,
+                            seed=seed, device="cuda")
+               for name, seed in (("yolov7-w6-face", 0),
+                                  ("yolov7-tiny-face", 1))]
+    set_gate(members[0], frames)
+    ens = ENS.EnsembleDetector(members)
+    ens.run_network(frames)  # warm-up
+    seen = []
+    nms = ENS.NMS.non_max_suppression
+    ENS.NMS.non_max_suppression = lambda pred, *a, **kw: (
+        seen.append(pred) or nms(pred, *a, **kw))
+    try:
+        call = "ensemble(w6, tiny) run_network"
+        got, ms = counted(call, lambda: ens.run_network(frames))
+    finally:
+        ENS.NMS.non_max_suppression = nms
+    check_launches(call, 1)
+    rows = seen[0]
+    check(tuple(rows.shape[:2]) == (BATCH, 25500 + 25200),
+          f"{call}: rows {tuple(rows.shape)}, want N = 50,700")
+    want = NMS.non_max_suppression(rows.cpu(), ens.conf_thres,
+                                   ens.iou_thres, nc=ens.spec.nc,
+                                   max_candidates=API_K)
+    check(same_detections(got, want), f"{call}: card Detections differ "
+                                      f"from the CPU postprocess")
+    times = [timed(lambda: ens.run_network(frames))[1]
+             for _ in range(API_ROUNDS)]
+    print(f"{call} b{BATCH}@{SIZE} on {smi}: N = {rows.shape[1]}, n_gated "
+          f"{got.n_gated.tolist()}, kept {got.valid.sum(1).tolist()}, ms "
+          f"{[round(t, 3) for t in [ms] + times]}, nms_keep launches "
+          f"{API_LAUNCHES[call]['seq']}; Detections == CPU postprocess")
+    del ens, members
+    torch.cuda.empty_cache()
+    stamp("phase 19 (EnsembleDetector) done")
+
+
 def group_entry(s):
     """The time fields of a kernels-line entry from check_groups' sums."""
     return {"ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -1131,6 +1564,18 @@ def main() -> None:
 
     # phases 12-14: the other four zoo models
     new_worst, new_sums = drive_new_models(smi)
+
+    # phases 15-19: the inference API on the card
+    drive_predict(smi)
+    w6_dets = drive_from_raws(smi, frames[w6][0])
+    drive_agnostic_merge(smi, w6_dets)
+    del w6_dets
+    drive_augment(smi, frames[w6][0])
+    drive_ensemble(smi, frames[w6][1])
+    check(all(c["fixpoint"] == 0 and c["fused"] == 0
+              for c in API_LAUNCHES.values()), f"phases 15-19 launched a "
+          f"kernel other than nms_keep: {API_LAUNCHES}")
+    api_seq = sum(c["seq"] for c in API_LAUNCHES.values())
     for d, acc in ((torch.float32, elan), (bf16, bf16_elan)):
         acc["abs"] = max(acc["abs"], new_worst[d][0])
         acc["rel"] = max(acc["rel"], new_worst[d][1])
@@ -1151,7 +1596,7 @@ def main() -> None:
     plain_ms = cuda_ms(lambda: K.nms_keep_plain(boxes, valid, thr), 5)
     for version, name, line, launches, iters in (
             ("seq", "nms_keep", 94,
-             total["seq"] + tta_launches + tiled_launches, 20),
+             total["seq"] + tta_launches + tiled_launches + api_seq, 20),
             ("fixpoint", "nms_keep_fixpoint", 35, fixpoint_launches, 20)):
         got = K.nms_keep(boxes, valid, thr, kernel_version=version)
         err = int((got.int() - want.int()).abs().max())
@@ -1180,6 +1625,10 @@ def main() -> None:
             "serving_launches": total[version],
             "launches_by_path": {tag: c[version] for tag, c in
                                  PATH_LAUNCHES.items()},
+            # phases 15-19: predict, from_raws, agnostic=, augment and
+            # the ensemble, one entry a counted call
+            "api_launches": {tag: c[version] for tag, c in
+                             API_LAUNCHES.items()},
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
     b, k = valid.shape
     dense_ms = b * k * k / 2 * OPS_PER_IOU / F32_OPS_PER_S * 1e3

@@ -31,9 +31,11 @@ def letterbox(img: np.ndarray, new_shape=(640, 640), color=PAD_COLOR,
     round(pad +/- 0.1) split of odd padding and the ``auto`` stride-minimal
     rectangle mode.
     Returns (image, (rw, rh) ratio, (dw, dh) per-side padding).
-    """
-    import cv2
 
+    cv2 is imported only to resize or to pad: an image already at the
+    target shape comes back as a copy without it (cv2.copyMakeBorder
+    with four zero pads is a copy), so that case runs without OpenCV.
+    """
     shape = img.shape[:2]  # current (h, w)
     if isinstance(new_shape, int):
         new_shape = (new_shape, new_shape)
@@ -57,11 +59,16 @@ def letterbox(img: np.ndarray, new_shape=(640, 640), color=PAD_COLOR,
     dh /= 2
 
     if shape[::-1] != new_unpad:
+        import cv2
         img = cv2.resize(img, new_unpad, interpolation=cv2.INTER_LINEAR)
     top, bottom = int(round(dh - 0.1)), int(round(dh + 0.1))
     left, right = int(round(dw - 0.1)), int(round(dw + 0.1))
-    img = cv2.copyMakeBorder(img, top, bottom, left, right,
-                             cv2.BORDER_CONSTANT, value=color)
+    if top or bottom or left or right:
+        import cv2
+        img = cv2.copyMakeBorder(img, top, bottom, left, right,
+                                 cv2.BORDER_CONSTANT, value=color)
+    else:
+        img = img.copy()
     return img, ratio, (dw, dh)
 
 

@@ -11,7 +11,9 @@ the host-side inverse letterbox. The TTA pyramid (`detect_multi_scale`)
 runs every scale and merges them with the scale-weighted NMS, whose keep
 mask goes through the same kernel. A giant scale can run as one batch of
 halo'd tiles (`tile_top_scale`, infer/tiling.py), and a large batch as a
-loop over chunks (`micro_batch`).
+loop over chunks (`micro_batch`). `predict` (also `__call__`) is the hub
+surface: any image input, one common letterboxed rectangle, one engine
+call, an infer/results.py `Detections` object.
 
 PyTorch runs eagerly, so there is no per-shape executable to cache.
 Preprocessing (letterbox / pad-to-square) stays on the host in cv2 for
@@ -27,6 +29,7 @@ import dataclasses
 import os
 import time
 import warnings
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -47,7 +50,8 @@ from face_detection_multi_scale_tpu_torch.models.model import (
     YoloFace, cast_model, compute_strides, init_weights)
 from face_detection_multi_scale_tpu_torch.models.spec import ModelSpec
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
-from face_detection_multi_scale_tpu_torch.utils.general import check_img_size
+from face_detection_multi_scale_tpu_torch.utils.general import (
+    check_img_size, make_divisible)
 
 
 @contextlib.contextmanager
@@ -96,9 +100,13 @@ class FaceDetector:
     `detections_to_numpy` returns float32. Any other dtype raises
     NotImplementedError.
 
-    Args mirror the JAX FaceDetector: `variables` is either a JAX-layout
-    variables tree of numpy arrays (carried over by the weight bridge,
-    models/convert.py) or a torch state dict with reference key names;
+    Args mirror the JAX FaceDetector, in its order (then `device`), so a
+    positional call builds the same serving mode in both packages.
+    `mesh` must be None: the data-parallel branch over cards is not
+    ported and a mesh raises NotImplementedError. `variables` is either
+    a JAX-layout variables tree of numpy arrays (carried over by the
+    weight bridge, models/convert.py) or a torch state dict with
+    reference key names;
     `torch_weights` is the path of a local checkpoint that replaces
     `variables`: a reference `.pt` (EMA preferred) or the JAX package's
     flat inference `.npz`. With neither, weights are the seeded init
@@ -135,12 +143,17 @@ class FaceDetector:
                  use_api_preprocess: bool = False,
                  dtype: torch.dtype = torch.float32, max_det: int = 300,
                  max_candidates: int = 4096, seed: int = 0,
-                 fuse: bool = True, fuse_elan: Union[bool, str] = False,
+                 mesh=None, fuse: bool = True,
                  use_device_preprocess: bool = False,
+                 fuse_elan: Union[bool, str] = False,
                  micro_batch: Optional[int] = None,
                  tile_top_scale: Union[bool, int] = False,
                  tile_halo: int = 256, tile_min_size: int = 2048,
                  device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "FaceDetector: mesh= (data parallel over cards) is not "
+                "ported yet (ROADMAP queue 1, module 7)")
         if dtype not in DTYPES.values():
             raise NotImplementedError(
                 f"FaceDetector: dtype {dtype} is not ported (float32 and "
@@ -263,15 +276,17 @@ class FaceDetector:
         return decode(self._forward(x), self.spec)
 
     @torch.inference_mode()
-    def _forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def _forward(self, x: torch.Tensor,
+                 reshape_heads: bool = True) -> List[torch.Tensor]:
         """The network of every engine call (the JAX `_forward`): the
         model, or the fused-ELAN executor with `fuse_elan`; raw per-level
-        maps."""
+        maps (with `reshape_heads=False` in the conv layout (bs, ny, nx,
+        na*no), the input of `NMS.non_max_suppression_from_raws`)."""
         with full_fp32():
             if self._elan_blocks:
                 return fused_apply(self.model, x, self._elan_blocks,
-                                   self._elan_weights)
-            return self.model(x)
+                                   self._elan_weights, reshape_heads)
+            return self.model(x, reshape_heads)
 
     @torch.inference_mode()
     def postprocess(self, preds: torch.Tensor) -> NMS.Detections:
@@ -606,6 +621,185 @@ class FaceDetector:
                             (img_size, img_size), rows[:, 6:], shape[:2],
                             kpt=True, step=3)
             out.append(rows)
+        return out
+
+    def predict(self, imgs, size: int = 640):
+        """Input-robust hub inference — the autoShape forward equivalent
+        (reference models/common.py:572-639, the JAX `predict`): accepts
+        a filename, an http URL, a PIL image, an HWC numpy array (RGB, per
+        the autoShape convention), a CHW array, a grayscale array, or a
+        list of any of those; letterboxes the batch to ONE stride-aligned
+        common rectangle (max of the per-image scaled shapes), runs the
+        engine once, and returns a `Detections` results object
+        (xyxy/xywh/normalized/pandas/save/crop/render) in each image's
+        own pixels.
+
+        Reading a file needs OpenCV, a URL `requests` and Pillow; arrays
+        already at the common rectangle (e.g. 640x640 or 512x640 at
+        size=640) are letterboxed without OpenCV."""
+        from face_detection_multi_scale_tpu_torch.infer.results import (
+            Detections)
+
+        t = [time.perf_counter()]
+        batch = imgs if isinstance(imgs, (list, tuple)) else [imgs]
+        n = len(batch)
+        loaded, files, shape0, shape1 = [], [], [], []
+        for i, im in enumerate(batch):
+            f = f"image{i}"
+            if isinstance(im, str):
+                if im.startswith("http"):
+                    import requests
+                    from PIL import Image
+
+                    im, f = np.asarray(Image.open(
+                        requests.get(im, stream=True).raw)), im
+                else:
+                    f = im
+                    im = np.asarray(self._load(im))[:, :, ::-1]  # RGB
+            elif hasattr(im, "filename"):  # PIL Image
+                f = getattr(im, "filename", None) or f
+                im = np.asarray(im)
+            im = np.asarray(im)
+            files.append(Path(f).with_suffix(".jpg").name)
+            if im.shape[0] < 5:  # CHW input
+                im = im.transpose((1, 2, 0))
+            im = (im[:, :, :3] if im.ndim == 3
+                  else np.tile(im[:, :, None], 3))
+            s = im.shape[:2]
+            shape0.append(s)
+            g = size / max(s)
+            shape1.append([y * g for y in s])
+            loaded.append(np.ascontiguousarray(im))
+        # one common stride-aligned inference rectangle
+        # (models/common.py:619)
+        shape1 = [make_divisible(x, self.stride)
+                  for x in np.stack(shape1, 0).max(0)]
+        x = np.stack([LB.letterbox(im, tuple(shape1), auto=False)[0]
+                      for im in loaded])
+        t.append(time.perf_counter())
+        # detections_to_numpy waits for the card: t[2] is taken after it
+        rows_list = NMS.detections_to_numpy(self.run_network(x))
+        t.append(time.perf_counter())
+        pred = []
+        for rows, s0 in zip(rows_list, shape0):
+            rows = rows[:, :6].astype(np.float64)
+            if len(rows):
+                LB.scale_coords(tuple(shape1), rows[:, :4], s0)
+            pred.append(rows)
+        t.append(time.perf_counter())
+        names = (["face"] if self.spec.nc == 1
+                 else [str(i) for i in range(self.spec.nc)])
+        return Detections(loaded, pred, files, times=t, names=names,
+                          shape=(n, *shape1, 3))
+
+    __call__ = predict
+
+    # ------------------------------------------------------------------
+    # visualization / export helpers
+    # (reference multi_scale_face_detector.py:290-688)
+    # ------------------------------------------------------------------
+
+    def save_detection_result(self, img, detections, output_path: str):
+        """Draw final multi-scale detections on the image and save
+        (multi_scale_face_detector.py:424-490)."""
+        import cv2
+
+        from face_detection_multi_scale_tpu_torch.utils.plotting import (
+            draw_detection)
+
+        img0 = self._load(img).copy()
+        for det in np.asarray(detections):
+            scale_idx = int(det[6]) if len(det) >= 7 else -1
+            scale = (self.img_sizes[scale_idx]
+                     if 0 <= scale_idx < len(self.img_sizes) else "?")
+            draw_detection(img0, det[:4], det[4], 0,
+                           f"{det[4]:.2f}@{scale}")
+        cv2.imwrite(output_path, img0)
+        return output_path
+
+    def visualize_multi_scale_results(self, img, save_path: str):
+        """Per-scale detection grid: one panel per pyramid scale plus the
+        weighted-NMS merge (multi_scale_face_detector.py:290-422); saved
+        with matplotlib's Agg backend. Returns (per-scale rows, merged
+        rows)."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        img0 = self._load(img)
+        rgb = img0[:, :, ::-1]
+        per_scale = []
+        for size in self.img_sizes:
+            det, _, _ = self.detect_single_scale(img0, size)
+            per_scale.append(det)
+        final, _ = self.detect_multi_scale(img0)
+
+        n = len(self.img_sizes) + 1
+        fig, axes = plt.subplots(1, n, figsize=(6 * n, 6))
+        panels = list(zip([f"scale {s}" for s in self.img_sizes],
+                          per_scale)) + [("weighted NMS merge", final)]
+        for ax, (title, dets) in zip(np.atleast_1d(axes), panels):
+            ax.imshow(rgb)
+            for d in dets:
+                x1, y1, x2, y2 = d[:4]
+                ax.add_patch(plt.Rectangle((x1, y1), x2 - x1, y2 - y1,
+                                           fill=False, color="lime",
+                                           linewidth=1.5))
+            ax.set_title(f"{title}: {len(dets)} faces")
+            ax.axis("off")
+        fig.tight_layout()
+        fig.savefig(save_path, dpi=100)
+        plt.close(fig)
+        return per_scale, final
+
+    def export_to_json(self, detections, img0_shape, path: str):
+        """Single-image Triton-style JSON export
+        (multi_scale_face_detector.py:574-616)."""
+        import json
+
+        from face_detection_multi_scale_tpu_torch.infer.production import (
+            frames_to_json)
+
+        dets = np.asarray(detections)
+        frame = {
+            "bboxes": [[float(v) for v in d[:4]] for d in dets],
+            "confidence": [float(d[4]) for d in dets],
+            "class_names": ["face"] * len(dets),
+            "class_indexes": [int(d[5]) for d in dets],
+            "class_groups": ["face"] * len(dets),
+            "scale_used": [str(self.img_sizes[int(d[6])])
+                           if 0 <= int(d[6]) < len(self.img_sizes)
+                           else "unknown" for d in dets],
+            "num_faces": len(dets),
+            "infer_time": 0.0,
+        }
+        data = frames_to_json([frame], 0.0)
+        with open(path, "w") as f:
+            json.dump(data, f, indent=2)
+        return path
+
+    def compare_preprocessing_methods(self, img, img_size: Optional[int]
+                                      = None):
+        """Quantitative A/B of API vs standard preprocessing on one image
+        (multi_scale_face_detector.py:618-688): runs both, returns
+        detection counts, mean confidences and seconds."""
+        size = img_size or self.img_sizes[0]
+        img0 = self._load(img)
+        saved = self.use_api_preprocess
+        out = {}
+        try:
+            for mode, flag in (("api", True), ("standard", False)):
+                self.use_api_preprocess = flag
+                det, _, dt = self.detect_single_scale(img0, size)
+                out[mode] = {
+                    "count": int(len(det)),
+                    "mean_conf": float(det[:, 4].mean()) if len(det)
+                    else 0.0,
+                    "seconds": dt,
+                }
+        finally:
+            self.use_api_preprocess = saved
         return out
 
     def warmup(self, img_size: Optional[int] = None, batch: int = 1):

@@ -39,9 +39,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from face_detection_multi_scale_tpu_torch.models.head import reshape_level
 from face_detection_multi_scale_tpu_torch.models.model import (
-    YoloFace, resolve_act)
+    YoloFace, head_output, resolve_act)
 from face_detection_multi_scale_tpu_torch.models.spec import (
     HEAD_OPS, ModelSpec, Node)
 from face_detection_multi_scale_tpu_torch.ops.elan_kernel import (
@@ -305,11 +304,13 @@ def _bare(blk: ElanBlock) -> ElanBlock:
 
 def fused_apply(model: YoloFace, x: torch.Tensor,
                 blocks: Optional[Sequence[ElanBlock]] = None,
-                weights: Optional[Dict[ElanBlock, List[torch.Tensor]]] = None
-                ) -> List[torch.Tensor]:
-    """Inference forward matching `model(x)` (NHWC float images in, raw
-    per-level maps (bs, na, ny, nx, no) out), with the given ELAN blocks
-    run as fused kernels, in the model's dtype (x's dtype must match).
+                weights: Optional[Dict[ElanBlock, List[torch.Tensor]]] = None,
+                reshape_heads: bool = True) -> List[torch.Tensor]:
+    """Inference forward matching `model(x, reshape_heads)` (NHWC float
+    images in, raw per-level maps (bs, na, ny, nx, no) out, or the conv
+    layout (bs, ny, nx, na*no) with `reshape_heads=False`), with the given
+    ELAN blocks run as fused kernels, in the model's dtype (x's dtype must
+    match).
 
     `blocks=None` fuses every block of the spec; `blocks=[]` runs every
     node through its own module. `weights` caches the packed weights per
@@ -360,7 +361,7 @@ def fused_apply(model: YoloFace, x: torch.Tensor,
         else:
             inp = [x if j == i - 1 else saved[j] for j in node.f]
         if node.op in HEAD_OPS:
-            return [reshape_level(r, spec.na, spec.no) for r in m(inp)]
+            return head_output(m(inp), spec, reshape_heads)
         x = m(inp)
         saved.append(x if i in save else None)
         i += 1

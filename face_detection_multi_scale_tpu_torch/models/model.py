@@ -172,7 +172,11 @@ class YoloFace(nn.Module):
         self.model = nn.ModuleList(mods)
         self._save = set(self.spec.save)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                reshape_heads: bool = True) -> List[torch.Tensor]:
+        """With `reshape_heads=False` each level comes back in the JAX
+        conv layout (bs, ny, nx, na*no) (a view of the NCHW map), the
+        input of ops/nms.non_max_suppression_from_raws."""
         spec = self.spec
         x = x.permute(0, 3, 1, 2)
         saved: List[Optional[torch.Tensor]] = []
@@ -182,10 +186,20 @@ class YoloFace(nn.Module):
             else:
                 inp = [x if j == i - 1 else saved[j] for j in node.f]
             if node.op in HEAD_OPS:
-                return [reshape_level(r, spec.na, spec.no) for r in m(inp)]
+                return head_output(m(inp), spec, reshape_heads)
             x = m(inp)
             saved.append(x if i in self._save else None)
         raise RuntimeError("spec has no detection head as its last node")
+
+
+def head_output(raws: List[torch.Tensor], spec: ModelSpec,
+                reshape_heads: bool) -> List[torch.Tensor]:
+    """The head's NCHW maps as the forward returns them: (bs, na, ny, nx,
+    no) per level, or with `reshape_heads=False` the JAX conv layout
+    (bs, ny, nx, na*no)."""
+    if not reshape_heads:
+        return [r.permute(0, 2, 3, 1) for r in raws]
+    return [reshape_level(r, spec.na, spec.no) for r in raws]
 
 
 def compute_strides(spec: ModelSpec, img_size: int = 128

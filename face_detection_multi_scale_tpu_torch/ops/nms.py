@@ -13,7 +13,12 @@ promises no order, so every top-K here is a stable descending sort.
 The keep mask is `ops/nms_kernel.nms_keep`: the CUDA kernel for any K on
 a CUDA tensor, its plain version on a CPU tensor. The multi-scale merge
 (`weighted_nms_merge`) takes its keep mask the same way, through
-`nms_keep_matrix`.
+`nms_keep_matrix`, and so does `non_max_suppression_from_raws`, the
+postprocess straight from the conv-layout head maps. Where the JAX entry
+points take `backend=` (Pallas or XLA), the port decides by the tensor's
+device. `nms_indices` (the select-max/suppress loop) and
+`merge_nms_boxes` are plain tensor code, as their JAX versions are plain
+XLA.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from face_detection_multi_scale_tpu_torch.ops.boxes import xywh2xyxy
+from face_detection_multi_scale_tpu_torch.ops.boxes import box_iou, xywh2xyxy
 from face_detection_multi_scale_tpu_torch.ops.nms_kernel import nms_keep
 
 MAX_WH = 4096  # class-offset multiplier (reference utils/general.py:518)
@@ -69,6 +74,39 @@ def _stable_topk(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def nms_indices(boxes: torch.Tensor, scores: torch.Tensor,
+                iou_thres: float, max_det: int):
+    """Greedy NMS of one image by the select-max/suppress loop: (N, 4)
+    xyxy boxes, (N,) scores with invalid rows at <= NEG_INF/2 ->
+    (keep_idx (max_det,) int32, valid (max_det,) bool). `max_det` steps
+    of an argmax (the first of equal maxima, as `jnp.argmax`) and an IoU
+    suppression, the same output as sequential greedy NMS cut at `max_det`
+    keeps (the JAX `nms_indices`)."""
+    boxes = torch.as_tensor(boxes)
+    live = torch.as_tensor(scores, device=boxes.device).clone()
+    n = boxes.shape[0]
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    areas = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
+    keep_idx = torch.zeros(max_det, dtype=torch.int32, device=boxes.device)
+    keep_valid = torch.zeros(max_det, dtype=torch.bool, device=boxes.device)
+    ar = torch.arange(n, device=boxes.device)
+    for i in range(max_det):
+        best = int(torch.argmax(live))
+        if not bool(live[best] > NEG_INF / 2):
+            # nothing live is left: every later step keeps nothing too
+            break
+        keep_idx[i], keep_valid[i] = best, True
+        iw = (torch.minimum(x2, x2[best])
+              - torch.maximum(x1, x1[best])).clamp(min=0)
+        ih = (torch.minimum(y2, y2[best])
+              - torch.maximum(y1, y1[best])).clamp(min=0)
+        inter = iw * ih
+        iou = inter / (areas + areas[best] - inter)
+        live = torch.where((iou > iou_thres) | (ar == best),
+                           torch.full_like(live, NEG_INF), live)
+    return keep_idx, keep_valid
+
+
 def nms_keep_matrix(boxes: torch.Tensor, scores: torch.Tensor,
                     iou_thres: float, max_det: Optional[int] = None):
     """Exact greedy NMS of one image: (K, 4) xyxy boxes, (K,) scores with
@@ -91,9 +129,13 @@ def nms_keep_matrix(boxes: torch.Tensor, scores: torch.Tensor,
 
 
 def _gather_candidates_planar(pred: torch.Tensor, *, nc: int,
-                              conf_thres: float, k: int):
+                              conf_thres: float, k: int,
+                              agnostic: bool = False):
     """Decoded rows (B, N, no) -> top-K candidates sorted by conf:
-    (boxes, conf, cls, nms_boxes, valid, top_idx, n_gated)."""
+    (boxes, conf, cls, nms_boxes, valid, top_idx, n_gated). With
+    `agnostic` (or one class) the NMS boxes are the boxes themselves;
+    otherwise each class is offset by cls * MAX_WH, so NMS runs per
+    class."""
     obj = pred[..., 4]
     if nc == 1:
         conf = pred[..., 5] * obj
@@ -114,7 +156,7 @@ def _gather_candidates_planar(pred: torch.Tensor, *, nc: int,
     top_cls = (torch.zeros_like(top_conf) if cls is None
                else torch.gather(cls, 1, top_idx))
     # per-class NMS by offsetting each class's boxes apart
-    nms_boxes = top_boxes if nc == 1 else \
+    nms_boxes = top_boxes if (agnostic or nc == 1) else \
         top_boxes + (top_cls * MAX_WH)[..., None]
     valid = top_conf > NEG_INF / 2
     return top_boxes, top_conf, top_cls, nms_boxes, valid, top_idx, n_gated
@@ -150,20 +192,146 @@ def _select_kept_planar(keep, boxes, conf, cls, top_idx, pred, *,
 
 def non_max_suppression(pred: torch.Tensor, conf_thres: float = 0.25,
                         iou_thres: float = 0.45, *, nc: int = 1,
-                        max_candidates: int = 4096,
-                        max_det: int = 300) -> Detections:
+                        nkpt: int = 5, max_candidates: int = 4096,
+                        max_det: int = 300,
+                        agnostic: bool = False) -> Detections:
     """Batched NMS: pred (B, N, 5+nc+3*nkpt) decoded rows -> Detections.
 
     Accuracy knob, the fixed capacities: at most `max_candidates` gated
     rows (top by conf) enter suppression and at most `max_det` come out;
-    `n_gated` says when the first cap truncated an image."""
+    `n_gated` says when the first cap truncated an image. With nc > 1 the
+    suppression is per class unless `agnostic`. `nkpt` is taken for the
+    JAX signature's sake: the landmark width comes from `pred`."""
     k = min(max_candidates, pred.shape[1])
     boxes, conf, cls, nms_boxes, valid, top_idx, n_gated = \
-        _gather_candidates_planar(pred, nc=nc, conf_thres=conf_thres, k=k)
+        _gather_candidates_planar(pred, nc=nc, conf_thres=conf_thres, k=k,
+                                  agnostic=agnostic)
     keep = nms_keep(nms_boxes.float().contiguous(), valid, iou_thres)
     dets = _select_kept_planar(keep, boxes, conf, cls, top_idx, pred,
                                nc=nc, max_det=min(max_det, k))
     return dets._replace(n_gated=n_gated)
+
+
+def non_max_suppression_from_raws(raws, spec, conf_thres: float,
+                                  iou_thres: float, *,
+                                  max_candidates: int = 2048,
+                                  max_det: int = 300) -> Detections:
+    """The postprocess straight from the conv-layout head maps (per level
+    (B, ny, nx, na*no), `YoloFace(x, reshape_heads=False)`), with the
+    output of `decode` + `non_max_suppression` up to the order of float
+    operations (the JAX `non_max_suppression_from_raws`):
+
+    1. a planar decode of boxes and conf for every anchor, in float32:
+       (B, N) planes from strided channel slices, in decode's candidate
+       order (level-major, anchor-major, raster cells);
+    2. the two-stage gate, the stable top-K by conf and one packed box
+       gather;
+    3. the keep mask (`nms_keep`: the kernel on a CUDA tensor) and the
+       first `max_det` keepers in score order;
+    4. the landmark channels gathered and decoded for the keepers only.
+
+    As in the JAX version, classes are all 0 (the conf is obj times the
+    best class score, and NMS is not per class)."""
+    na, no, nc, nkpt = spec.na, spec.no, spec.nc, spec.nkpt
+    bs = raws[0].shape[0]
+    dev = raws[0].device
+
+    # ---- stage 1: planar decode of boxes + conf for ALL anchors ----
+    x1p, y1p, x2p, y2p, confp, objp = [], [], [], [], [], []
+    levels = []  # (offset, cells, nx, (B, cells, ch) raw)
+    offset = 0
+    for lvl, raw in enumerate(raws):
+        _, ny, nx, ch = raw.shape
+        cells = ny * nx
+        stride = float(spec.strides[lvl])
+        anchors = torch.tensor(spec.anchors[lvl],
+                               dtype=torch.float64).reshape(-1, 2).tolist()
+        gy = torch.arange(ny, dtype=torch.float32, device=dev)[:, None] \
+            .expand(ny, nx).reshape(-1)
+        gx = torch.arange(nx, dtype=torch.float32, device=dev)[None, :] \
+            .expand(ny, nx).reshape(-1)
+        r2 = raw.reshape(bs, cells, ch)
+        for a in range(na):
+            t = r2[:, :, a * no:a * no + 5 + nc].float()
+            obj = torch.sigmoid(t[:, :, 4])
+            cls = torch.sigmoid(t[:, :, 5:5 + nc]).amax(dim=-1)
+            cx = (torch.sigmoid(t[:, :, 0]) * 2.0 - 0.5 + gx) * stride
+            cy = (torch.sigmoid(t[:, :, 1]) * 2.0 - 0.5 + gy) * stride
+            w = (torch.sigmoid(t[:, :, 2]) * 2.0) ** 2 * anchors[a][0]
+            h = (torch.sigmoid(t[:, :, 3]) * 2.0) ** 2 * anchors[a][1]
+            x1p.append(cx - w / 2)
+            y1p.append(cy - h / 2)
+            x2p.append(cx + w / 2)
+            y2p.append(cy + h / 2)
+            confp.append(obj * cls)
+            objp.append(obj)
+        levels.append((offset, cells, nx, r2))
+        offset += na * cells
+    conf = torch.cat(confp, 1)
+    obj = torch.cat(objp, 1)
+
+    # ---- stage 2: gate, stable top-K, one packed box gather ----
+    gate = (obj > conf_thres) & (conf > conf_thres)
+    masked = torch.where(gate, conf, torch.full_like(conf, NEG_INF))
+    k = min(max_candidates, conf.shape[1])
+    top_conf, top_idx = _stable_topk(masked, k)
+    valid = top_conf > NEG_INF / 2
+    xyxy = torch.stack([torch.cat(x1p, 1), torch.cat(y1p, 1),
+                        torch.cat(x2p, 1), torch.cat(y2p, 1)], dim=-1)
+    boxes = torch.gather(xyxy, 1, top_idx[..., None].expand(-1, -1, 4))
+
+    # ---- stage 3: the keep mask, the first max_det keepers ----
+    keep = nms_keep(boxes.contiguous(), valid, iou_thres)
+    max_det = min(max_det, k)
+    pos = torch.where(keep, torch.arange(k, device=dev)[None, :], k)
+    pos_sorted, sel = torch.sort(pos, dim=1, stable=True)
+    sel_valid = pos_sorted[:, :max_det] < k
+    sel = torch.where(sel_valid, sel[:, :max_det], 0)
+    fin_boxes = torch.gather(boxes, 1, sel[..., None].expand(-1, -1, 4))
+    fin_conf = torch.where(sel_valid, torch.gather(top_conf, 1, sel),
+                           torch.zeros((), device=dev))
+    fin_idx = torch.gather(top_idx, 1, sel)  # (B, max_det) rows of the N
+
+    # ---- stage 4: landmark channels for the keepers only ----
+    extras = torch.zeros((bs, max_det, 3 * nkpt), device=dev)
+    comp = torch.arange(3 * nkpt, device=dev)
+    for lvl, (off, cells, nx, r2) in enumerate(levels):
+        ch = r2.shape[-1]
+        stride = float(spec.strides[lvl])
+        local = fin_idx - off
+        in_lvl = (local >= 0) & (local < na * cells)
+        local = local.clamp(0, na * cells - 1)
+        a_idx, cell = local // cells, local % cells
+        gy = (cell // nx).float()
+        gx = (cell % nx).float()
+        base = cell * ch + a_idx * no + (5 + nc)
+        gidx = (base[:, :, None] + comp).reshape(bs, max_det * 3 * nkpt)
+        got = torch.gather(r2.reshape(bs, cells * ch), 1, gidx).reshape(
+            bs, max_det, 3 * nkpt).float()
+        kx = (got[:, :, 0::3] * 2.0 - 0.5 + gx[:, :, None]) * stride
+        ky = (got[:, :, 1::3] * 2.0 - 0.5 + gy[:, :, None]) * stride
+        kc = torch.sigmoid(got[:, :, 2::3])
+        dec = torch.stack([kx, ky, kc], dim=-1).reshape(bs, max_det,
+                                                        3 * nkpt)
+        extras = torch.where(in_lvl[:, :, None], dec, extras)
+
+    return Detections(boxes=fin_boxes, scores=fin_conf,
+                      classes=torch.zeros((bs, max_det), device=dev),
+                      extras=extras, valid=sel_valid,
+                      n_gated=gate.sum(dim=1).to(torch.int32))
+
+
+def merge_nms_boxes(dets: Detections, all_boxes: torch.Tensor,
+                    all_conf: torch.Tensor, iou_thres: float) -> Detections:
+    """Merge-NMS refinement (reference utils/general.py:587-593): each
+    kept box becomes the confidence-weighted mean of every candidate box
+    (B, K, 4) overlapping it above the IoU threshold, weights (B, K)
+    `all_conf`. The (max_det, K) weight product is a plain matmul, as in
+    the JAX version."""
+    iou = box_iou(dets.boxes, all_boxes)  # (B, max_det, K)
+    w = (iou > iou_thres).to(all_conf.dtype) * all_conf[:, None, :]
+    merged = (w @ all_boxes) / w.sum(dim=2, keepdim=True).clamp(min=1e-9)
+    return dets._replace(boxes=merged)
 
 
 def detections_to_numpy(dets: Detections):

@@ -48,7 +48,15 @@ def safe_settings(spec, variables, frames_u8, capacity):
     None leaves room for every gated row."""
     rows = np.asarray(j_decode(jax_apply(spec.name)(
         j_fold_bn(variables), frames_u8.astype(np.float32) / 255.0), spec))
-    obj, conf = rows[..., 4], rows[..., 5] * rows[..., 4]
+    return settings_for_rows(rows, capacity)
+
+
+def settings_for_rows(rows, capacity):
+    """safe_settings' choice on decoded rows (numpy): (B, N, no), or a
+    list of (N_i, no) blocks of images of other sizes."""
+    rows = [np.asarray(r) for r in rows]
+    every = np.concatenate(rows)
+    obj, conf = every[:, 4], every[:, 5] * every[:, 4]
     lo, hi = np.quantile(conf, [0.6, 0.8])
     conf_thres = widest_gap(np.concatenate([obj.ravel(), conf.ravel()]),
                             lo, hi)
@@ -61,7 +69,7 @@ def safe_settings(spec, variables, frames_u8, capacity):
         ious.append(np.asarray(JN.box_iou(boxes, boxes)).ravel())
     iou_thres = widest_gap(np.concatenate(ious), 0.4, 0.6)
     if capacity is None:
-        return conf_thres, iou_thres, rows.shape[1]
+        return conf_thres, iou_thres, max(len(r) for r in rows)
 
     def margin(k):  # the smallest conf step at the cut over cut images
         steps = [c[k - 1] - c[k] for c in gated_conf if len(c) > k]

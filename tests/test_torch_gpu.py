@@ -758,3 +758,129 @@ def test_micro_batch_on_card_keeps_the_whole_batch(cuda_device):
         pair = np.abs(g[:, None, :5] - w[None, :, :5]).max(-1).argmin(1)
         assert len(set(pair.tolist())) == len(pair)
         np.testing.assert_allclose(g, w[pair], atol=5e-3, rtol=1e-3)
+
+
+def test_predict_on_card_matches_cpu_postprocess(cuda_device):
+    """predict on arrays already at the common rectangle (no OpenCV on
+    the card's machine): one keep-mask launch, and each image's rows those
+    of the CPU postprocess of the card's rows, through the same inverse
+    letterbox."""
+    from face_detection_multi_scale_tpu_torch.data import letterbox as LB
+
+    det = FaceDetector(narrow_tiny(), img_sizes=(128,), conf_thres=0.01,
+                       max_candidates=512, device=cuda_device)
+    rng = np.random.default_rng(5)
+    imgs = [rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)
+            for _ in range(3)]
+    launches = K.nms_keep.launches
+    res = det.predict(imgs, size=128)
+    assert K.nms_keep.launches == launches + 1
+    assert len(res) == 3 and res.s == (3, 96, 128, 3)
+    rows = det.forward_rows(np.stack(imgs))
+    want = NMS.detections_to_numpy(det.postprocess(rows.cpu()))
+    for got, w in zip(res.pred, want):
+        w = w[:, :6].astype(np.float64)
+        LB.scale_coords((96, 128), w[:, :4], (96, 128))
+        assert len(got) > 0
+        np.testing.assert_array_equal(got, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_from_raws_on_card_matches_cpu(cuda_device, dtype):
+    """non_max_suppression_from_raws on the card's conv-layout raws: one
+    keep-mask launch, and the CPU version on the same raws gives the same
+    n_gated and valid counts and the same kept rows within atol 5e-3 /
+    rtol 1e-3. The sigmoids differ by an ulp between the devices on some
+    rows, so the gate and IoU threshold are chip_smoke's
+    `decisive_settings` (no gate, top-K or suppression decision differs),
+    with max_det = K."""
+    import chip_smoke
+    from face_detection_multi_scale_tpu_torch.models.head import (
+        decode, reshape_level)
+
+    det = FaceDetector(narrow_tiny(), img_sizes=(128,), dtype=dtype,
+                       device=cuda_device)
+    frames = np.random.default_rng(6).integers(0, 256, (4, 128, 128, 3),
+                                               dtype=np.uint8)
+    x = torch.from_numpy(frames).to(cuda_device).to(dtype) / 255.0
+    raws = det._forward(x, reshape_heads=False)
+    spec = det.spec
+    assert raws[0].shape[-1] == spec.na * spec.no
+    rows = [decode([reshape_level(r.permute(0, 3, 1, 2), spec.na, spec.no)
+                    for r in rs], spec)
+            for rs in (raws, [r.cpu() for r in raws])]
+    conf, iou = chip_smoke.decisive_settings(*rows, k=512)
+    launches = K.nms_keep.launches
+    got = NMS.non_max_suppression_from_raws(raws, spec, conf, iou,
+                                            max_candidates=512, max_det=512)
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == launches + 1
+    want = NMS.non_max_suppression_from_raws([r.cpu() for r in raws],
+                                             spec, conf, iou,
+                                             max_candidates=512, max_det=512)
+    assert torch.equal(got.n_gated.cpu(), want.n_gated)
+    assert torch.equal(got.valid.sum(1).cpu(), want.valid.sum(1))
+    assert got.valid.any()
+    for g, w in zip(NMS.detections_to_numpy(got),
+                    NMS.detections_to_numpy(want)):
+        pair = np.abs(g[:, None, :5] - w[None, :, :5]).max(-1).argmin(1) \
+            if len(g) else np.zeros(0, int)
+        assert len(set(pair.tolist())) == len(pair)
+        np.testing.assert_allclose(g, w[pair], atol=5e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("agnostic", [False, True])
+def test_agnostic_nms_on_card_matches_cpu(cuda_device, agnostic):
+    """nc = 3 rows through non_max_suppression on the card and on the CPU:
+    one keep-mask launch, Detections equal bit for bit."""
+    rng = np.random.default_rng(7)
+    n = 3000
+    centers = rng.uniform(0, 640, (2, 24, 2))
+    cxy = centers[:, rng.integers(0, 24, n)] + rng.normal(0, 12, (2, n, 2))
+    pred = np.concatenate([cxy, rng.uniform(8, 90, (2, n, 2)),
+                           rng.uniform(0, 1, (2, n, 4)),
+                           rng.uniform(0, 640, (2, n, 15))], -1)
+    pred = torch.from_numpy(pred.astype(np.float32))
+    launches = K.nms_keep.launches
+    got = NMS.non_max_suppression(pred.to(cuda_device), 0.2, 0.45, nc=3,
+                                  max_candidates=2048, agnostic=agnostic)
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == launches + 1
+    want = NMS.non_max_suppression(pred, 0.2, 0.45, nc=3,
+                                   max_candidates=2048, agnostic=agnostic)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_ensemble_launches_the_kernel_once(cuda_device, monkeypatch):
+    """EnsembleDetector over two narrowed tiny models on the card: one
+    keep-mask launch for the concatenated rows (captured as the NMS gets
+    them), and Detections equal to the CPU postprocess of those rows."""
+    from face_detection_multi_scale_tpu_torch.infer import ensemble
+    from face_detection_multi_scale_tpu_torch.infer.ensemble import (
+        EnsembleDetector)
+
+    seen = []
+    nms = NMS.non_max_suppression
+    monkeypatch.setattr(ensemble.NMS, "non_max_suppression",
+                        lambda pred, *a, **kw: seen.append(pred)
+                        or nms(pred, *a, **kw))
+
+    kw = dict(img_sizes=(128,), conf_thres=0.01, max_candidates=1024,
+              device=cuda_device)
+    members = [FaceDetector(narrow_tiny(), seed=s, **kw) for s in (0, 1)]
+    ens = EnsembleDetector(members)
+    frames = np.random.default_rng(8).integers(0, 256, (2, 128, 128, 3),
+                                               dtype=np.uint8)
+    seq, fused = K.nms_keep.launches, E.fused_elan.launches
+    got = ens.run_network(frames)
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == seq + 1
+    assert E.fused_elan.launches == fused
+    monkeypatch.undo()
+    rows = seen[0].cpu()
+    assert rows.shape[:2] == (2, 2 * 1008)
+    want = NMS.non_max_suppression(rows, 0.01, ens.iou_thres,
+                                   max_candidates=1024)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
