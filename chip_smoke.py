@@ -150,7 +150,23 @@ Phases, each fatal on failure (nothing is caught to carry on):
  19. EnsembleDetector((w6, tiny)) at b8@640, N = 50,700 rows: one nms_keep
      launch and no fused_elan launch a run_network; Detections equal to
      the CPU postprocess of the concatenated rows its NMS got
- 20. one JSON line with every kernel's launches, error, times and bound;
+ 20. int8 serving (W8A8): FaceDetector(name, quantize="int8",
+     calib_images=<the request's frames>) for yolov7-w6-face, -tiny-face
+     (phase 4/5's seeds and frames) and yolov7-lite-t (phase 12's) at
+     b8@640: per request one qconv launch a conv of the int8 walk (the
+     grouped ones on its direct path), one nms_keep launch, nothing else,
+     and the plain conv never called; each conv's kernel output on its own
+     captured inputs equal to qconv_plain's on the card, except at most 1
+     apart where the plain pre-round value lies within 1e-4 of a half
+     integer (their count printed); the walk with qconv_plain swapped in
+     gives raws within 1e-2 of max |raw| per level; Detections equal to
+     the CPU postprocess of the card's rows; printed, not gated: the int8
+     raws against the float32 model's. Times: the request (median, img/s),
+     and summed over one forward's convs the kernel, the plain version,
+     the bound (int8 operations at 1979 TOPS against x + w + out bytes at
+     3.35 TB/s, per conv the larger), torch._int_mm after an int8 im2col
+     (the non-grouped convs) and cuDNN bf16 convs of the same shapes
+ 21. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
      of 16 blocks; fused_elan_bf16 beside fused_elan; `launches` sums
@@ -158,7 +174,7 @@ Phases, each fatal on failure (nothing is caught to carry on):
      `api_launches` holds phases 15-19's counted calls (nms_keep's
      `launches` includes them), and the fused entries' `by_model` hold
      the yolov7-face and yolov7s-face group sums
- 21. the last line: {"ok": true, "device": {...}}
+ 22. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
@@ -166,7 +182,7 @@ does (H100 SXM, dense): 67 TFLOP/s f32 without tensor cores for nms_keep;
 495 / 3 = 165 TFLOP/s for fused_elan, whose f32-accurate products are three
 TF32 tensor-core products a multiply-add (3xTF32; the 67 TFLOP/s SIMT bound
 is printed beside it); 989 TFLOP/s bf16 for probe_mm and the bf16
-fused_elan. Operations count what this run's data needs (`nms_bound`,
+fused_elan; 1979 TOPS int8 for qconv. Operations count what this run's data needs (`nms_bound`,
 `elan_cost`, `probe_mm.cost`).
 """
 
@@ -190,12 +206,14 @@ from face_detection_multi_scale_tpu_torch.infer.detector import (
     FaceDetector, full_fp32)
 from face_detection_multi_scale_tpu_torch.infer.results import Detections
 from face_detection_multi_scale_tpu_torch.models import fused as FUSED
+from face_detection_multi_scale_tpu_torch.models import quant as QUANT
 from face_detection_multi_scale_tpu_torch.models.head import (
     decode, reshape_level)
 from face_detection_multi_scale_tpu_torch.ops.boxes import box_iou
 from face_detection_multi_scale_tpu_torch.ops import elan_kernel as E
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
+from face_detection_multi_scale_tpu_torch.ops import qconv_kernel as QK
 from face_detection_multi_scale_tpu_torch.tools import probe_mm as PM
 from face_detection_multi_scale_tpu_torch.tools.forward_format_ab import (
     kernel_profile)
@@ -204,6 +222,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32X3_OPS_PER_S = 495e12 / 3  # 3xTF32: three TF32 products a multiply-add
 BF16_OPS_PER_S = 989e12
+INT8_OPS_PER_S = 1979e12
 OPS_PER_IOU = 12  # 4 min/max, 2 sub, 2 clamp, mul, add, sub, div (+ compare)
 BATCH = 8
 REQUESTS = 4
@@ -235,6 +254,13 @@ RAWS_TOL = dict(atol=1e-3, rtol=1e-5)
 # each counted call of phases 15-19: {tag: {"seq": n, "fixpoint": n,
 # "fused": n}}
 API_LAUNCHES = {}
+# phase 20: (zoo name, seed of weights and frames); w6 and tiny take
+# phases 4/5's, lite-t phase 12's
+INT8_MODELS = (("yolov7-w6-face", 0), ("yolov7-tiny-face", 1),
+               ("yolov7-lite-t", 5))
+INT8_REQUESTS = 2
+INT8_RAW_SHARE = 1e-2  # kernel walk against the plain-conv walk, per level
+HALF_TOL = 1e-4
 T_START = time.perf_counter()
 
 
@@ -308,7 +334,7 @@ def start_builds(pool):
         mod.build()
         return time.perf_counter() - t0
 
-    return {mod: pool.submit(timed, mod) for mod in (K, PM, E)}
+    return {mod: pool.submit(timed, mod) for mod in (K, PM, E, QK)}
 
 
 def built(builds, mod) -> None:
@@ -1464,6 +1490,276 @@ def drive_ensemble(smi: str, frames: np.ndarray) -> None:
     stamp("phase 19 (EnsembleDetector) done")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: int8 serving
+# ---------------------------------------------------------------------------
+
+def capture_qconvs(det: FaceDetector, x: torch.Tensor):
+    """The raws of one int8 forward of `x` and the arguments of each
+    qconv call in it (the path's own inputs)."""
+    calls = []
+    real = QUANT.qconv
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    QUANT.qconv = record
+    try:
+        raws = det._forward(x)
+    finally:
+        QUANT.qconv = real
+    torch.cuda.synchronize()
+    return raws, calls
+
+
+def im2col_int8(x: torch.Tensor, w: torch.Tensor, stride: int, pads):
+    """(A, B) of the int8 GEMM of a non-grouped conv: A (M, K') the im2col
+    of NHWC x, B (K', N') column-major, K' and N' padded with zeros to
+    multiples of 8 (torch._int_mm's rule); a 1x1 stride-1 conv needs no
+    im2col."""
+    b, h, wd, c = x.shape
+    cout, kh, kw, _ = w.shape
+    ho, wo = QK.out_hw(h, wd, (kh, kw), stride, pads)
+    k = kh * kw * c
+    kp, np_ = -(-k // 8) * 8, -(-cout // 8) * 8
+    if (kh, kw, stride) == (1, 1, 1) and kp == k:
+        a = x.reshape(-1, c)
+    else:
+        xp = torch.nn.functional.pad(x, (0, 0, pads[1], pads[1], pads[0],
+                                         pads[0]))
+        cols = [xp[:, dy:dy + stride * (ho - 1) + 1:stride,
+                   dx:dx + stride * (wo - 1) + 1:stride]
+                for dy in range(kh) for dx in range(kw)]
+        if kp > k:
+            cols.append(torch.zeros((b, ho, wo, kp - k), dtype=x.dtype,
+                                    device=x.device))
+        a = torch.cat(cols, -1).reshape(-1, kp)
+    bmat = torch.zeros((np_, kp), dtype=w.dtype, device=w.device)
+    bmat[:cout, :k] = w.reshape(cout, k)
+    return a, bmat.t()
+
+
+def library_int_mm(x, w, stride, pads):
+    """The yardstick: an int8 im2col, then torch._int_mm (int32 out, no
+    requant)."""
+    a, bmat = im2col_int8(x, w, stride, pads)
+    return torch._int_mm(a, bmat)
+
+
+@torch.inference_mode()
+def check_qconvs(calls, smi: str, tag: str):
+    """Each captured conv: the kernel against the plain version on the
+    card, and kernel, plain, bound, _int_mm and cuDNN bf16 times. Returns
+    (sums, worst |kernel - plain|, near-half differences, elements)."""
+    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bf16_cudnn_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
+            "bound_ms": 0.0, "ops_bound_ms": 0.0, "ops": 0.0}
+    worst = flips = elements = 0
+    lib_convs = 0
+    for args, kw in calls:
+        x, w, alpha, bias, inv_out = args
+        stride, pads, groups, act = (kw["stride"], kw["pads"],
+                                     kw["groups"], kw["act"])
+        got = QK.qconv(*args, **kw)
+        z = QK.pre_round(QK.conv_sums(x, w, stride, pads, groups), alpha,
+                         bias, inv_out, act)
+        want = torch.clamp(torch.round(z), -127, 127).to(torch.int8)
+        diff = (got.int() - want.int()).abs()
+        near = (z - torch.floor(z) - 0.5).abs() < HALF_TOL
+        check(got.shape == want.shape and int(diff.max()) <= 1
+              and not bool(diff[~near].any()),
+              f"{tag}: qconv differs from qconv_plain at {tuple(x.shape)} "
+              f"-> {tuple(want.shape)} k{tuple(w.shape[1:3])} s{stride} "
+              f"g{groups} {act}: max {int(diff.max())}, "
+              f"{int((diff[~near] > 0).sum())} away from a half integer")
+        worst = max(worst, int(diff.max()))
+        flips += int((diff > 0).sum())
+        elements += want.numel()
+        ms = cuda_ms(lambda: QK.qconv(*args, **kw), 5)
+        plain = cuda_ms(lambda: QK.qconv_plain(*args, **kw), 1)
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+        wb = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        cudnn = cuda_ms(lambda: torch.nn.functional.conv2d(
+            xb, wb, None, stride, pads, 1, groups), 5)
+        m = want.numel() // want.shape[-1]
+        ops = 2 * m * want.shape[-1] * w[0].numel()
+        nbytes = x.numel() + w.numel() + want.numel() + 8 * want.shape[-1]
+        t_o = ops / INT8_OPS_PER_S * 1e3
+        t_b = nbytes / HBM_BYTES_PER_S * 1e3
+        for key, v in (("ms", ms), ("plain_ms", plain),
+                       ("bf16_cudnn_ms", cudnn), ("t_ops", t_o),
+                       ("t_bytes", t_b), ("ops", ops)):
+            sums[key] += v
+        sums["ops_bound_ms"] += t_o if t_o >= t_b else 0.0
+        sums["bound_ms"] += max(t_o, t_b)
+        if groups == 1:
+            sums["library_ms"] += cuda_ms(
+                lambda: library_int_mm(x, w, stride, pads), 5)
+            lib_convs += 1
+    sums["library_convs"] = lib_convs
+    sums["bound_by"] = ("operations" if sums["ops_bound_ms"]
+                        >= sums["bound_ms"] / 2 else "bytes")
+    print(f"qconv {tag} b{BATCH}@{SIZE} on {smi}, sums over {len(calls)} "
+          f"convs: kernel {sums['ms']:.3f} ms "
+          f"({sums['ops'] / sums['ms'] / 1e9:.1f} TOPS effective), plain "
+          f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.4f} ms by "
+          f"{sums['bound_by']} (ops alone {sums['t_ops']:.4f}, bytes alone "
+          f"{sums['t_bytes']:.4f}), torch._int_mm after im2col "
+          f"{sums['library_ms']:.3f} ms over the {lib_convs} non-grouped "
+          f"convs, cuDNN bf16 {sums['bf16_cudnn_ms']:.3f} ms; kernel vs "
+          f"plain: {flips} of {elements} outputs 1 apart, all within "
+          f"{HALF_TOL} of a half integer")
+    return sums, worst, flips, elements
+
+
+def drive_int8(smi: str, frames_by_model) -> dict:
+    """Phase 20: int8 serving on the card for INT8_MODELS. Returns the
+    kernels line's qconv entry."""
+    by_model, launches_by_path, worst, flips, elements = {}, {}, 0, 0, 0
+    for name, seed in INT8_MODELS:
+        tag = f"{name} int8"
+        frames = frames_by_model.get(name)
+        if frames is None:
+            frames = np.random.default_rng(seed).integers(
+                0, 256, (INT8_REQUESTS, BATCH, SIZE, SIZE, 3),
+                dtype=np.uint8)
+        det = FaceDetector(name, img_sizes=(SIZE,), conf_thres=0.5,
+                           iou_thres=0.5, max_candidates=MAX_CANDIDATES,
+                           seed=seed, quantize="int8",
+                           calib_images=frames[0], device="cuda")
+        set_gate(det, frames[0])
+        det.warmup(SIZE, BATCH)
+        convs = det._qparams["convs"]
+        grouped = sum(q["w"].shape[-1] == 1 and q["w"].shape[0] > 1
+                      for q in convs.values())
+
+        def plain_forbidden(*args, **kw):
+            raise AssertionError("qconv_plain ran on the card's int8 path")
+
+        plain = QK.qconv_plain
+        QK.qconv_plain = plain_forbidden
+        K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
+        E.fused_elan.launches = E.fused_elan.bf16_launches = 0
+        QK.qconv.launches = QK.qconv.depthwise_launches = 0
+        times = []
+        try:
+            for r in range(INT8_REQUESTS):
+                t0 = time.perf_counter()
+                dets = det.run_network(frames[r])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                check(all(bool(torch.isfinite(t).all()) for t in dets[:4]),
+                      f"{tag}: non-finite detections")
+        finally:
+            QK.qconv_plain = plain
+        counts = {"seq": K.nms_keep.launches,
+                  "fixpoint": K.nms_keep.fixpoint_launches,
+                  "fused": E.fused_elan.launches + E.fused_elan.bf16_launches}
+        qc = {"qconv": QK.qconv.launches,
+              "depthwise": QK.qconv.depthwise_launches}
+        check(counts == {"seq": INT8_REQUESTS, "fixpoint": 0, "fused": 0},
+              f"{tag}: launches {counts}, want {INT8_REQUESTS} nms_keep")
+        check(qc["qconv"] == INT8_REQUESTS * len(convs) > 0
+              and qc["depthwise"] == INT8_REQUESTS * grouped,
+              f"{tag}: qconv launches {qc}, want {len(convs)} a request "
+              f"({grouped} of them direct)")
+        PATH_LAUNCHES[tag] = counts
+        launches_by_path[tag] = qc
+        ms = [t * 1e3 for t in times]
+        print(f"{tag} run_network b{BATCH}@{SIZE} on {smi}: "
+              f"ms/batch {[round(v, 3) for v in ms]}, median "
+              f"{np.median(ms):.3f}, img/s {BATCH / np.median(times):.1f}; "
+              f"launches a request: qconv {qc['qconv'] // INT8_REQUESTS} "
+              f"({qc['depthwise'] // INT8_REQUESTS} direct), nms_keep 1; "
+              f"kept per image {dets.valid.sum(1).cpu().tolist()}")
+
+        # where a request's time goes: forward+decode, postprocess, and
+        # one traced request's device time by kernel
+        rows, fwd_ms = timed(lambda: det.forward_rows(frames[0]))
+        dets_card, post_ms = timed(lambda: det.postprocess(rows))
+        prof = kernel_profile(lambda: det.run_network(frames[0]), top=10**4)
+        busy = prof["kernel_ms"] / prof["wall_ms"]
+        traced = [k for k in prof["top"] if "qconv_" in k["name"]]
+        print(f"{tag}: forward+decode {fwd_ms:.3f} ms, postprocess "
+              f"{post_ms:.3f} ms (host clock, synchronized); one traced "
+              f"request: wall {prof['wall_ms']:.3f} ms, device busy "
+              f"{prof['kernel_ms']:.3f} ms ({busy:.1%}, idle "
+              f"{1 - busy:.1%}) in {prof['launches']} launches, qconv "
+              f"{sum(k['ms'] for k in traced):.3f} ms in "
+              f"{sum(k['launches'] for k in traced)}; top: "
+              + "; ".join(f"{k['name'][:60]} {k['ms']:.3f} ms x"
+                          f"{k['launches']}" for k in prof["top"][:6]))
+        # the card's postprocess == the CPU postprocess of the same rows
+        check(same_detections(dets_card, det.postprocess(rows.cpu())),
+              f"{tag}: card Detections differ from the CPU postprocess")
+        # each conv on its own inputs, then the walk with the plain conv
+        x = torch.as_tensor(frames[0]).cuda().float() / 255.0
+        raws, calls = capture_qconvs(det, x)
+        check(len(calls) == len(convs), f"{tag}: captured {len(calls)} "
+                                        f"convs, want {len(convs)}")
+        sums, w_, f_, e_ = check_qconvs(calls, smi, tag)
+        worst, flips, elements = max(worst, w_), flips + f_, elements + e_
+        del calls
+        kernel = QUANT.qconv
+        QUANT.qconv = QK.qconv_plain
+        try:
+            raws_plain = det._forward(x)
+        finally:
+            QUANT.qconv = kernel
+        shares = [float((g - p).abs().max() / p.abs().max())
+                  for g, p in zip(raws, raws_plain)]
+        print(f"{tag}: raws against the plain-conv walk off by "
+              f"{[f'{v:.3g}' for v in shares]} of max |raw| per level "
+              f"(bound {INT8_RAW_SHARE})")
+        check(all(bool(torch.isfinite(r).all()) for r in raws)
+              and max(shares) <= INT8_RAW_SHARE,
+              f"{tag}: raws beyond {INT8_RAW_SHARE} of the plain walk's")
+        with full_fp32(), torch.inference_mode():
+            raws_f32 = det._float_model(x)
+        err = [float((g - f).abs().max() / f.abs().max())
+               for g, f in zip(raws, raws_f32)]
+        corr = [float(torch.corrcoef(torch.stack([g.flatten(),
+                                                  f.flatten()]))[0, 1])
+                for g, f in zip(raws, raws_f32)]
+        print(f"{tag}: int8 against float32 raws (not gated): max |diff| / "
+              f"max |raw| {[f'{v:.4g}' for v in err]}, correlation "
+              f"{[f'{v:.6f}' for v in corr]}")
+        by_model[name] = {
+            "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+            "bound_ms": sums["bound_ms"], "bound_by": sums["bound_by"],
+            "library_ms": sums["library_ms"],
+            "bf16_cudnn_ms": sums["bf16_cudnn_ms"], "convs": len(convs),
+            "request_ms": float(np.median(ms)),
+            "img_per_s": BATCH / float(np.median(times)),
+            "forward_decode_ms": fwd_ms, "postprocess_ms": post_ms,
+            "device_busy_share": busy,
+            "traced_ms": sum(k["ms"] for k in traced)}
+        del det, raws, raws_plain, raws_f32
+        torch.cuda.empty_cache()
+        stamp(f"path {tag} done")
+    w6 = by_model["yolov7-w6-face"]
+    return {
+        "name": "qconv", "route": "cuda",
+        "source": "face_detection_multi_scale_tpu_torch/csrc/qconv.cu",
+        "replaces": "face_detection_multi_scale_tpu/models/quant.py:521",
+        "launches": sum(c["qconv"] for c in launches_by_path.values()),
+        "depthwise_launches": sum(c["depthwise"]
+                                  for c in launches_by_path.values()),
+        "launches_by_path": launches_by_path,
+        "max_abs_err": worst, "half_integer_flips": flips,
+        "elements": elements, "ms": w6["ms"], "card_ms": w6["ms"],
+        "plain_ms": w6["plain_ms"], "bound_ms": w6["bound_ms"],
+        "traced_ms": w6["traced_ms"],
+        "bound_by": w6["bound_by"], "library_ms": w6["library_ms"],
+        "library": "torch._int_mm after an int8 im2col, non-grouped convs",
+        "bf16_cudnn_ms": w6["bf16_cudnn_ms"],
+        "bound_rate": "int8: 1979 TOPS, 3.35 TB/s",
+        "per": "sum over the convs of one w6 b8@640 int8 forward",
+        "by_model": by_model}
+
+
 def group_entry(s):
     """The time fields of a kernels-line entry from check_groups' sums."""
     return {"ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -1485,7 +1781,7 @@ def main() -> None:
 
     # fused_elan.cu builds while the keep-mask phases and the unfused paths,
     # which do not need it, run
-    pool = concurrent.futures.ThreadPoolExecutor(3)
+    pool = concurrent.futures.ThreadPoolExecutor(4)
     builds = start_builds(pool)
     built(builds, K)
     nms_stats, fixpoint_launches = check_kernel_cases()
@@ -1505,6 +1801,7 @@ def main() -> None:
     tta_launches, tta_gate = drive_tta(smi)
     tiled_launches = drive_tiled(smi, tta_gate)
     built(builds, E)
+    built(builds, QK)
     pool.shutdown()
 
     # phases 6-8: the fused paths, each group checked on its own inputs
@@ -1575,6 +1872,9 @@ def main() -> None:
     check(all(c["fixpoint"] == 0 and c["fused"] == 0
               for c in API_LAUNCHES.values()), f"phases 15-19 launched a "
           f"kernel other than nms_keep: {API_LAUNCHES}")
+
+    # phase 20: int8 serving
+    qconv_entry = drive_int8(smi, {w6: frames[w6], tiny: frames[tiny]})
     api_seq = sum(c["seq"] for c in API_LAUNCHES.values())
     for d, acc in ((torch.float32, elan), (bf16, bf16_elan)):
         acc["abs"] = max(acc["abs"], new_worst[d][0])
@@ -1691,6 +1991,7 @@ def main() -> None:
         **group_entry(s), "bound_rate": "bf16: 989 TFLOP/s, 3.35 TB/s",
         "per": "sum over the 11 w6 groups of one b8@640 bf16 forward",
         "by_model": by_model[bf16]})
+    entries.append(qconv_entry)
     entries += probe_entries
     stamp("kernel times done")
     print(json.dumps({"kernels": entries}))

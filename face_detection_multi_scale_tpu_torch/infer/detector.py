@@ -4,7 +4,8 @@ detection.
 Counterpart of the JAX package's infer/detector.py `FaceDetector` (its
 engine at detector.py:338-344 and `run_network` without a mesh):
 uint8 NHWC batch -> /255 -> YoloFace forward with BN folded (or, with
-`fuse_elan`, the fused-ELAN executor of models/fused.py, as the JAX
+`fuse_elan`, the fused-ELAN executor of models/fused.py, or, with
+`quantize="int8"`, the W8A8 executor of models/quant.py, as the JAX
 `_forward` at detector.py:270-285) -> grid decode -> fixed-capacity NMS
 (the keep mask through the CUDA kernel on the card) -> Detections, then
 the host-side inverse letterbox. The TTA pyramid (`detect_multi_scale`)
@@ -24,7 +25,7 @@ preprocess runs on the device instead (infer/device_preprocess.py).
 
 from __future__ import annotations
 
-import contextlib
+import copy
 import dataclasses
 import os
 import time
@@ -46,24 +47,13 @@ from face_detection_multi_scale_tpu_torch.models.fuse import fold_bn
 from face_detection_multi_scale_tpu_torch.models.fused import (
     apply_variant, elan_weights, find_elan_blocks, fused_apply)
 from face_detection_multi_scale_tpu_torch.models.head import decode
+from face_detection_multi_scale_tpu_torch.models import quant
 from face_detection_multi_scale_tpu_torch.models.model import (
-    YoloFace, cast_model, compute_strides, init_weights)
+    YoloFace, cast_model, compute_strides, full_fp32, init_weights)
 from face_detection_multi_scale_tpu_torch.models.spec import ModelSpec
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.utils.general import (
     check_img_size, make_divisible)
-
-
-@contextlib.contextmanager
-def full_fp32():
-    """cuDNN convolutions in full float32 (its default is TF32, about
-    three decimal digits); restores the previous setting on exit."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
 
 
 def _device(device) -> torch.device:
@@ -129,6 +119,16 @@ class FaceDetector:
     prefixed "pre:" to absorb each group's feeding downsample conv
     (`apply_variant` per block; the layout parts change no numbers).
 
+    `quantize="int8"` serves W8A8 (models/quant.py, the JAX package's
+    quantized mode): int8 weights and int8 activations between convs, each
+    conv one launch of the int8 kernel (ops/qconv_kernel.py) on the card,
+    the head in `dtype` on dequantized inputs. The scales come from a
+    float32 calibration walk: pass `calib_images` (uint8 NHWC network-input
+    frames, at most 8 used) or call `calibrate_int8`; otherwise the first
+    batch that `run_network` serves calibrates. The device-preprocess
+    paths and `warmup` need the calibration first. It excludes
+    `fuse_elan`, as in the JAX package.
+
     `use_device_preprocess` letterboxes, resizes and normalizes on the
     device (infer/device_preprocess.py): the raw uint8 frame is the only
     upload, one upload serves every pyramid scale, and the host needs no
@@ -149,6 +149,7 @@ class FaceDetector:
                  micro_batch: Optional[int] = None,
                  tile_top_scale: Union[bool, int] = False,
                  tile_halo: int = 256, tile_min_size: int = 2048,
+                 quantize: Optional[str] = None, calib_images=None,
                  device="cuda"):
         if mesh is not None:
             raise NotImplementedError(
@@ -158,6 +159,12 @@ class FaceDetector:
             raise NotImplementedError(
                 f"FaceDetector: dtype {dtype} is not ported (float32 and "
                 f"bfloat16 are)")
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', "
+                             f"got {quantize!r}")
+        if quantize and fuse_elan:
+            raise ValueError("quantize and fuse_elan are mutually "
+                             "exclusive serving modes")
         self.dtype = dtype
         self.device = _device(device)
         if isinstance(model, str):
@@ -200,7 +207,21 @@ class FaceDetector:
             blk: [t.to(self.device) for t in ws]
             for blk, ws in elan_weights(net, self._elan_blocks,
                                         dtype).items()}
+        # int8 serving calibrates and quantizes from the float32 model
+        self._quantize = quantize
+        self._qparams = None
+        self._float_model = None
+        if quantize:
+            self._float_model = (net if dtype == torch.float32
+                                 else copy.deepcopy(net)).eval().to(
+                                     self.device)
         self.model = cast_model(net.eval().to(self.device), dtype)
+        if quantize:
+            # the op set is checked now (NotImplementedError outside the
+            # int8 executor) by the compute-free structural walk
+            quant.calibrate_shape_only(self.spec, self._float_model)
+            if calib_images is not None:
+                self.calibrate_int8(calib_images)
 
         self.stride = self.spec.max_stride
         self.img_sizes = [check_img_size(s, self.stride) for s in img_sizes]
@@ -261,6 +282,32 @@ class FaceDetector:
     # the engine
     # ------------------------------------------------------------------
 
+    def calibrate_int8(self, images_u8) -> None:
+        """Post-training calibration for quantize="int8": a float32 walk
+        over `images_u8` (uint8 NHWC network-input frames, or float in [0,
+        1]; at most 8 used) records each tensor's range, then the int8
+        qparams that serving uses are built."""
+        x = images_u8[:8]
+        x = torch.as_tensor(x if isinstance(x, torch.Tensor)
+                            else np.asarray(x)).to(self.device)
+        if x.dtype == torch.uint8:
+            x = x.float() / 255.0
+        self._qparams = quant.quantize_model(self.spec, self._float_model, x)
+
+    def _ensure_calibrated(self, images_u8) -> None:
+        if self._quantize and self._qparams is None:
+            self.calibrate_int8(images_u8)
+
+    def _require_calibrated_for_dev(self) -> None:
+        """The device preprocess letterboxes on the device, so there is no
+        network-input frame on the host to calibrate on lazily: quantized
+        serving there needs an explicit calibration."""
+        if self._quantize and self._qparams is None:
+            raise RuntimeError(
+                "quantize='int8' with use_device_preprocess needs "
+                "explicit calibration: pass calib_images= or call "
+                "calibrate_int8(frames) before serving")
+
     @torch.inference_mode()
     def forward_rows(self, images_u8) -> torch.Tensor:
         """uint8 NHWC (bs, h, w, 3) -> decoded rows (bs, N, no) in the
@@ -279,10 +326,20 @@ class FaceDetector:
     def _forward(self, x: torch.Tensor,
                  reshape_heads: bool = True) -> List[torch.Tensor]:
         """The network of every engine call (the JAX `_forward`): the
-        model, or the fused-ELAN executor with `fuse_elan`; raw per-level
-        maps (with `reshape_heads=False` in the conv layout (bs, ny, nx,
-        na*no), the input of `NMS.non_max_suppression_from_raws`)."""
+        model, the W8A8 executor with `quantize` (x in [0, 1] is quantized
+        to int8 there), or the fused-ELAN executor with `fuse_elan`; raw
+        per-level maps (with `reshape_heads=False` in the conv layout (bs,
+        ny, nx, na*no), the input of
+        `NMS.non_max_suppression_from_raws`)."""
         with full_fp32():
+            if self._quantize:
+                if self._qparams is None:
+                    raise RuntimeError(
+                        "quantize='int8': not calibrated; pass "
+                        "calib_images= or call calibrate_int8(frames)")
+                return quant.quant_apply(self.spec, self._qparams, x,
+                                         self.model.model[-1],
+                                         reshape_heads, dtype=self.dtype)
             if self._elan_blocks:
                 return fused_apply(self.model, x, self._elan_blocks,
                                    self._elan_weights, reshape_heads)
@@ -320,7 +377,9 @@ class FaceDetector:
         """Raw engine call: uint8 NHWC (bs, h, w, 3) -> Detections on the
         detector's device. _record=False leaves the truncation telemetry
         to the caller (the tiled paths record one entry per image, not
-        per tile)."""
+        per tile). A quantized detector that is not calibrated yet
+        calibrates on this batch first."""
+        self._ensure_calibrated(images_u8)
         dets = self._microbatched(
             lambda chunk: self.postprocess(self.forward_rows(chunk)),
             images_u8)
@@ -350,6 +409,7 @@ class FaceDetector:
         """Engine call with device preprocessing: raw uint8 NHWC frames on
         the device -> (Detections, LetterboxGeometry), the counterpart of
         the JAX `_executable_dev` run."""
+        self._require_calibrated_for_dev()
         geom = None
 
         def engine(chunk):
@@ -804,7 +864,14 @@ class FaceDetector:
 
     def warmup(self, img_size: Optional[int] = None, batch: int = 1):
         """Run the engine once on zeros (first-call allocations, the
-        kernel's build and load) before serving."""
+        kernel's build and load) before serving. A quantized detector
+        must be calibrated first."""
+        if self._quantize and self._qparams is None:
+            # zeros would calibrate to degenerate scales and keep them
+            raise RuntimeError(
+                "calibrate_int8(frames) (or calib_images=) before "
+                "warmup() on a quantize='int8' detector — warming up on "
+                "the zero dummy would calibrate to degenerate scales")
         size = check_img_size(img_size or self.img_sizes[0], self.stride)
         self.run_network(np.zeros((batch, size, size, 3), np.uint8))
         if self.device.type == "cuda":

@@ -15,6 +15,7 @@ not ported and raise NotImplementedError naming the op.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Tuple
 
@@ -27,6 +28,18 @@ from face_detection_multi_scale_tpu_torch.models.head import (
     DetectionHead, det_bias_prior, reshape_level)
 from face_detection_multi_scale_tpu_torch.models.spec import (
     HEAD_OPS, ModelSpec, Node)
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """cuDNN convolutions in full float32 (its default is TF32, about
+    three decimal digits); restores the previous setting on exit."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 def resolve_act(spec: ModelSpec, node_args, default=True):

@@ -14,10 +14,12 @@ from face_detection_multi_scale_tpu_torch.infer import tiling
 from face_detection_multi_scale_tpu_torch.infer.detector import (
     FaceDetector, full_fp32)
 from face_detection_multi_scale_tpu_torch.models import zoo
+from face_detection_multi_scale_tpu_torch.models import quant as TQ
 from face_detection_multi_scale_tpu_torch.models.fused import find_elan_blocks
 from face_detection_multi_scale_tpu_torch.ops import elan_kernel as E
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
+from face_detection_multi_scale_tpu_torch.ops import qconv_kernel as QK
 from face_detection_multi_scale_tpu_torch.tools import probe_mm as PM
 
 pytestmark = pytest.mark.gpu
@@ -884,3 +886,103 @@ def test_ensemble_launches_the_kernel_once(cuda_device, monkeypatch):
                                    max_candidates=1024)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# the int8 conv (csrc/qconv.cu) and int8 serving
+# ---------------------------------------------------------------------------
+
+def qconv_case(b, h, w, cin, cout, k, groups, seed, device):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)
+    wq = rng.integers(-127, 128, (cout, k, k, cin // groups), dtype=np.int8)
+    alpha = rng.uniform(1e-5, 3e-4, cout).astype(np.float32)
+    bias = rng.normal(0, 0.5, cout).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, wq, alpha, bias)]
+
+
+def check_qconv(got, x, w, alpha, bias, inv_out, stride, pads, groups, act):
+    """The kernel's output equals the plain version's, except at most 1
+    apart where the plain pre-round value lies within 1e-4 of a half
+    integer (the activation's last bits)."""
+    z = QK.pre_round(QK.conv_sums(x, w, stride, pads, groups), alpha, bias,
+                     inv_out, act)
+    want = torch.clamp(torch.round(z), -127, 127).to(torch.int8)
+    assert got.shape == want.shape and got.dtype == torch.int8
+    diff = (got.int() - want.int()).abs()
+    near = (z - torch.floor(z) - 0.5).abs() < 1e-4
+    assert int(diff.max()) <= 1 and not bool(diff[~near].any())
+
+
+@pytest.mark.parametrize("act", list(QK.ACTS))
+@pytest.mark.parametrize("b,h,w,cin,cout,k,s,groups", [
+    (2, 17, 19, 3, 32, 3, 2, 1), (2, 16, 16, 12, 64, 3, 1, 1),
+    (1, 20, 20, 56, 104, 3, 2, 1), (2, 9, 11, 64, 64, 1, 1, 1),
+    (1, 13, 13, 216, 40, 3, 1, 1), (1, 8, 8, 1024, 512, 1, 1, 1),
+    (3, 33, 31, 104, 200, 1, 1, 1), (2, 15, 15, 24, 24, 3, 2, 24),
+    (2, 16, 16, 48, 48, 3, 1, 48), (1, 12, 12, 32, 64, 3, 1, 2)])
+def test_qconv_matches_plain(cuda_device, b, h, w, cin, cout, k, s, groups,
+                             act):
+    """Ragged Cin (3, 12, 56, 104, 216: 1-, 4- and 8-byte staging),
+    M and N not multiples of the 128 x 64 tile, 1x1 at 1024 channels,
+    depthwise and grouped convs, every activation."""
+    x, wq, alpha, bias = qconv_case(b, h, w, cin, cout, k, groups,
+                                    seed=cin + cout + k, device=cuda_device)
+    inv = torch.tensor(41.3)
+    launches, dw = QK.qconv.launches, QK.qconv.depthwise_launches
+    got = QK.qconv(x, wq, alpha, bias, inv, s, (k // 2, k // 2), groups, act)
+    torch.cuda.synchronize()
+    assert QK.qconv.launches == launches + 1
+    assert QK.qconv.depthwise_launches == dw + (groups > 1)
+    check_qconv(got, x, wq, alpha, bias, inv, s, (k // 2, k // 2), groups,
+                act)
+
+
+def test_qconv_misaligned_and_rejects(cuda_device):
+    """A tensor at an odd byte offset stages byte by byte and still agrees;
+    a non-contiguous input raises."""
+    x, wq, alpha, bias = qconv_case(1, 10, 10, 64, 64, 3, 1, 5, cuda_device)
+    flat = torch.empty(x.numel() + 1, dtype=torch.int8, device=cuda_device)
+    xo = flat[1:].view(x.shape)
+    xo.copy_(x)
+    got = QK.qconv(xo, wq, alpha, bias, 20.0, 1, (1, 1), 1, "silu")
+    check_qconv(got, x, wq, alpha, bias, 20.0, 1, (1, 1), 1, "silu")
+    with pytest.raises(ValueError, match="contiguous"):
+        QK.qconv(x.transpose(1, 2), wq, alpha, bias, 20.0, 1, (1, 1))
+
+
+@pytest.mark.parametrize("name", ["yolov7-tiny-face", "yolov7-lite-t"])
+def test_int8_engine_on_card_matches_cpu_postprocess(cuda_device, name):
+    """An int8 detector on the card: one qconv launch per conv of the walk
+    and one nms_keep launch a request; raws within 1e-2 of max |raw| per
+    level of the same walk with the plain conv swapped in; Detections
+    equal to the CPU postprocess of the same rows."""
+    frames = np.random.default_rng(0).integers(0, 256, (2, 128, 128, 3),
+                                               dtype=np.uint8)
+    det = FaceDetector(name, img_sizes=(128,), conf_thres=0.01,
+                       max_candidates=512, quantize="int8",
+                       calib_images=frames, device=cuda_device)
+    convs = len(det._qparams["convs"])
+    grouped = sum(q["w"].shape[-1] == 1 and q["w"].shape[0] > 1
+                  for q in det._qparams["convs"].values())
+    seq, launches = K.nms_keep.launches, QK.qconv.launches
+    dw = QK.qconv.depthwise_launches
+    dets = det.run_network(frames)
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == seq + 1
+    assert QK.qconv.launches == launches + convs
+    assert QK.qconv.depthwise_launches == dw + grouped
+    x = torch.from_numpy(frames).to(cuda_device).float() / 255.0
+    raws = det._forward(x)
+    TQ.qconv = QK.qconv_plain
+    try:
+        plain = det._forward(x)
+    finally:
+        TQ.qconv = QK.qconv
+    for g, p in zip(raws, plain):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - p).abs().max()) <= 1e-2 * float(p.abs().max())
+    rows = det.forward_rows(frames)
+    for got, want in zip(det.postprocess(rows), det.postprocess(rows.cpu())):
+        assert torch.equal(got.cpu(), want)
+    assert dets.valid.any()

@@ -308,14 +308,18 @@ def test_export_and_save_detection_result_match_jax(helper_pair, tmp_path):
 
 
 def test_constructor_parameters_follow_jax():
-    """The port's FaceDetector takes the JAX FaceDetector's parameters in
-    its order up to tile_min_size (then `device`), so a positional call
-    builds the same serving mode; a mesh is not ported and raises."""
-    jnames = list(inspect.signature(JFaceDetector.__init__).parameters)
-    tnames = list(inspect.signature(TFaceDetector.__init__).parameters)
-    cut = jnames.index("tile_min_size") + 1
-    assert tnames[:cut] == jnames[:cut]
-    assert tnames[cut:] == ["device"]
+    """The port's FaceDetector takes every parameter of the JAX
+    FaceDetector in its order, through calib_images (then `device`), with
+    the JAX defaults, so a positional call builds the same serving mode; a
+    mesh is not ported and raises."""
+    jsig = inspect.signature(JFaceDetector.__init__).parameters
+    tsig = inspect.signature(TFaceDetector.__init__).parameters
+    jnames, tnames = list(jsig), list(tsig)
+    assert jnames[-2:] == ["quantize", "calib_images"]
+    assert tnames == jnames + ["device"]
+    for name in ("quantize", "calib_images", "tile_min_size", "fuse",
+                 "fuse_elan", "micro_batch", "mesh"):
+        assert tsig[name].default == jsig[name].default, name
     spec = narrowed(TZ, NAME)
     with pytest.raises(NotImplementedError, match="module 7"):
         TFaceDetector(spec, mesh=object(), device="cpu")
