@@ -161,11 +161,20 @@ Phases, each fatal on failure (nothing is caught to carry on):
      integer (their count printed); the walk with qconv_plain swapped in
      gives raws within 1e-2 of max |raw| per level; Detections equal to
      the CPU postprocess of the card's rows; printed, not gated: the int8
-     raws against the float32 model's. Times: the request (median, img/s),
-     and summed over one forward's convs the kernel, the plain version,
-     the bound (int8 operations at 1979 TOPS against x + w + out bytes at
-     3.35 TB/s, per conv the larger), torch._int_mm after an int8 im2col
-     (the non-grouped convs) and cuDNN bf16 convs of the same shapes
+     raws against the float32 model's. The launches of a request by route
+     (wgmma, split over a cluster, direct) equal what `qconv_plan` gives
+     its convs (w6 106 of 107 on wgmma, tiny 54 of 55, lite-t 21 direct,
+     w6 splitting some), and each captured conv's launched plan
+     (fdms_qconv_last_plan) equals `qconv_plan`'s. Times: the request
+     (median, img/s), the wrapper's host time a conv, and summed over one
+     forward's convs the kernel (CUDA events, and device time replayed
+     from a CUDA graph, by route and by class: 3x3 on maps of 40 px and
+     up, maps of 20 px and less), the mma route on the convs that take
+     wgmma (the first kernel's design, in the same run), the plain
+     version, the bound (int8 operations at 1979 TOPS against x + w + out
+     bytes at 3.35 TB/s, per conv the larger), torch._int_mm after an
+     int8 im2col (the non-grouped convs) and cuDNN bf16 convs of the same
+     shapes
  21. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
@@ -215,6 +224,7 @@ from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
 from face_detection_multi_scale_tpu_torch.ops import qconv_kernel as QK
 from face_detection_multi_scale_tpu_torch.tools import probe_mm as PM
+from face_detection_multi_scale_tpu_torch.tools import qconv_ab as QAB
 from face_detection_multi_scale_tpu_torch.tools.forward_format_ab import (
     kernel_profile)
 
@@ -260,6 +270,13 @@ INT8_MODELS = (("yolov7-w6-face", 0), ("yolov7-tiny-face", 1),
                ("yolov7-lite-t", 5))
 INT8_REQUESTS = 2
 INT8_RAW_SHARE = 1e-2  # kernel walk against the plain-conv walk, per level
+# a request's qconv launches on the wgmma route (all the rest: the stem on
+# mma; lite-t also 7 ragged convs on mma and 21 depthwise on direct)
+INT8_WGMMA = {"yolov7-w6-face": 106, "yolov7-tiny-face": 54,
+              "yolov7-lite-t": 34}
+# the first qconv design (mma.sync only), summed over w6's convs by the
+# same events, on an H100 80GB HBM3 at 700 W
+QCONV_WAS_MS = 7.929
 HALF_TOL = 1e-4
 T_START = time.perf_counter()
 
@@ -1547,21 +1564,42 @@ def library_int_mm(x, w, stride, pads):
     return torch._int_mm(a, bmat)
 
 
+def qconv_class(w: torch.Tensor, ho: int) -> str:
+    """The conv classes of the kernel's table: 3x3 on maps of 40 px and
+    up, maps of 20 px and less, the rest."""
+    if w.shape[1] == 3 and ho >= 40:
+        return "3x3 >= 40 px"
+    return "<= 20 px" if ho <= 20 else "other"
+
+
 @torch.inference_mode()
 def check_qconvs(calls, smi: str, tag: str):
     """Each captured conv: the kernel against the plain version on the
-    card, and kernel, plain, bound, _int_mm and cuDNN bf16 times. Returns
-    (sums, worst |kernel - plain|, near-half differences, elements)."""
-    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+    card, its launched plan against `qconv_plan`, and kernel (events and
+    graph-replayed device time, by route and class), mma route on the
+    wgmma convs, plain, bound, _int_mm and cuDNN bf16 times. Returns (sums,
+    worst |kernel - plain|, near-half differences, elements)."""
+    sums = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
             "bf16_cudnn_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
-            "bound_ms": 0.0, "ops_bound_ms": 0.0, "ops": 0.0}
+            "bound_ms": 0.0, "ops_bound_ms": 0.0, "ops": 0.0,
+            "mma_route_ms": 0.0, "mma_route_device_ms": 0.0,
+            "wgmma_route_ms": 0.0, "wgmma_route_device_ms": 0.0}
+    by_route, by_class = {}, {}
     worst = flips = elements = 0
     lib_convs = 0
     for args, kw in calls:
         x, w, alpha, bias, inv_out = args
         stride, pads, groups, act = (kw["stride"], kw["pads"],
                                      kw["groups"], kw["act"])
+        plan = QK.qconv_plan(*x.shape, w.shape[0], *w.shape[1:3], stride,
+                             groups, QK.ptr_align(x.data_ptr()),
+                             QK.ptr_align(w.data_ptr()), tuple(pads))
         got = QK.qconv(*args, **kw)
+        launched = QK.last_plan()
+        check(launched == plan.row(), f"{tag}: qconv.cu launched plan "
+                                      f"{launched} at {tuple(x.shape)} "
+                                      f"k{tuple(w.shape[1:3])} s{stride}, "
+                                      f"qconv_plan {plan.row()}")
         z = QK.pre_round(QK.conv_sums(x, w, stride, pads, groups), alpha,
                          bias, inv_out, act)
         want = torch.clamp(torch.round(z), -127, 127).to(torch.int8)
@@ -1571,12 +1609,14 @@ def check_qconvs(calls, smi: str, tag: str):
               and not bool(diff[~near].any()),
               f"{tag}: qconv differs from qconv_plain at {tuple(x.shape)} "
               f"-> {tuple(want.shape)} k{tuple(w.shape[1:3])} s{stride} "
-              f"g{groups} {act}: max {int(diff.max())}, "
-              f"{int((diff[~near] > 0).sum())} away from a half integer")
+              f"g{groups} {act} ({plan.route} route): max "
+              f"{int(diff.max())}, {int((diff[~near] > 0).sum())} away "
+              f"from a half integer")
         worst = max(worst, int(diff.max()))
         flips += int((diff > 0).sum())
         elements += want.numel()
         ms = cuda_ms(lambda: QK.qconv(*args, **kw), 5)
+        dev = QAB.graph_ms(lambda: QK.qconv(*args, **kw), 10)
         plain = cuda_ms(lambda: QK.qconv_plain(*args, **kw), 1)
         xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
         wb = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
@@ -1588,12 +1628,39 @@ def check_qconvs(calls, smi: str, tag: str):
         nbytes = x.numel() + w.numel() + want.numel() + 8 * want.shape[-1]
         t_o = ops / INT8_OPS_PER_S * 1e3
         t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        for key, v in (("ms", ms), ("plain_ms", plain),
+        for key, v in (("ms", ms), ("device_ms", dev), ("plain_ms", plain),
                        ("bf16_cudnn_ms", cudnn), ("t_ops", t_o),
                        ("t_bytes", t_b), ("ops", ops)):
             sums[key] += v
         sums["ops_bound_ms"] += t_o if t_o >= t_b else 0.0
         sums["bound_ms"] += max(t_o, t_b)
+        for table, key in ((by_route, plan.route),
+                           (by_class, qconv_class(w, want.shape[1]))):
+            row = table.setdefault(key, {"convs": 0, "ms": 0.0,
+                                         "device_ms": 0.0, "ops": 0.0,
+                                         "bound_ms": 0.0})
+            row["convs"] += 1
+            row["ms"] += ms
+            row["device_ms"] += dev
+            row["ops"] += ops
+            row["bound_ms"] += max(t_o, t_b)
+        if plan.route == "wgmma":
+            # the first kernel's design (the mma route) on the same conv
+            mma = QK._route_plan("mma", *x.shape, w.shape[0],
+                                 *w.shape[1:3], stride, groups,
+                                 QK.ptr_align(x.data_ptr()),
+                                 QK.ptr_align(w.data_ptr()), tuple(pads))
+
+            def launch_mma():
+                return QK._launch(mma, *args, stride, pads, groups, act)
+
+            check(torch.equal(launch_mma(), got),
+                  f"{tag}: the mma route differs from the wgmma route at "
+                  f"{tuple(x.shape)} k{tuple(w.shape[1:3])} s{stride}")
+            sums["mma_route_ms"] += cuda_ms(launch_mma, 5)
+            sums["mma_route_device_ms"] += QAB.graph_ms(launch_mma, 10)
+            sums["wgmma_route_ms"] += ms
+            sums["wgmma_route_device_ms"] += dev
         if groups == 1:
             sums["library_ms"] += cuda_ms(
                 lambda: library_int_mm(x, w, stride, pads), 5)
@@ -1601,16 +1668,30 @@ def check_qconvs(calls, smi: str, tag: str):
     sums["library_convs"] = lib_convs
     sums["bound_by"] = ("operations" if sums["ops_bound_ms"]
                         >= sums["bound_ms"] / 2 else "bytes")
+    for table in (by_route, by_class):
+        for row in table.values():
+            row["tops"] = row["ops"] / row["device_ms"] / 1e9
+    sums["by_route"], sums["by_class"] = by_route, by_class
     print(f"qconv {tag} b{BATCH}@{SIZE} on {smi}, sums over {len(calls)} "
-          f"convs: kernel {sums['ms']:.3f} ms "
-          f"({sums['ops'] / sums['ms'] / 1e9:.1f} TOPS effective), plain "
-          f"{sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.4f} ms by "
-          f"{sums['bound_by']} (ops alone {sums['t_ops']:.4f}, bytes alone "
-          f"{sums['t_bytes']:.4f}), torch._int_mm after im2col "
+          f"convs: kernel {sums['ms']:.3f} ms by events, "
+          f"{sums['device_ms']:.3f} device ms replayed from a CUDA graph "
+          f"({sums['ops'] / sums['device_ms'] / 1e9:.1f} TOPS effective), "
+          f"plain {sums['plain_ms']:.3f} ms, bound {sums['bound_ms']:.4f} ms "
+          f"by {sums['bound_by']} (ops alone {sums['t_ops']:.4f}, bytes "
+          f"alone {sums['t_bytes']:.4f}), torch._int_mm after im2col "
           f"{sums['library_ms']:.3f} ms over the {lib_convs} non-grouped "
-          f"convs, cuDNN bf16 {sums['bf16_cudnn_ms']:.3f} ms; kernel vs "
-          f"plain: {flips} of {elements} outputs 1 apart, all within "
-          f"{HALF_TOL} of a half integer")
+          f"convs, cuDNN bf16 {sums['bf16_cudnn_ms']:.3f} ms; on the convs "
+          f"that take wgmma: wgmma {sums['wgmma_route_ms']:.3f} ms "
+          f"({sums['wgmma_route_device_ms']:.3f} device), the mma route "
+          f"{sums['mma_route_ms']:.3f} ms "
+          f"({sums['mma_route_device_ms']:.3f} device); kernel vs plain: "
+          f"{flips} of {elements} outputs 1 apart, all within {HALF_TOL} of "
+          f"a half integer; every launched plan == qconv_plan")
+    for what, table in (("route", by_route), ("class", by_class)):
+        print(f"qconv {tag} by {what}: " + "; ".join(
+            f"{k}: {r['convs']} convs, {r['ms']:.3f} ms events, "
+            f"{r['device_ms']:.4f} device ms, {r['tops']:.1f} TOPS, bound "
+            f"{r['bound_ms']:.4f}" for k, r in table.items()))
     return sums, worst, flips, elements
 
 
@@ -1643,6 +1724,7 @@ def drive_int8(smi: str, frames_by_model) -> dict:
         K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
         E.fused_elan.launches = E.fused_elan.bf16_launches = 0
         QK.qconv.launches = QK.qconv.depthwise_launches = 0
+        QK.qconv.wgmma_launches = QK.qconv.split_launches = 0
         times = []
         try:
             for r in range(INT8_REQUESTS):
@@ -1658,7 +1740,9 @@ def drive_int8(smi: str, frames_by_model) -> dict:
                   "fixpoint": K.nms_keep.fixpoint_launches,
                   "fused": E.fused_elan.launches + E.fused_elan.bf16_launches}
         qc = {"qconv": QK.qconv.launches,
-              "depthwise": QK.qconv.depthwise_launches}
+              "depthwise": QK.qconv.depthwise_launches,
+              "wgmma": QK.qconv.wgmma_launches,
+              "split": QK.qconv.split_launches}
         check(counts == {"seq": INT8_REQUESTS, "fixpoint": 0, "fused": 0},
               f"{tag}: launches {counts}, want {INT8_REQUESTS} nms_keep")
         check(qc["qconv"] == INT8_REQUESTS * len(convs) > 0
@@ -1672,7 +1756,10 @@ def drive_int8(smi: str, frames_by_model) -> dict:
               f"ms/batch {[round(v, 3) for v in ms]}, median "
               f"{np.median(ms):.3f}, img/s {BATCH / np.median(times):.1f}; "
               f"launches a request: qconv {qc['qconv'] // INT8_REQUESTS} "
-              f"({qc['depthwise'] // INT8_REQUESTS} direct), nms_keep 1; "
+              f"({qc['wgmma'] // INT8_REQUESTS} wgmma, "
+              f"{qc['split'] // INT8_REQUESTS} of them split over a "
+              f"cluster; {qc['depthwise'] // INT8_REQUESTS} direct; the "
+              f"rest mma), nms_keep 1; "
               f"kept per image {dets.valid.sum(1).cpu().tolist()}")
 
         # where a request's time goes: forward+decode, postprocess, and
@@ -1699,6 +1786,25 @@ def drive_int8(smi: str, frames_by_model) -> dict:
         raws, calls = capture_qconvs(det, x)
         check(len(calls) == len(convs), f"{tag}: captured {len(calls)} "
                                         f"convs, want {len(convs)}")
+        # the request's launches by route are what the plans of its convs
+        # give: w6 106 wgmma, tiny 54, lite-t 34 (and 21 direct)
+        routes = [QK.qconv_plan(*a[0].shape, a[1].shape[0],
+                                *a[1].shape[1:3], k["stride"], k["groups"],
+                                QK.ptr_align(a[0].data_ptr()),
+                                QK.ptr_align(a[1].data_ptr()),
+                                tuple(k["pads"])) for a, k in calls]
+        planned = {"wgmma": sum(p.route == "wgmma" for p in routes),
+                   "split": sum(p.split > 1 for p in routes),
+                   "depthwise": sum(p.route == "direct" for p in routes)}
+        check(all(qc[key] == INT8_REQUESTS * v for key, v in planned.items())
+              and planned["wgmma"] == INT8_WGMMA[name]
+              and (name != "yolov7-w6-face" or planned["split"] > 0),
+              f"{tag}: qconv launches by route {qc}, planned {planned} a "
+              f"request ({INT8_WGMMA[name]} wgmma)")
+        host_us = QAB.host_us(QK.qconv, calls)
+        print(f"{tag}: the qconv wrapper's host time {host_us:.2f} us a "
+              f"conv (median of 5 passes over the {len(calls)} convs, no "
+              f"synchronize)")
         sums, w_, f_, e_ = check_qconvs(calls, smi, tag)
         worst, flips, elements = max(worst, w_), flips + f_, elements + e_
         del calls
@@ -1727,7 +1833,8 @@ def drive_int8(smi: str, frames_by_model) -> dict:
               f"max |raw| {[f'{v:.4g}' for v in err]}, correlation "
               f"{[f'{v:.6f}' for v in corr]}")
         by_model[name] = {
-            "ms": sums["ms"], "plain_ms": sums["plain_ms"],
+            "ms": sums["ms"], "device_ms": sums["device_ms"],
+            "plain_ms": sums["plain_ms"],
             "bound_ms": sums["bound_ms"], "bound_by": sums["bound_by"],
             "library_ms": sums["library_ms"],
             "bf16_cudnn_ms": sums["bf16_cudnn_ms"], "convs": len(convs),
@@ -1735,7 +1842,13 @@ def drive_int8(smi: str, frames_by_model) -> dict:
             "img_per_s": BATCH / float(np.median(times)),
             "forward_decode_ms": fwd_ms, "postprocess_ms": post_ms,
             "device_busy_share": busy,
-            "traced_ms": sum(k["ms"] for k in traced)}
+            "traced_ms": sum(k["ms"] for k in traced),
+            "host_us_per_conv": host_us,
+            "wgmma_route_ms": sums["wgmma_route_ms"],
+            "wgmma_route_device_ms": sums["wgmma_route_device_ms"],
+            "mma_route_ms": sums["mma_route_ms"],
+            "mma_route_device_ms": sums["mma_route_device_ms"],
+            "by_route": sums["by_route"], "by_class": sums["by_class"]}
         del det, raws, raws_plain, raws_f32
         torch.cuda.empty_cache()
         stamp(f"path {tag} done")
@@ -1747,9 +1860,16 @@ def drive_int8(smi: str, frames_by_model) -> dict:
         "launches": sum(c["qconv"] for c in launches_by_path.values()),
         "depthwise_launches": sum(c["depthwise"]
                                   for c in launches_by_path.values()),
+        "wgmma_launches": sum(c["wgmma"] for c in launches_by_path.values()),
+        "split_launches": sum(c["split"] for c in launches_by_path.values()),
         "launches_by_path": launches_by_path,
         "max_abs_err": worst, "half_integer_flips": flips,
         "elements": elements, "ms": w6["ms"], "card_ms": w6["ms"],
+        "was_ms": QCONV_WAS_MS, "device_ms": w6["device_ms"],
+        "mma_route_ms": w6["mma_route_ms"],
+        "wgmma_route_ms": w6["wgmma_route_ms"],
+        "by_route": w6["by_route"], "by_class": w6["by_class"],
+        "host_us_per_conv": w6["host_us_per_conv"],
         "plain_ms": w6["plain_ms"], "bound_ms": w6["bound_ms"],
         "traced_ms": w6["traced_ms"],
         "bound_by": w6["bound_by"], "library_ms": w6["library_ms"],

@@ -22,17 +22,28 @@ refuses int8, and `torch._int_mm` is a bare GEMM whose im2col and int32
 output would each cost a pass over memory), so there is no library conv
 to call.
 
+The source has three routes, and `qconv_plan` (plain Python, one
+definition) picks one for a conv and its tile and K split: "wgmma" (s8
+wgmma fed by TMA, split over a cluster on small grids) for groups == 1
+with 16-byte channel runs and pointers, "mma" (mma.sync, cp.async) for
+the rest of groups == 1, "direct" for groups > 1. The wrapper passes the
+plan to the library, which launches it or fails (never another route) and
+reports what it launched (`last_plan`).
+
 On a CPU tensor `qconv` runs `qconv_plain`; on a CUDA tensor it launches
-the kernel or raises. `qconv.launches` counts the kernel's launches,
-`qconv.depthwise_launches` those of them that took the direct path of a
-grouped conv (depthwise in the zoo).
+the kernel or raises. `qconv.launches` counts the kernel's launches;
+`qconv.depthwise_launches`, `qconv.wgmma_launches` and
+`qconv.split_launches` those of them on the direct route (grouped convs,
+depthwise in the zoo), on the wgmma route, and with K split over a
+cluster.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,6 +97,134 @@ def qconv_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
     return torch.clamp(torch.round(z), -127, 127).to(torch.int8)
 
 
+ROUTES = {"direct": 0, "mma": 1, "wgmma": 2}
+# the plan's constants: csrc/qconv.cu's tiles, and the card's SMs
+WGMMA_BM = 128          # output pixels a wgmma block
+MMA_TILE = (128, 64, 64)  # the mma route's pixels, channels, K bytes
+DIRECT_THREADS = 256
+SMS = 132               # H100 SXM
+SPLIT_MAX = 8           # the portable cluster size
+SPLIT_MIN_STEPS = 2     # K steps a block of a split keeps at least
+SPLIT_REDUCE_STEPS = 4  # what rank 0 pays to add one partial tile, in steps
+
+
+@dataclasses.dataclass(frozen=True)
+class QconvPlan:
+    """One launch of csrc/qconv.cu: the route, the tile (bm pixels x bn
+    channels, bk K bytes a step; 0 on the direct route), the blocks that
+    split each tile's K steps (one cluster), the K steps of a tile, the
+    grid and the mma route's copy width (16 on wgmma, 0 on direct). The
+    wgmma route's grid is (tiles * split, 1) when it splits, else (at most
+    SMS, 1) blocks that walk the tiles; the mma route's is (M tiles, N
+    tiles)."""
+    route: str
+    bm: int
+    bn: int
+    bk: int
+    split: int
+    k_steps: int
+    grid: Tuple[int, int]
+    vec: int
+
+    def row(self) -> Tuple[int, ...]:
+        """The plan as fdms_qconv_last_plan reports it."""
+        return (ROUTES[self.route], self.bm, self.bn, self.bk, self.split,
+                self.k_steps, *self.grid, self.vec)
+
+
+def ptr_align(ptr: int) -> int:
+    """The alignment of a pointer in bytes, up to 16."""
+    return min(16, ptr & -ptr) if ptr else 16
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wgmma_span(cin: int) -> int:
+    """K bytes a wgmma step: the widest of 128, 64, 32 that divides Cin
+    (32 for a Cin of 16 mod 32, whose last run per tap is half zeros)."""
+    return 128 if cin % 128 == 0 else 64 if cin % 64 == 0 else 32
+
+
+def takes_wgmma(cin: int, kh: int, kw: int, stride: int, groups: int,
+                pads: Tuple[int, int], x_ptr_align: int,
+                w_ptr_align: int) -> bool:
+    """Whether TMA and the wgmma tile take the conv: 16-byte channel runs
+    and pointers, the im2col window corners -pad and pad - (k - 1) in
+    [-128, 127], a traversal stride of at most 8."""
+    return (groups == 1 and cin % 16 == 0 and x_ptr_align % 16 == 0
+            and w_ptr_align % 16 == 0 and stride <= 8
+            and max(pads) <= 127 and min(pads[0] - kh + 1,
+                                         pads[1] - kw + 1) >= -128)
+
+
+def split_for(tiles: int, k_steps: int) -> int:
+    """The blocks of a cluster that share a tile's K steps: the divisor
+    s <= SPLIT_MAX of the steps that keeps the grid to one wave (tiles * s
+    <= SMS, a block an SM) and minimises the steps a block + the reduction
+    (SPLIT_REDUCE_STEPS a partial tile), keeping SPLIT_MIN_STEPS steps a
+    block."""
+    best, cost = 1, k_steps
+    for s in range(2, SPLIT_MAX + 1):
+        if k_steps % s or k_steps // s < SPLIT_MIN_STEPS or tiles * s > SMS:
+            continue
+        c = k_steps // s + SPLIT_REDUCE_STEPS * (s - 1)
+        if c < cost:
+            best, cost = s, c
+    return best
+
+
+def _route_plan(route: str, b: int, h: int, w: int, cin: int, cout: int,
+                kh: int, kw: int, stride: int, groups: int,
+                x_ptr_align: int, w_ptr_align: int,
+                pads: Tuple[int, int], split: Optional[int] = None
+                ) -> QconvPlan:
+    """The plan of `route` for the conv (whether the route takes it is the
+    caller's question); `split` overrides the wgmma route's choice."""
+    ho, wo = out_hw(h, w, (kh, kw), stride, pads)
+    m = b * ho * wo
+    if route == "direct":
+        return QconvPlan("direct", 0, 0, 0, 1, 0,
+                         (_cdiv(m * cout, DIRECT_THREADS), 1), 0)
+    if route == "mma":
+        bm, bn, bk = MMA_TILE
+        vec = next((v for v in (16, 8, 4) if cin % v == 0
+                    and x_ptr_align % v == 0 and w_ptr_align % v == 0), 1)
+        return QconvPlan("mma", bm, bn, bk, 1, _cdiv(kh * kw * cin, bk),
+                         (_cdiv(m, bm), _cdiv(cout, bn)), vec)
+    span = wgmma_span(cin)
+    steps = kh * kw * _cdiv(cin, span)
+    bn = 128 if cout % 128 == 0 else 64
+    tiles = _cdiv(m, WGMMA_BM) * _cdiv(cout, bn)
+    s = split_for(tiles, steps) if split is None else split
+    # split: one cluster a tile; else persistent, at most a block an SM
+    blocks = tiles * s if s > 1 else min(tiles, SMS)
+    return QconvPlan("wgmma", WGMMA_BM, bn, span, s, steps, (blocks, 1), 16)
+
+
+@functools.lru_cache(maxsize=4096)
+def qconv_plan(b: int, h: int, w: int, cin: int, cout: int, kh: int,
+               kw: int, stride: int, groups: int, x_ptr_align: int,
+               w_ptr_align: int, pads: Optional[Tuple[int, int]] = None
+               ) -> QconvPlan:
+    """The launch `qconv` makes for a conv of x (b, h, w, cin), w (cout,
+    kh, kw, cin / groups) at `stride` and `pads` (default k // 2), with x
+    and w at pointers aligned to x_ptr_align and w_ptr_align bytes: the
+    direct route for groups > 1, the wgmma route where TMA takes the conv
+    (`takes_wgmma`), else the mma route."""
+    pads = (kh // 2, kw // 2) if pads is None else tuple(pads)
+    if groups > 1:
+        route = "direct"
+    elif takes_wgmma(cin, kh, kw, stride, groups, pads, x_ptr_align,
+                     w_ptr_align):
+        route = "wgmma"
+    else:
+        route = "mma"
+    return _route_plan(route, b, h, w, cin, cout, kh, kw, stride, groups,
+                       x_ptr_align, w_ptr_align, pads)
+
+
 def build():
     """Compile csrc/qconv.cu (once per source and flags); returns the
     shared library's path."""
@@ -97,9 +236,19 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fdms_qconv.argtypes = [vp, vp, vp, vp, ctypes.c_float, vp] \
-        + [i32] * 13 + [vp]
+        + [i32] * 18 + [vp]
     lib.fdms_qconv.restype = i32
+    lib.fdms_qconv_last_plan.argtypes = [vp]
+    lib.fdms_qconv_last_plan.restype = None
     return lib
+
+
+def last_plan() -> Tuple[int, ...]:
+    """The plan of the library's last accepted launch, as `QconvPlan.row`
+    (route -1 when its last call launched nothing)."""
+    out = (ctypes.c_longlong * 9)()
+    _library().fdms_qconv_last_plan(ctypes.addressof(out))
+    return tuple(out)
 
 
 def qconv(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
@@ -143,19 +292,45 @@ def qconv(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
         raise ValueError("x, w, alpha and bias must be contiguous")
     if max(x.numel(), w.numel(), b * ho * wo * cout) >= 2 ** 31:
         raise ValueError("tensor too large for the kernel's indexing")
+    plan = qconv_plan(b, h, wd, cin, cout, kh, kw, stride, groups,
+                      ptr_align(x.data_ptr()), ptr_align(w.data_ptr()),
+                      tuple(pads))
+    return _launch(plan, x, w, alpha, bias, inv_out, stride, pads, groups,
+                   act)
+
+
+def _launch(plan: QconvPlan, x: torch.Tensor, w: torch.Tensor,
+            alpha: torch.Tensor, bias: torch.Tensor, inv_out, stride: int,
+            pads: Tuple[int, int], groups: int, act: str) -> torch.Tensor:
+    """Launch `plan` on checked CUDA tensors; raises if the library
+    refuses it. Counts the launch by route."""
+    b, h, wd, cin = x.shape
+    cout, kh, kw, _ = w.shape
+    ho, wo = out_hw(h, wd, (kh, kw), stride, pads)
     y = torch.empty((b, ho, wo, cout), dtype=torch.int8, device=x.device)
     err = _library().fdms_qconv(
         x.data_ptr(), w.data_ptr(), alpha.data_ptr(), bias.data_ptr(),
         float(inv_out), y.data_ptr(), b, h, wd, cin, cout, kh, kw, stride,
-        pads[0], pads[1], groups, ACTS[act], x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        pads[0], pads[1], groups, ACTS[act], ROUTES[plan.route], plan.bn,
+        plan.split, plan.grid[0], plan.vec, x.device.index,
+        # the raw stream handle: torch.cuda.current_stream builds a Stream
+        # object, about 6 of the ~40 us of host time a conv took on an H100
+        # machine
+        torch._C._cuda_getCurrentRawStream(x.device.index))
     if err != 0:
-        raise RuntimeError(f"qconv kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"qconv kernel launch failed ({plan.route} "
+                           f"route): CUDA error {err}")
     qconv.launches += 1
-    if groups > 1:
+    if plan.route == "direct":
         qconv.depthwise_launches += 1
+    elif plan.route == "wgmma":
+        qconv.wgmma_launches += 1
+        if plan.split > 1:
+            qconv.split_launches += 1
     return y
 
 
 qconv.launches = 0
 qconv.depthwise_launches = 0
+qconv.wgmma_launches = 0
+qconv.split_launches = 0

@@ -920,32 +920,84 @@ def check_qconv(got, x, w, alpha, bias, inv_out, stride, pads, groups, act):
     (1, 20, 20, 56, 104, 3, 2, 1), (2, 9, 11, 64, 64, 1, 1, 1),
     (1, 13, 13, 216, 40, 3, 1, 1), (1, 8, 8, 1024, 512, 1, 1, 1),
     (3, 33, 31, 104, 200, 1, 1, 1), (2, 15, 15, 24, 24, 3, 2, 24),
-    (2, 16, 16, 48, 48, 3, 1, 48), (1, 12, 12, 32, 64, 3, 1, 2)])
+    (2, 16, 16, 48, 48, 3, 1, 48), (1, 12, 12, 32, 64, 3, 1, 2),
+    # the wgmma route at w6's shapes: a 10-px map at b8 (M = 800) that
+    # splits K four ways, 1x1 convs that split two ways, 3x3 stride 2,
+    # Cout 192 and 960 (N tiles of 64), 1280 channels
+    (8, 10, 10, 512, 512, 3, 1, 1), (8, 10, 10, 1024, 512, 1, 1, 1),
+    (2, 40, 40, 128, 256, 3, 2, 1), (2, 20, 20, 384, 192, 3, 1, 1),
+    (2, 20, 20, 384, 960, 3, 1, 1), (2, 10, 10, 512, 1280, 1, 1, 1),
+    # 64- and 32-byte K steps, a Cin of 16 mod 32 (half-empty last runs),
+    # an N tail and a Cout that is not a multiple of 16
+    (2, 24, 24, 64, 128, 3, 1, 1), (2, 17, 23, 32, 64, 3, 2, 1),
+    (2, 13, 11, 48, 96, 3, 1, 1), (2, 12, 12, 16, 48, 1, 1, 1),
+    (1, 9, 9, 64, 40, 3, 1, 1),
+    # more tiles than blocks: each persistent block walks several
+    (8, 64, 64, 32, 64, 3, 1, 1), (4, 80, 80, 128, 256, 3, 1, 1)])
 def test_qconv_matches_plain(cuda_device, b, h, w, cin, cout, k, s, groups,
                              act):
     """Ragged Cin (3, 12, 56, 104, 216: 1-, 4- and 8-byte staging),
-    M and N not multiples of the 128 x 64 tile, 1x1 at 1024 channels,
-    depthwise and grouped convs, every activation."""
+    M and N not multiples of the tile, 1x1 at 1024 channels, depthwise
+    and grouped convs, every activation; every route (wgmma for 16-byte
+    channel runs, split over a cluster on small grids), each counted, and
+    the library's launched plan equal to `qconv_plan`'s."""
     x, wq, alpha, bias = qconv_case(b, h, w, cin, cout, k, groups,
                                     seed=cin + cout + k, device=cuda_device)
     inv = torch.tensor(41.3)
-    launches, dw = QK.qconv.launches, QK.qconv.depthwise_launches
-    got = QK.qconv(x, wq, alpha, bias, inv, s, (k // 2, k // 2), groups, act)
+    pads = (k // 2, k // 2)
+    plan = QK.qconv_plan(b, h, w, cin, cout, k, k, s, groups,
+                         QK.ptr_align(x.data_ptr()),
+                         QK.ptr_align(wq.data_ptr()), pads)
+    want_route = ("direct" if groups > 1 else
+                  "wgmma" if cin % 16 == 0 else "mma")
+    assert plan.route == want_route
+    before = (QK.qconv.launches, QK.qconv.depthwise_launches,
+              QK.qconv.wgmma_launches, QK.qconv.split_launches)
+    got = QK.qconv(x, wq, alpha, bias, inv, s, pads, groups, act)
     torch.cuda.synchronize()
-    assert QK.qconv.launches == launches + 1
-    assert QK.qconv.depthwise_launches == dw + (groups > 1)
-    check_qconv(got, x, wq, alpha, bias, inv, s, (k // 2, k // 2), groups,
-                act)
+    assert QK.last_plan() == plan.row()
+    after = (QK.qconv.launches, QK.qconv.depthwise_launches,
+             QK.qconv.wgmma_launches, QK.qconv.split_launches)
+    assert [a - c for a, c in zip(after, before)] == [
+        1, plan.route == "direct", plan.route == "wgmma",
+        plan.route == "wgmma" and plan.split > 1]
+    check_qconv(got, x, wq, alpha, bias, inv, s, pads, groups, act)
+
+
+@pytest.mark.parametrize("split", [1, 2, 3, 6])
+def test_qconv_wgmma_splits(cuda_device, split):
+    """Every K split of a 10-px 3x3 conv (18 K steps), and asymmetric pads,
+    on the wgmma route equal the plain version and the mma route bit for
+    bit."""
+    x, wq, alpha, bias = qconv_case(2, 10, 10, 256, 128, 3, 1, 7,
+                                    cuda_device)
+    args = (x, wq, alpha, bias, 17.5)
+    for pads in ((1, 1), (1, 0), (0, 2)):
+        plan = QK._route_plan("wgmma", 2, 10, 10, 256, 128, 3, 3, 1, 1, 16,
+                              16, pads, split=split)
+        assert plan.split == split and plan.k_steps == 18
+        splits = QK.qconv.split_launches
+        got = QK._launch(plan, *args, 1, pads, 1, "silu")
+        torch.cuda.synchronize()
+        assert QK.last_plan() == plan.row()
+        assert QK.qconv.split_launches == splits + (split > 1)
+        check_qconv(got, x, wq, alpha, bias, 17.5, 1, pads, 1, "silu")
+        mma = QK._route_plan("mma", 2, 10, 10, 256, 128, 3, 3, 1, 1, 16, 16,
+                             pads)
+        assert torch.equal(got, QK._launch(mma, *args, 1, pads, 1, "silu"))
 
 
 def test_qconv_misaligned_and_rejects(cuda_device):
-    """A tensor at an odd byte offset stages byte by byte and still agrees;
-    a non-contiguous input raises."""
+    """A tensor at an odd byte offset takes the mma route, stages byte by
+    byte and still agrees; a non-contiguous input raises."""
     x, wq, alpha, bias = qconv_case(1, 10, 10, 64, 64, 3, 1, 5, cuda_device)
     flat = torch.empty(x.numel() + 1, dtype=torch.int8, device=cuda_device)
     xo = flat[1:].view(x.shape)
     xo.copy_(x)
+    wgmma = QK.qconv.wgmma_launches
     got = QK.qconv(xo, wq, alpha, bias, 20.0, 1, (1, 1), 1, "silu")
+    assert QK.last_plan()[0] == QK.ROUTES["mma"]  # TMA needs 16 bytes
+    assert QK.qconv.wgmma_launches == wgmma
     check_qconv(got, x, wq, alpha, bias, 20.0, 1, (1, 1), 1, "silu")
     with pytest.raises(ValueError, match="contiguous"):
         QK.qconv(x.transpose(1, 2), wq, alpha, bias, 20.0, 1, (1, 1))
