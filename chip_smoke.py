@@ -163,14 +163,15 @@ Phases, each fatal on failure (nothing is caught to carry on):
      the CPU postprocess of the card's rows; printed, not gated: the int8
      raws against the float32 model's. The launches of a request by route
      (wgmma, split over a cluster, direct) equal what `qconv_plan` gives
-     its convs (w6 106 of 107 on wgmma, tiny 54 of 55, lite-t 21 direct,
-     w6 splitting some), and each captured conv's launched plan
+     its convs (w6 106 of 107 on wgmma, tiny 54 of 55, lite-t 29 and 21
+     direct, w6 splitting some), and each captured conv's launched plan
      (fdms_qconv_last_plan) equals `qconv_plan`'s. Times: the request
      (median, img/s), the wrapper's host time a conv, and summed over one
      forward's convs the kernel (CUDA events, and device time replayed
      from a CUDA graph, by route and by class: 3x3 on maps of 40 px and
      up, maps of 20 px and less), the mma route on the convs that take
-     wgmma (the first kernel's design, in the same run), the plain
+     wgmma (the first kernel's design, in the same run), the wgmma route
+     on the convs TMA takes that the route rule keeps on mma, the plain
      version, the bound (int8 operations at 1979 TOPS against x + w + out
      bytes at 3.35 TB/s, per conv the larger), torch._int_mm after an
      int8 im2col (the non-grouped convs) and cuDNN bf16 convs of the same
@@ -271,12 +272,10 @@ INT8_MODELS = (("yolov7-w6-face", 0), ("yolov7-tiny-face", 1),
 INT8_REQUESTS = 2
 INT8_RAW_SHARE = 1e-2  # kernel walk against the plain-conv walk, per level
 # a request's qconv launches on the wgmma route (all the rest: the stem on
-# mma; lite-t also 7 ragged convs on mma and 21 depthwise on direct)
+# mma; lite-t also 7 ragged and 5 short-K convs on mma, 21 depthwise on
+# direct)
 INT8_WGMMA = {"yolov7-w6-face": 106, "yolov7-tiny-face": 54,
-              "yolov7-lite-t": 34}
-# the first qconv design (mma.sync only), summed over w6's convs by the
-# same events, on an H100 80GB HBM3 at 700 W
-QCONV_WAS_MS = 7.929
+              "yolov7-lite-t": 29}
 HALF_TOL = 1e-4
 T_START = time.perf_counter()
 
@@ -1583,7 +1582,9 @@ def check_qconvs(calls, smi: str, tag: str):
             "bf16_cudnn_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
             "bound_ms": 0.0, "ops_bound_ms": 0.0, "ops": 0.0,
             "mma_route_ms": 0.0, "mma_route_device_ms": 0.0,
-            "wgmma_route_ms": 0.0, "wgmma_route_device_ms": 0.0}
+            "wgmma_route_ms": 0.0, "wgmma_route_device_ms": 0.0,
+            "ruled_convs": 0, "ruled_mma_device_ms": 0.0,
+            "ruled_wgmma_device_ms": 0.0}
     by_route, by_class = {}, {}
     worst = flips = elements = 0
     lib_convs = 0
@@ -1591,9 +1592,7 @@ def check_qconvs(calls, smi: str, tag: str):
         x, w, alpha, bias, inv_out = args
         stride, pads, groups, act = (kw["stride"], kw["pads"],
                                      kw["groups"], kw["act"])
-        plan = QK.qconv_plan(*x.shape, w.shape[0], *w.shape[1:3], stride,
-                             groups, QK.ptr_align(x.data_ptr()),
-                             QK.ptr_align(w.data_ptr()), tuple(pads))
+        plan = QK.plan_for(x, w, stride, pads, groups)
         got = QK.qconv(*args, **kw)
         launched = QK.last_plan()
         check(launched == plan.row(), f"{tag}: qconv.cu launched plan "
@@ -1661,6 +1660,25 @@ def check_qconvs(calls, smi: str, tag: str):
             sums["mma_route_device_ms"] += QAB.graph_ms(launch_mma, 10)
             sums["wgmma_route_ms"] += ms
             sums["wgmma_route_device_ms"] += dev
+        elif plan.route == "mma" and QK.takes_wgmma(
+                x.shape[3], *w.shape[1:3], stride, groups, tuple(pads),
+                QK.ptr_align(x.data_ptr()), QK.ptr_align(w.data_ptr())):
+            # a conv the route rule keeps off wgmma (K < WGMMA_MIN_K): the
+            # wgmma route on it, so each run shows the rule's choice
+            wg = QK._route_plan("wgmma", *x.shape, w.shape[0],
+                                *w.shape[1:3], stride, groups, 16, 16,
+                                tuple(pads),
+                                sms=QK.device_sms(x.get_device()))
+
+            def launch_wgmma():
+                return QK._launch(wg, *args, stride, pads, groups, act)
+
+            check(torch.equal(launch_wgmma(), got),
+                  f"{tag}: the wgmma route differs from the mma route at "
+                  f"{tuple(x.shape)} k{tuple(w.shape[1:3])} s{stride}")
+            sums["ruled_convs"] += 1
+            sums["ruled_mma_device_ms"] += dev
+            sums["ruled_wgmma_device_ms"] += QAB.graph_ms(launch_wgmma, 10)
         if groups == 1:
             sums["library_ms"] += cuda_ms(
                 lambda: library_int_mm(x, w, stride, pads), 5)
@@ -1684,7 +1702,11 @@ def check_qconvs(calls, smi: str, tag: str):
           f"that take wgmma: wgmma {sums['wgmma_route_ms']:.3f} ms "
           f"({sums['wgmma_route_device_ms']:.3f} device), the mma route "
           f"{sums['mma_route_ms']:.3f} ms "
-          f"({sums['mma_route_device_ms']:.3f} device); kernel vs plain: "
+          f"({sums['mma_route_device_ms']:.3f} device); on the "
+          f"{sums['ruled_convs']} convs the route rule keeps on mma (K < "
+          f"{QK.WGMMA_MIN_K} bytes): mma {sums['ruled_mma_device_ms']:.3f} "
+          f"device ms, the wgmma route "
+          f"{sums['ruled_wgmma_device_ms']:.3f}; kernel vs plain: "
           f"{flips} of {elements} outputs 1 apart, all within {HALF_TOL} of "
           f"a half integer; every launched plan == qconv_plan")
     for what, table in (("route", by_route), ("class", by_class)):
@@ -1787,12 +1809,9 @@ def drive_int8(smi: str, frames_by_model) -> dict:
         check(len(calls) == len(convs), f"{tag}: captured {len(calls)} "
                                         f"convs, want {len(convs)}")
         # the request's launches by route are what the plans of its convs
-        # give: w6 106 wgmma, tiny 54, lite-t 34 (and 21 direct)
-        routes = [QK.qconv_plan(*a[0].shape, a[1].shape[0],
-                                *a[1].shape[1:3], k["stride"], k["groups"],
-                                QK.ptr_align(a[0].data_ptr()),
-                                QK.ptr_align(a[1].data_ptr()),
-                                tuple(k["pads"])) for a, k in calls]
+        # give: w6 106 wgmma, tiny 54, lite-t 29 (and 21 direct)
+        routes = [QK.plan_for(a[0], a[1], k["stride"], k["pads"],
+                              k["groups"]) for a, k in calls]
         planned = {"wgmma": sum(p.route == "wgmma" for p in routes),
                    "split": sum(p.split > 1 for p in routes),
                    "depthwise": sum(p.route == "direct" for p in routes)}
@@ -1848,6 +1867,9 @@ def drive_int8(smi: str, frames_by_model) -> dict:
             "wgmma_route_device_ms": sums["wgmma_route_device_ms"],
             "mma_route_ms": sums["mma_route_ms"],
             "mma_route_device_ms": sums["mma_route_device_ms"],
+            "ruled_convs": sums["ruled_convs"],
+            "ruled_mma_device_ms": sums["ruled_mma_device_ms"],
+            "ruled_wgmma_device_ms": sums["ruled_wgmma_device_ms"],
             "by_route": sums["by_route"], "by_class": sums["by_class"]}
         del det, raws, raws_plain, raws_f32
         torch.cuda.empty_cache()
@@ -1865,9 +1887,11 @@ def drive_int8(smi: str, frames_by_model) -> dict:
         "launches_by_path": launches_by_path,
         "max_abs_err": worst, "half_integer_flips": flips,
         "elements": elements, "ms": w6["ms"], "card_ms": w6["ms"],
-        "was_ms": QCONV_WAS_MS, "device_ms": w6["device_ms"],
+        "device_ms": w6["device_ms"],
         "mma_route_ms": w6["mma_route_ms"],
+        "mma_route_device_ms": w6["mma_route_device_ms"],
         "wgmma_route_ms": w6["wgmma_route_ms"],
+        "wgmma_route_device_ms": w6["wgmma_route_device_ms"],
         "by_route": w6["by_route"], "by_class": w6["by_class"],
         "host_us_per_conv": w6["host_us_per_conv"],
         "plain_ms": w6["plain_ms"], "bound_ms": w6["bound_ms"],

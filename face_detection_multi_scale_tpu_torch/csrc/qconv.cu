@@ -61,16 +61,19 @@
 //     first block adds them through distributed shared memory and alone
 //     runs the epilogue, so a conv stays one launch with no int32 round
 //     trip to device memory (int32 sums are exact in any order). The
-//     tensor maps are encoded here, on the host, at each launch (x) or
-//     once per weight tensor (w), through the driver's encode functions
-//     from cudaGetDriverEntryPoint, so the library needs no -lcuda; they
-//     reach the kernel as __grid_constant__ parameters.
+//     tensor maps are encoded here, on the host, once per (x, w) pointers
+//     and conv shape (the caching allocator hands a walk the same
+//     activation addresses from request to request), through the driver's
+//     encode functions from cudaGetDriverEntryPoint, so the library needs
+//     no -lcuda; they reach the kernel as __grid_constant__ parameters.
 //     On the card (PERF.md) the 3x3 convs on maps of 40 px and up run at
 //     400-800 int8 TOPS and the products alone at up to ~1000; what is
 //     left is the epilogue, silu's correctly rounded division and
 //     exponential above all, which the bit-exact contract keeps.
 //   * mma (groups == 1, what TMA cannot take: ragged Cin, misaligned
-//     pointers): the first kernel, on mma.sync.m16n8k32 s8. A block owns a
+//     pointers; and, by the plan's rule, a K under 64 bytes on more tiles
+//     than SMs, where it measured faster): the first kernel, on
+//     mma.sync.m16n8k32 s8. A block owns a
 //     128 x 64 tile; its 4 warps, 2 x 2, own 64 x 32 each, accumulators in
 //     registers. K runs flat over (tap, channel) in tiles of 64 bytes, so a
 //     ragged Cin (3, 12, 56, 104, 216) wastes nothing but the last K tile's
@@ -92,6 +95,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <array>
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -889,20 +893,8 @@ cudaError_t encode_x(CUtensorMap* map, const Params& p) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// w (Cout, kh*kw*Cin) as 2-D tiles of BN rows x span K bytes, encoded once
-// per (device, pointer, shape, box): a map holds nothing but those.
-cudaError_t encode_w(CUtensorMap* map, const Params& p, int bn, int device) {
-  static std::mutex lock;
-  static std::map<std::tuple<int, uintptr_t, int, int, int, int>, CUtensorMap>
-      known;
-  std::lock_guard<std::mutex> guard(lock);
-  const auto key = std::make_tuple(device, reinterpret_cast<uintptr_t>(p.w),
-                                   p.k, p.cout, p.span, bn);
-  const auto hit = known.find(key);
-  if (hit != known.end()) {
-    *map = hit->second;
-    return cudaSuccess;
-  }
+// w (Cout, kh*kw*Cin) as 2-D tiles of BN rows x span K bytes.
+cudaError_t encode_w(CUtensorMap* map, const Params& p, int bn) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.k),
                               static_cast<cuuint64_t>(p.cout)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.k)};
@@ -913,10 +905,7 @@ cudaError_t encode_w(CUtensorMap* map, const Params& p, int bn, int device) {
       map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(p.w), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle(p.span),
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  if (known.size() >= 4096) known.clear();
-  known[key] = *map;
-  return cudaSuccess;
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int BN>
@@ -967,19 +956,48 @@ cudaError_t wgmma_ready(const Params& p, int device) {
   return hit->second > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
 }
 
+// A launch's two tensor maps, kept per (device, x and w pointers, conv
+// shape, split) for each (BN, span): a map holds nothing but its pointer
+// and the geometry, so an entry stays right while both pointers keep
+// those shapes. A miss also readies the kernel (wgmma_ready). One lookup
+// a launch.
+struct WgmmaMaps {
+  CUtensorMap x, w;
+};
+
+template <int BN, int SPAN>
+cudaError_t wgmma_maps(const Params& p, int device, WgmmaMaps* maps) {
+  static std::mutex lock;
+  static std::map<std::array<long long, 14>, WgmmaMaps> known;
+  const std::array<long long, 14> key = {
+      device, static_cast<long long>(reinterpret_cast<uintptr_t>(p.x)),
+      static_cast<long long>(reinterpret_cast<uintptr_t>(p.w)), p.b, p.h,
+      p.wd, p.cin, p.cout, p.kh, p.kw, p.stride, p.ph, p.pw, p.split};
+  std::lock_guard<std::mutex> guard(lock);
+  const auto hit = known.find(key);
+  if (hit != known.end()) {
+    *maps = hit->second;
+    return cudaSuccess;
+  }
+  cudaError_t err = wgmma_ready<BN, SPAN>(p, device);
+  if (err == cudaSuccess) err = encode_x(&maps->x, p);
+  if (err == cudaSuccess) err = encode_w(&maps->w, p, BN);
+  if (err != cudaSuccess) return err;
+  if (known.size() >= 4096) known.clear();
+  known.emplace(key, *maps);
+  return cudaSuccess;
+}
+
 template <int BN, int SPAN>
 cudaError_t launch_wgmma(const Params& p, int blocks, int device,
                          cudaStream_t stream) {
-  cudaError_t err = wgmma_ready<BN, SPAN>(p, device);
-  if (err != cudaSuccess) return err;
-  CUtensorMap tm_x, tm_w;
-  err = encode_x(&tm_x, p);
-  if (err == cudaSuccess) err = encode_w(&tm_w, p, BN, device);
+  WgmmaMaps maps;
+  cudaError_t err = wgmma_maps<BN, SPAN>(p, device, &maps);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = wgmma_config<BN>(p, blocks, stream, &attr);
-  err = cudaLaunchKernelEx(&cfg, qconv_wgmma_kernel<BN, SPAN>, tm_x, tm_w,
-                           p);
+  err = cudaLaunchKernelEx(&cfg, qconv_wgmma_kernel<BN, SPAN>, maps.x,
+                           maps.w, p);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -996,20 +1014,22 @@ void record(int route, int bm, int bn, int bk, int split, int steps,
 
 }  // namespace
 
-// y = requant(conv(x, w)) on `stream` of `device`, by the plan's route
-// (0 direct, 1 mma, 2 wgmma), N tile `bn`, K split `split` and grid of
-// `blocks` (wgmma), copy width `vec` (mma); returns a CUDA error code, 0 when the launch was
-// accepted. A plan the shapes, the pointers or the card cannot take is an
-// error (cudaErrorInvalidValue, or cudaErrorLaunchOutOfResources for a
-// cluster the card cannot schedule), never another route. The caller
-// checks shapes, types and contiguity, and that every tensor has fewer
-// than 2^31 elements.
+// y = requant(conv(x, w)) on `stream`. `a` holds 18 ints: the shapes b,
+// h, wd, cin, cout, kh, kw, stride, ph, pw, groups, act, then the plan's
+// route (0 direct, 1 mma, 2 wgmma), N tile bn, K split, grid of `blocks`
+// (wgmma), copy width vec (mma), and the device. Returns a CUDA error
+// code, 0 when the launch was accepted. A plan the shapes, the pointers
+// or the card cannot take is an error (cudaErrorInvalidValue, or
+// cudaErrorLaunchOutOfResources for a cluster the card cannot schedule),
+// never another route. The caller checks shapes, types and contiguity,
+// and that every tensor has fewer than 2^31 elements.
 extern "C" int fdms_qconv(const void* x, const void* w, const void* alpha,
-                          const void* bias, float inv_out, void* y, int b,
-                          int h, int wd, int cin, int cout, int kh, int kw,
-                          int stride, int ph, int pw, int groups, int act,
-                          int route, int bn, int split, int blocks, int vec,
-                          int device, void* stream) {
+                          const void* bias, float inv_out, void* y,
+                          const int* a, void* stream) {
+  const int b = a[0], h = a[1], wd = a[2], cin = a[3], cout = a[4],
+            kh = a[5], kw = a[6], stride = a[7], ph = a[8], pw = a[9],
+            groups = a[10], act = a[11], route = a[12], bn = a[13],
+            split = a[14], blocks = a[15], vec = a[16], device = a[17];
   g_plan[0] = -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -26,9 +26,10 @@ The source has three routes, and `qconv_plan` (plain Python, one
 definition) picks one for a conv and its tile and K split: "wgmma" (s8
 wgmma fed by TMA, split over a cluster on small grids) for groups == 1
 with 16-byte channel runs and pointers, "mma" (mma.sync, cp.async) for
-the rest of groups == 1, "direct" for groups > 1. The wrapper passes the
-plan to the library, which launches it or fails (never another route) and
-reports what it launched (`last_plan`).
+the rest of groups == 1 and for a short K on many tiles (WGMMA_MIN_K),
+"direct" for groups > 1. The wrapper passes the plan to the library,
+which launches it or fails (never another route) and reports what it
+launched (`last_plan`).
 
 On a CPU tensor `qconv` runs `qconv_plain`; on a CUDA tensor it launches
 the kernel or raises. `qconv.launches` counts the kernel's launches;
@@ -98,14 +99,19 @@ def qconv_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
 
 
 ROUTES = {"direct": 0, "mma": 1, "wgmma": 2}
-# the plan's constants: csrc/qconv.cu's tiles, and the card's SMs
+# csrc/qconv.cu's tiles (its kWBM, kBM / kBN / kBK and kDirectThreads,
+# defined there; the library reports the tile it launched, `last_plan`)
 WGMMA_BM = 128          # output pixels a wgmma block
 MMA_TILE = (128, 64, 64)  # the mma route's pixels, channels, K bytes
 DIRECT_THREADS = 256
-SMS = 132               # H100 SXM
+SMS = 132               # an H100 SXM's SMs, where no card is named
 SPLIT_MAX = 8           # the portable cluster size
 SPLIT_MIN_STEPS = 2     # K steps a block of a split keeps at least
 SPLIT_REDUCE_STEPS = 4  # what rank 0 pays to add one partial tile, in steps
+# K bytes an output pixel below which a conv whose wgmma tiles outnumber
+# the SMs takes the mma route (lite-t's 1x1 convs of 16-48 channels on
+# maps of 80 px and up: PERF.md §6)
+WGMMA_MIN_K = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,15 +165,21 @@ def takes_wgmma(cin: int, kh: int, kw: int, stride: int, groups: int,
                                          pads[1] - kw + 1) >= -128)
 
 
-def split_for(tiles: int, k_steps: int) -> int:
+def wgmma_bn(cout: int) -> int:
+    """The wgmma route's N tile: 128, or 64 where Cout is not a multiple
+    of 128."""
+    return 128 if cout % 128 == 0 else 64
+
+
+def split_for(tiles: int, k_steps: int, sms: int = SMS) -> int:
     """The blocks of a cluster that share a tile's K steps: the divisor
     s <= SPLIT_MAX of the steps that keeps the grid to one wave (tiles * s
-    <= SMS, a block an SM) and minimises the steps a block + the reduction
+    <= sms, a block an SM) and minimises the steps a block + the reduction
     (SPLIT_REDUCE_STEPS a partial tile), keeping SPLIT_MIN_STEPS steps a
     block."""
     best, cost = 1, k_steps
     for s in range(2, SPLIT_MAX + 1):
-        if k_steps % s or k_steps // s < SPLIT_MIN_STEPS or tiles * s > SMS:
+        if k_steps % s or k_steps // s < SPLIT_MIN_STEPS or tiles * s > sms:
             continue
         c = k_steps // s + SPLIT_REDUCE_STEPS * (s - 1)
         if c < cost:
@@ -178,10 +190,11 @@ def split_for(tiles: int, k_steps: int) -> int:
 def _route_plan(route: str, b: int, h: int, w: int, cin: int, cout: int,
                 kh: int, kw: int, stride: int, groups: int,
                 x_ptr_align: int, w_ptr_align: int,
-                pads: Tuple[int, int], split: Optional[int] = None
-                ) -> QconvPlan:
+                pads: Tuple[int, int], split: Optional[int] = None,
+                sms: int = SMS) -> QconvPlan:
     """The plan of `route` for the conv (whether the route takes it is the
-    caller's question); `split` overrides the wgmma route's choice."""
+    caller's question) on a card of `sms` SMs; `split` overrides the wgmma
+    route's choice."""
     ho, wo = out_hw(h, w, (kh, kw), stride, pads)
     m = b * ho * wo
     if route == "direct":
@@ -195,34 +208,70 @@ def _route_plan(route: str, b: int, h: int, w: int, cin: int, cout: int,
                          (_cdiv(m, bm), _cdiv(cout, bn)), vec)
     span = wgmma_span(cin)
     steps = kh * kw * _cdiv(cin, span)
-    bn = 128 if cout % 128 == 0 else 64
+    bn = wgmma_bn(cout)
     tiles = _cdiv(m, WGMMA_BM) * _cdiv(cout, bn)
-    s = split_for(tiles, steps) if split is None else split
+    s = split_for(tiles, steps, sms) if split is None else split
     # split: one cluster a tile; else persistent, at most a block an SM
-    blocks = tiles * s if s > 1 else min(tiles, SMS)
+    blocks = tiles * s if s > 1 else min(tiles, sms)
     return QconvPlan("wgmma", WGMMA_BM, bn, span, s, steps, (blocks, 1), 16)
 
 
 @functools.lru_cache(maxsize=4096)
 def qconv_plan(b: int, h: int, w: int, cin: int, cout: int, kh: int,
                kw: int, stride: int, groups: int, x_ptr_align: int,
-               w_ptr_align: int, pads: Optional[Tuple[int, int]] = None
-               ) -> QconvPlan:
+               w_ptr_align: int, pads: Optional[Tuple[int, int]] = None,
+               sms: int = SMS) -> QconvPlan:
     """The launch `qconv` makes for a conv of x (b, h, w, cin), w (cout,
     kh, kw, cin / groups) at `stride` and `pads` (default k // 2), with x
-    and w at pointers aligned to x_ptr_align and w_ptr_align bytes: the
-    direct route for groups > 1, the wgmma route where TMA takes the conv
-    (`takes_wgmma`), else the mma route."""
+    and w at pointers aligned to x_ptr_align and w_ptr_align bytes, on a
+    card of `sms` SMs: the direct route for groups > 1, the wgmma route
+    where TMA takes the conv (`takes_wgmma`), else the mma route; and the
+    mma route also where K is under WGMMA_MIN_K bytes an output pixel and
+    the wgmma tiles outnumber the SMs. There the mma route measured
+    faster on an H100 (87 against 326 us at 320 px, K = 16, Cout = 8;
+    PERF.md §6), likely because a persistent block's tiles, one or
+    two wgmmas each, wait on its epilogue in turn; on one wave of tiles
+    the wgmma route is the faster (10 against 12 us at 40 px, K = 48)."""
     pads = (kh // 2, kw // 2) if pads is None else tuple(pads)
     if groups > 1:
         route = "direct"
-    elif takes_wgmma(cin, kh, kw, stride, groups, pads, x_ptr_align,
-                     w_ptr_align):
-        route = "wgmma"
-    else:
+    elif not takes_wgmma(cin, kh, kw, stride, groups, pads, x_ptr_align,
+                         w_ptr_align):
         route = "mma"
+    else:
+        ho, wo = out_hw(h, w, (kh, kw), stride, pads)
+        tiles = _cdiv(b * ho * wo, WGMMA_BM) * _cdiv(cout, wgmma_bn(cout))
+        route = ("mma" if kh * kw * cin < WGMMA_MIN_K and tiles > sms
+                 else "wgmma")
     return _route_plan(route, b, h, w, cin, cout, kh, kw, stride, groups,
-                       x_ptr_align, w_ptr_align, pads)
+                       x_ptr_align, w_ptr_align, pads, sms=sms)
+
+
+@functools.cache
+def device_sms(index: int) -> int:
+    """The SMs of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(x: torch.Tensor, w: torch.Tensor, stride: int,
+             pads: Tuple[int, int], groups: int) -> QconvPlan:
+    """`qconv_plan` for CUDA tensors x and w: their shapes, their pointers'
+    alignment and their card's SMs."""
+    return qconv_plan(*x.shape, w.shape[0], *w.shape[1:3], stride, groups,
+                      ptr_align(x.data_ptr()), ptr_align(w.data_ptr()),
+                      tuple(pads), device_sms(x.get_device()))
+
+
+# (x and w shapes, stride, pads, groups, act, the pointers' low 4 bits, the
+# device) -> (plan, output shape, the library's int array): one lookup a
+# launch
+_READY = {}
+
+
+def reset_plans() -> None:
+    """Forget every plan made (after a change to the plan's constants)."""
+    qconv_plan.cache_clear()
+    _READY.clear()
 
 
 def build():
@@ -234,10 +283,9 @@ def build():
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fdms_qconv.argtypes = [vp, vp, vp, vp, ctypes.c_float, vp] \
-        + [i32] * 18 + [vp]
-    lib.fdms_qconv.restype = i32
+    vp = ctypes.c_void_p
+    lib.fdms_qconv.argtypes = [vp, vp, vp, vp, ctypes.c_float, vp, vp, vp]
+    lib.fdms_qconv.restype = ctypes.c_int
     lib.fdms_qconv_last_plan.argtypes = [vp]
     lib.fdms_qconv_last_plan.restype = None
     return lib
@@ -292,11 +340,31 @@ def qconv(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
         raise ValueError("x, w, alpha and bias must be contiguous")
     if max(x.numel(), w.numel(), b * ho * wo * cout) >= 2 ** 31:
         raise ValueError("tensor too large for the kernel's indexing")
-    plan = qconv_plan(b, h, wd, cin, cout, kh, kw, stride, groups,
-                      ptr_align(x.data_ptr()), ptr_align(w.data_ptr()),
-                      tuple(pads))
-    return _launch(plan, x, w, alpha, bias, inv_out, stride, pads, groups,
-                   act)
+    pads = tuple(pads)
+    xp, wp = x.data_ptr(), w.data_ptr()
+    key = (x.shape, w.shape, stride, pads, groups, act, xp & 15, wp & 15,
+           x.get_device())
+    ready = _READY.get(key)
+    if ready is None:
+        if len(_READY) >= 4096:
+            _READY.clear()
+        ready = _READY[key] = _ready(plan_for(x, w, stride, pads, groups),
+                                     x, w, stride, pads, groups, act)
+    return _run(ready, x, w, alpha, bias, inv_out)
+
+
+def _ready(plan: QconvPlan, x: torch.Tensor, w: torch.Tensor, stride: int,
+           pads: Tuple[int, int], groups: int, act: str):
+    """(plan, output shape, the library's int array and its address) of a
+    launch of `plan`."""
+    b, h, wd, cin = x.shape
+    cout, kh, kw, _ = w.shape
+    ho, wo = out_hw(h, wd, (kh, kw), stride, pads)
+    ints = (ctypes.c_int * 18)(
+        b, h, wd, cin, cout, kh, kw, stride, pads[0], pads[1], groups,
+        ACTS[act], ROUTES[plan.route], plan.bn, plan.split, plan.grid[0],
+        plan.vec, x.get_device())
+    return plan, (b, ho, wo, cout), ints, ctypes.addressof(ints)
 
 
 def _launch(plan: QconvPlan, x: torch.Tensor, w: torch.Tensor,
@@ -304,19 +372,21 @@ def _launch(plan: QconvPlan, x: torch.Tensor, w: torch.Tensor,
             pads: Tuple[int, int], groups: int, act: str) -> torch.Tensor:
     """Launch `plan` on checked CUDA tensors; raises if the library
     refuses it. Counts the launch by route."""
-    b, h, wd, cin = x.shape
-    cout, kh, kw, _ = w.shape
-    ho, wo = out_hw(h, wd, (kh, kw), stride, pads)
-    y = torch.empty((b, ho, wo, cout), dtype=torch.int8, device=x.device)
+    return _run(_ready(plan, x, w, stride, tuple(pads), groups, act), x, w,
+                alpha, bias, inv_out)
+
+
+def _run(ready, x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
+         bias: torch.Tensor, inv_out) -> torch.Tensor:
+    plan, shape, _, ints = ready  # the array is kept alive by `ready`
+    y = torch.empty(shape, dtype=torch.int8, device=x.device)
     err = _library().fdms_qconv(
         x.data_ptr(), w.data_ptr(), alpha.data_ptr(), bias.data_ptr(),
-        float(inv_out), y.data_ptr(), b, h, wd, cin, cout, kh, kw, stride,
-        pads[0], pads[1], groups, ACTS[act], ROUTES[plan.route], plan.bn,
-        plan.split, plan.grid[0], plan.vec, x.device.index,
+        float(inv_out), y.data_ptr(), ints,
         # the raw stream handle: torch.cuda.current_stream builds a Stream
         # object, about 6 of the ~40 us of host time a conv took on an H100
         # machine
-        torch._C._cuda_getCurrentRawStream(x.device.index))
+        torch._C._cuda_getCurrentRawStream(x.get_device()))
     if err != 0:
         raise RuntimeError(f"qconv kernel launch failed ({plan.route} "
                            f"route): CUDA error {err}")

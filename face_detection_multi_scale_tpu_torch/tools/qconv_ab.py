@@ -9,23 +9,26 @@ A variant is "base" (csrc/qconv.cu and ops/qconv_kernel.py as they stand),
 or one or more parts joined by " && ": OLD=>NEW replaces every occurrence
 of the text OLD in the source (ops/cuda_build.variant_source: the tile,
 stage or cluster constants), py:NAME=VALUE sets a plan constant of
-ops/qconv_kernel.py (PLAN_CONSTANTS below) for that variant. A variant
-prefixed "diag:" may compute something else (say, an epilogue cut out to
-see what it costs): it is timed but never compared. `--baseline DIR` adds the wrapper and source of another
-checkout of the repo (DIR/face_detection_multi_scale_tpu_torch/ops/
-qconv_kernel.py with DIR's csrc/qconv.cu), so an earlier kernel is timed
-in the same run. The convs are those of one int8 forward of each model
-(`--models`) at b8@640: seeded weights, noise frames that also calibrate
+ops/qconv_kernel.py for that variant (PLAN_CONSTANTS below: the split's,
+and the route rule's WGMMA_MIN_K; py:WGMMA_MIN_K=0 keeps every conv that
+TMA takes on the wgmma route). A variant prefixed "diag:" may compute
+something else (say, an epilogue cut out to see what it costs): it is
+timed but never compared. `--baseline DIR` (repeatable) adds the wrapper
+and source of another checkout of the repo (DIR/face_detection_multi_
+scale_tpu_torch/ops/qconv_kernel.py with DIR's csrc/qconv.cu), so an
+earlier kernel is timed in the same run. The convs are those of one int8
+forward of each model (`--models`) at b8@640: seeded weights, noise frames that also calibrate
 it, every qconv call captured with its own inputs. Every variant's output
 of every conv must equal the base's bit for bit (the same arithmetic).
 Each round times every variant on every conv by CUDA events over `iters`
 launches (host launch gaps included) and by replaying a CUDA graph of
 them (device time), in an order that rotates from round to round, and
 the wrapper's host time a conv (the median of 5 passes over the convs
-without a synchronize). Prints one JSON line per model and variant (medians, min
-and max over rounds of the sums over the convs) and, with --table, one per
-conv of the first model: its shapes, route, tile and split, int8
-operations, and median ms, device ms and TOPS per variant.
+without a synchronize). Prints one JSON line per model and variant
+(medians, min and max over rounds of the sums over the convs) and, with
+--table, one per conv of every model: its shapes, the first variant's
+route, tile and split, int8 operations, and median ms, device ms and TOPS
+per variant.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from face_detection_multi_scale_tpu_torch.ops import qconv_kernel as QK
 
 MODELS = "yolov7-w6-face,yolov7-tiny-face,yolov7-lite-t"
 PLAN_CONSTANTS = ("SPLIT_MAX", "SPLIT_MIN_STEPS", "SPLIT_REDUCE_STEPS",
-                  "SMS", "WGMMA_BM")
+                  "WGMMA_MIN_K")
 DEFAULTS = {name: getattr(QK, name) for name in PLAN_CONSTANTS}
 
 
@@ -80,7 +83,7 @@ class Variant:
         QK._library.cache_clear()
         for name, value in self.consts.items():
             setattr(QK, name, value)
-        QK.qconv_plan.cache_clear()
+        QK.reset_plans()
 
 
 class Baseline(Variant):
@@ -167,10 +170,7 @@ def host_us(fn, calls, passes: int = 5) -> float:
 
 
 def plan_of(a, kw) -> QK.QconvPlan:
-    x, w = a[0], a[1]
-    return QK.qconv_plan(*x.shape, w.shape[0], *w.shape[1:3], kw["stride"],
-                         kw["groups"], QK.ptr_align(x.data_ptr()),
-                         QK.ptr_align(w.data_ptr()), tuple(kw["pads"]))
+    return QK.plan_for(a[0], a[1], kw["stride"], kw["pads"], kw["groups"])
 
 
 def main(argv=None) -> None:
@@ -181,8 +181,9 @@ def main(argv=None) -> None:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--table", action="store_true")
-    ap.add_argument("--baseline", default=None,
-                    help="root of another checkout to time beside")
+    ap.add_argument("--baseline", action="append", default=[],
+                    help="root of another checkout to time beside "
+                         "(repeatable)")
     ap.add_argument("sources", nargs="+")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -193,9 +194,8 @@ def main(argv=None) -> None:
     print(json.dumps({"section": "run", "card": card, "argv": vars(args)}),
           flush=True)
     variants = [Variant(v, i) for i, v in enumerate(args.sources)]
-    if args.baseline:
-        variants.append(Baseline(args.baseline))
-    for mi, name in enumerate(args.models.split(",")):
+    variants += [Baseline(root) for root in args.baseline]
+    for name in args.models.split(","):
         variants[0].activate()
         calls = captured_convs(name, args.batch, args.size)
         want = [None] * len(calls)
@@ -235,7 +235,7 @@ def main(argv=None) -> None:
                             f"min_{label}": min(sums),
                             f"max_{label}": max(sums)})
             print(json.dumps(row), flush=True)
-        if args.table and mi == 0:
+        if args.table:
             variants[0].activate()
             for c, (a, kw) in enumerate(calls):
                 plan = plan_of(a, kw)

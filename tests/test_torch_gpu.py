@@ -933,23 +933,30 @@ def check_qconv(got, x, w, alpha, bias, inv_out, stride, pads, groups, act):
     (2, 13, 11, 48, 96, 3, 1, 1), (2, 12, 12, 16, 48, 1, 1, 1),
     (1, 9, 9, 64, 40, 3, 1, 1),
     # more tiles than blocks: each persistent block walks several
-    (8, 64, 64, 32, 64, 3, 1, 1), (4, 80, 80, 128, 256, 3, 1, 1)])
+    (8, 64, 64, 32, 64, 3, 1, 1), (4, 80, 80, 128, 256, 3, 1, 1),
+    # a K of 48 bytes on 400 tiles: the route rule's mma (lite-t's shape)
+    (8, 80, 80, 48, 48, 1, 1, 1)])
 def test_qconv_matches_plain(cuda_device, b, h, w, cin, cout, k, s, groups,
                              act):
     """Ragged Cin (3, 12, 56, 104, 216: 1-, 4- and 8-byte staging),
     M and N not multiples of the tile, 1x1 at 1024 channels, depthwise
     and grouped convs, every activation; every route (wgmma for 16-byte
     channel runs, split over a cluster on small grids), each counted, and
-    the library's launched plan equal to `qconv_plan`'s."""
+    the library's launched plan equal to `qconv_plan`'s; where the route
+    rule keeps such a conv on mma, the wgmma route equal to it too."""
     x, wq, alpha, bias = qconv_case(b, h, w, cin, cout, k, groups,
                                     seed=cin + cout + k, device=cuda_device)
     inv = torch.tensor(41.3)
     pads = (k // 2, k // 2)
-    plan = QK.qconv_plan(b, h, w, cin, cout, k, k, s, groups,
-                         QK.ptr_align(x.data_ptr()),
-                         QK.ptr_align(wq.data_ptr()), pads)
+    plan = QK.plan_for(x, wq, s, pads, groups)
+    tma = cin % 16 == 0 and groups == 1  # 16-byte runs and pointers
+    ho, wo = QK.out_hw(h, w, (k, k), s, pads)
+    tiles = -(-b * ho * wo // 128) * -(-cout // (128 if cout % 128 == 0
+                                                 else 64))
+    short = (k * k * cin < QK.WGMMA_MIN_K
+             and tiles > QK.device_sms(x.get_device()))
     want_route = ("direct" if groups > 1 else
-                  "wgmma" if cin % 16 == 0 else "mma")
+                  "wgmma" if tma and not short else "mma")
     assert plan.route == want_route
     before = (QK.qconv.launches, QK.qconv.depthwise_launches,
               QK.qconv.wgmma_launches, QK.qconv.split_launches)
@@ -962,6 +969,14 @@ def test_qconv_matches_plain(cuda_device, b, h, w, cin, cout, k, s, groups,
         1, plan.route == "direct", plan.route == "wgmma",
         plan.route == "wgmma" and plan.split > 1]
     check_qconv(got, x, wq, alpha, bias, inv, s, pads, groups, act)
+    if tma and plan.route == "mma":
+        # a conv the route rule keeps off wgmma: that route agrees too
+        wg = QK._route_plan("wgmma", b, h, w, cin, cout, k, k, s, 1, 16, 16,
+                            pads, sms=QK.device_sms(x.get_device()))
+        y = QK._launch(wg, x, wq, alpha, bias, inv, s, pads, 1, act)
+        torch.cuda.synchronize()
+        assert QK.last_plan() == wg.row()
+        assert torch.equal(y, got)
 
 
 @pytest.mark.parametrize("split", [1, 2, 3, 6])

@@ -90,17 +90,30 @@ def check_cover(plan, shape):
         assert plan.k_steps == -(-kh * kw * cin // plan.bk)
 
 
+def want_route(shape):
+    """direct for groups > 1; wgmma for 16-byte channel runs (at 16-byte
+    aligned pointers), except a K under WGMMA_MIN_K bytes whose 128 x BN
+    tiles outnumber the SMs; mma for the rest."""
+    (b, h, w, cin), (cout, kh, kw, _), s, pads, g = shape
+    if g > 1:
+        return "direct"
+    if cin % 16:
+        return "mma"
+    ho, wo = QK.out_hw(h, w, (kh, kw), s, pads)
+    bn = 128 if cout % 128 == 0 else 64
+    tiles = -(-b * ho * wo // 128) * -(-cout // bn)
+    return ("mma" if kh * kw * cin < QK.WGMMA_MIN_K and tiles > QK.SMS
+            else "wgmma")
+
+
 @pytest.mark.parametrize("name", TZ.available())
 def test_plan_every_zoo_conv(name):
-    """Routes as stated: direct for groups > 1, wgmma for 16-byte channel
-    runs at 16-byte aligned pointers, mma for the rest and for any
-    misaligned pointer; every tile plan covers its conv."""
+    """Routes as stated (`want_route`), and mma for any misaligned
+    pointer; every tile plan covers its conv."""
     shapes = conv_shapes(name)
     got = plans(shapes)
     for plan, shape in zip(got, shapes):
-        cin, g = shape[0][3], shape[4]
-        assert plan.route == ("direct" if g > 1 else
-                              "wgmma" if cin % 16 == 0 else "mma"), shape
+        assert plan.route == want_route(shape), shape
         check_cover(plan, shape)
     for x_align, w_align in ((1, 16), (16, 8), (4, 4)):
         for plan, shape in zip(plans(shapes, x_align, w_align), shapes):
@@ -118,10 +131,25 @@ def test_plan_every_zoo_conv(name):
         assert routes[1:] == ["wgmma"] * (len(routes) - 1)
         assert routes[0] == "mma"
     want = {"yolov7-w6-face": (107, 106, 0), "yolov7-tiny-face": (55, 54, 0),
-            "yolov7-lite-t": (62, 34, 21)}.get(name)
+            "yolov7-lite-t": (62, 29, 21)}.get(name)
     if want:
         assert (len(routes), routes.count("wgmma"),
                 routes.count("direct")) == want
+
+
+@pytest.mark.parametrize("b,h,cin,cout,k,sms,route", [
+    (8, 320, 16, 8, 1, 132, "mma"),     # lite-t's 320-px 1x1: 6400 tiles
+    (8, 80, 48, 48, 1, 132, "mma"),     # 400 tiles, K 48
+    (8, 40, 48, 48, 1, 132, "wgmma"),   # 100 tiles: one wave
+    (8, 80, 48, 48, 1, 400, "wgmma"),   # one wave on a larger card
+    (8, 160, 64, 32, 1, 132, "wgmma"),  # tiny's K 64 at 160 px
+    (8, 80, 32, 32, 3, 132, "wgmma"),   # K 288
+])
+def test_route_rule(b, h, cin, cout, k, sms, route):
+    """Short K (under WGMMA_MIN_K bytes) goes to mma only where the wgmma
+    tiles outnumber the card's SMs."""
+    plan = QK.qconv_plan(b, h, h, cin, cout, k, k, 1, 1, 16, 16, sms=sms)
+    assert plan.route == route
 
 
 @pytest.mark.parametrize("name", ["yolov7-w6-face", "yolov7-tiny-face"])
@@ -294,18 +322,19 @@ def test_wgmma_addressing_emulation(b, h, w, cin, cout, k, stride, pads,
     assert torch.equal(got, want.long())
 
 
-def test_persistent_walk_emulation(monkeypatch):
-    """Fewer blocks than tiles (SMS cut to 3): each block walks several
+def test_persistent_walk_emulation():
+    """Fewer blocks than tiles (a card of 3 SMs): each block walks several
     tiles, and every output is still written once and exact."""
-    monkeypatch.setattr(QK, "SMS", 3)
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.integers(-127, 128, (2, 12, 13, 32),
                                       dtype=np.int8))
     wq = torch.from_numpy(rng.integers(-127, 128, (200, 3, 3, 32),
                                        dtype=np.int8))
     plan = QK._route_plan("wgmma", 2, 12, 13, 32, 200, 3, 3, 1, 1, 16, 16,
-                          (1, 1))
+                          (1, 1), sms=3)
     assert plan.split == 1 and plan.grid == (3, 1)  # 2 x 4 tiles
+    assert plan == QK.qconv_plan(2, 12, 13, 32, 200, 3, 3, 1, 1, 16, 16,
+                                 sms=3)
     got, writes = emulate_wgmma(x, wq, 1, (1, 1), plan)
     want = QK.conv_sums(x, wq, 1, (1, 1)).reshape(-1, 200)
     assert bool((writes == 1).all())
