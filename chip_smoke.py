@@ -176,15 +176,54 @@ Phases, each fatal on failure (nothing is caught to carry on):
      bytes at 3.35 TB/s, per conv the larger), torch._int_mm after an
      int8 im2col (the non-grouped convs) and cuDNN bf16 convs of the same
      shapes
- 21. one JSON line with every kernel's launches, error, times and bound;
+ 21. evaluation and production (w6 at full width, phase 4's seeded
+     weights; launches counted per call, counters zeroed just before):
+     (a) cli/test_widerface.write_buckets at the eval point (K = 16384,
+     max_det 4096, B = 16), float32: the host route on two buckets of 16
+     seeded frames already letterboxed (512x640 and 640x512, standing for
+     frames twice their size: no OpenCV), the device route on 16 raw
+     768x1024 frames (run_network_raw, letterboxed on the card to
+     512x640); a gate at which the busiest frame gates 17,000 rows, so the
+     truncation report shows truncated images; one nms_keep launch an
+     engine call; on the first batch the kernel's keep mask on two images
+     equal to nms_keep_plain's, their Detections equal to the CPU
+     postprocess of their rows, the kernel, its passes apart and the plain
+     version timed at B = 16, K = 16384 beside the bound (`nms_bound`:
+     inputs and output once at 3.35 TB/s against the keeper pairs'
+     operations at 67 TFLOP/s; the design's scratch, written and read,
+     and all K^2/2 pairs' operations printed apart); every txt
+     parsed back with read_pred_file to its count and its image's kept
+     rows, the first two images' to the rows their Detections give; then
+     eval.widerface.evaluation() on the written directory against seeded
+     ground truth written with scipy.io.savemat, the same APs through the
+     native IoU (native/, built with g++, required) and through numpy;
+     the writer's ms a batch and img/s. (b) the same writer with
+     --quantize semantics: one bucket at B = 16, calibrated on its first
+     batch; every qconv launch equal to qconv_plain, every launched plan
+     equal to qconv_plan's, the launches by route as planned. (c)
+     infer/validate.validate at b8@640 (float32, unfused) over 16 seeded
+     in-memory images and labels (a FaceDataset subclass here): one
+     nms_keep launch a batch; P / R / mAP equal to the CPU postprocess
+     and scoring of the card's decoded rows. (d) ProductionPipeline at
+     the production defaults (640 + 3840, conf 0.6, IoU 0.3, API
+     preprocessing, bf16 as cli/batch_predict, device preprocessing) on 2
+     seeded 1080x1920 frames: detect_frame a frame, then the batched
+     branch (detect_frames, its host API preprocess made on the card and
+     rounded to uint8); one nms_keep launch a scale call and a merge;
+     frames_to_json with the contract's tensors; ms a frame
+ 22. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
      of 16 blocks; fused_elan_bf16 beside fused_elan; `launches` sums
      every counted path's run, `launches_by_path` splits it,
-     `api_launches` holds phases 15-19's counted calls (nms_keep's
-     `launches` includes them), and the fused entries' `by_model` hold
+     `api_launches` holds phases 15-19's counted calls and
+     `phase21_launches` phase 21's (nms_keep's `launches` includes both);
+     nms_keep's `eval_*` fields hold the eval point (B = 16, K = 16384):
+     `eval_bound_ms` is `nms_bound`'s, `eval_scratch_ms` the scratch's
+     bytes at 3.35 TB/s, and `eval_launches` its launches there; qconv's `eval_launches` the
+     int8 eval's launches by route; the fused entries' `by_model` hold
      the yolov7-face and yolov7s-face group sums
- 22. the last line: {"ok": true, "device": {...}}
+ 23. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
@@ -200,16 +239,25 @@ from __future__ import annotations
 
 import concurrent.futures
 import json
+import os
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from face_detection_multi_scale_tpu_torch import native as NAT
+from face_detection_multi_scale_tpu_torch.cli import test_widerface as TW
+from face_detection_multi_scale_tpu_torch.data import dataset as DS
 from face_detection_multi_scale_tpu_torch.data import letterbox as LB
+from face_detection_multi_scale_tpu_torch.eval import widerface as WF
 from face_detection_multi_scale_tpu_torch.infer import augment as AUG
 from face_detection_multi_scale_tpu_torch.infer import device_preprocess as DP
 from face_detection_multi_scale_tpu_torch.infer import ensemble as ENS
+from face_detection_multi_scale_tpu_torch.infer import production as PROD
+from face_detection_multi_scale_tpu_torch.infer import validate as VAL
 from face_detection_multi_scale_tpu_torch.infer import tiling
 from face_detection_multi_scale_tpu_torch import hub
 from face_detection_multi_scale_tpu_torch.infer.detector import (
@@ -277,6 +325,23 @@ INT8_RAW_SHARE = 1e-2  # kernel walk against the plain-conv walk, per level
 INT8_WGMMA = {"yolov7-w6-face": 106, "yolov7-tiny-face": 54,
               "yolov7-lite-t": 29}
 HALF_TOL = 1e-4
+# phase 21: the WIDER writer at the eval point of cli/test_widerface.py
+# (its defaults: K = 16384, max_det 4096, batches of 16), its host route
+# on two letterboxed buckets (multiples of w6's stride 64) of frames
+# letterboxed from twice their size, its device route on raw frames
+EVAL_K, EVAL_DET, EVAL_BATCH = 16384, 4096, 16
+EVAL_BUCKETS = ((512, 640), (640, 512))
+EVAL_RAW_HW = (768, 1024)  # letterboxed on the card to 512 x 640
+EVAL_GATED = 17000  # rows the busiest frame of the gate's batch gates
+VAL_IMAGES, VAL_BATCH = 16, 8
+# each counted call of phase 21: {tag: nms_keep launches}
+EVAL_LAUNCHES = {}
+CONTRACT_TENSORS = {
+    "yolo-face-bboxes", "yolo-face-confidence", "yolo-face-class_names",
+    "yolo-face-class_indexes", "yolo-face-class_groups",
+    "yolo-face-scale_used", "yolo-face-ckpt_version",
+    "yolo-face-infer_time", "yolo-face-total_time"}
+ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 
 
@@ -290,10 +355,18 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, iters: int) -> float:
+def zero_counters() -> None:
+    """Every kernel wrapper's launch counts to 0."""
+    K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
+    E.fused_elan.launches = E.fused_elan.bf16_launches = 0
+    QK.qconv.launches = QK.qconv.depthwise_launches = 0
+    QK.qconv.wgmma_launches = QK.qconv.split_launches = 0
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean milliseconds of fn() over `iters` runs, by CUDA events, after
-    two warm-up runs."""
-    for _ in range(2):
+    `warmup` warm-up runs."""
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -527,8 +600,7 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
     set_gate(det, frames[0])
     det.warmup(SIZE, BATCH)
 
-    K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
-    E.fused_elan.launches = E.fused_elan.bf16_launches = 0
+    zero_counters()
     times, n_gated = [], []
     for r in range(requests):
         t0 = time.perf_counter()
@@ -680,8 +752,7 @@ def drive_tta(smi: str, dtype=torch.float32):
         return keep
 
     det.postprocess, NMS.weighted_nms_merge = record_post, record_merge
-    K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
-    E.fused_elan.launches = E.fused_elan.bf16_launches = 0
+    zero_counters()
     outs, ms = [], []
     try:
         for frame in frames:
@@ -816,8 +887,7 @@ def drive_tiled(smi: str, conf_thres: float, dtype=torch.float32) -> int:
 
     images = det.truncation_report()["images"]
     det.postprocess, NMS.weighted_nms_merge = record_post, record_merge
-    K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
-    E.fused_elan.launches = E.fused_elan.bf16_launches = 0
+    zero_counters()
     try:
         outs, t_first = timed(lambda: det._run_tiled_batch(inputs, plan))
     finally:
@@ -1069,8 +1139,7 @@ def drive_new_models(smi: str):
                                  max_candidates=MAX_CANDIDATES, seed=seed)
             check(hub_det.device.type == "cuda" and hub_det.spec.name == name,
                   "hub.create: not the lite-s model on the card")
-            K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
-            E.fused_elan.launches = E.fused_elan.bf16_launches = 0
+            zero_counters()
             got = hub_det.run_network(frames[name][0])
             torch.cuda.synchronize()
             counts = {"seq": K.nms_keep.launches,
@@ -1133,8 +1202,7 @@ def counted(tag: str, fn):
     """fn() with every launch counter zeroed just before and read just
     after; the counts go into API_LAUNCHES[tag]. Returns (fn(), its
     host-clock ms)."""
-    K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
-    E.fused_elan.launches = E.fused_elan.bf16_launches = 0
+    zero_counters()
     out, ms = timed(fn)
     API_LAUNCHES[tag] = {"seq": K.nms_keep.launches,
                          "fixpoint": K.nms_keep.fixpoint_launches,
@@ -1572,6 +1640,37 @@ def qconv_class(w: torch.Tensor, ho: int) -> str:
 
 
 @torch.inference_mode()
+def qconv_exact(args, kw, tag: str):
+    """One captured conv launched again: the plan `fdms_qconv` launched
+    must equal `qconv_plan`'s, and the output qconv_plain's (at most 1
+    apart where the plain pre-round value lies within HALF_TOL of a half
+    integer). Returns (kernel output, plain output, plan, max |diff|,
+    outputs 1 apart)."""
+    x, w, alpha, bias, inv_out = args
+    stride, pads, groups, act = (kw["stride"], kw["pads"], kw["groups"],
+                                 kw["act"])
+    plan = QK.plan_for(x, w, stride, pads, groups)
+    got = QK.qconv(*args, **kw)
+    launched = QK.last_plan()
+    check(launched == plan.row(), f"{tag}: qconv.cu launched plan "
+                                  f"{launched} at {tuple(x.shape)} "
+                                  f"k{tuple(w.shape[1:3])} s{stride}, "
+                                  f"qconv_plan {plan.row()}")
+    z = QK.pre_round(QK.conv_sums(x, w, stride, pads, groups), alpha,
+                     bias, inv_out, act)
+    want = torch.clamp(torch.round(z), -127, 127).to(torch.int8)
+    diff = (got.int() - want.int()).abs()
+    near = (z - torch.floor(z) - 0.5).abs() < HALF_TOL
+    check(got.shape == want.shape and int(diff.max()) <= 1
+          and not bool(diff[~near].any()),
+          f"{tag}: qconv differs from qconv_plain at {tuple(x.shape)} "
+          f"-> {tuple(want.shape)} k{tuple(w.shape[1:3])} s{stride} "
+          f"g{groups} {act} ({plan.route} route): max "
+          f"{int(diff.max())}, {int((diff[~near] > 0).sum())} away "
+          f"from a half integer")
+    return got, want, plan, int(diff.max()), int((diff > 0).sum())
+
+
 def check_qconvs(calls, smi: str, tag: str):
     """Each captured conv: the kernel against the plain version on the
     card, its launched plan against `qconv_plan`, and kernel (events and
@@ -1592,27 +1691,9 @@ def check_qconvs(calls, smi: str, tag: str):
         x, w, alpha, bias, inv_out = args
         stride, pads, groups, act = (kw["stride"], kw["pads"],
                                      kw["groups"], kw["act"])
-        plan = QK.plan_for(x, w, stride, pads, groups)
-        got = QK.qconv(*args, **kw)
-        launched = QK.last_plan()
-        check(launched == plan.row(), f"{tag}: qconv.cu launched plan "
-                                      f"{launched} at {tuple(x.shape)} "
-                                      f"k{tuple(w.shape[1:3])} s{stride}, "
-                                      f"qconv_plan {plan.row()}")
-        z = QK.pre_round(QK.conv_sums(x, w, stride, pads, groups), alpha,
-                         bias, inv_out, act)
-        want = torch.clamp(torch.round(z), -127, 127).to(torch.int8)
-        diff = (got.int() - want.int()).abs()
-        near = (z - torch.floor(z) - 0.5).abs() < HALF_TOL
-        check(got.shape == want.shape and int(diff.max()) <= 1
-              and not bool(diff[~near].any()),
-              f"{tag}: qconv differs from qconv_plain at {tuple(x.shape)} "
-              f"-> {tuple(want.shape)} k{tuple(w.shape[1:3])} s{stride} "
-              f"g{groups} {act} ({plan.route} route): max "
-              f"{int(diff.max())}, {int((diff[~near] > 0).sum())} away "
-              f"from a half integer")
-        worst = max(worst, int(diff.max()))
-        flips += int((diff > 0).sum())
+        got, want, plan, w_, f_ = qconv_exact(args, kw, tag)
+        worst = max(worst, w_)
+        flips += f_
         elements += want.numel()
         ms = cuda_ms(lambda: QK.qconv(*args, **kw), 5)
         dev = QAB.graph_ms(lambda: QK.qconv(*args, **kw), 10)
@@ -1743,10 +1824,7 @@ def drive_int8(smi: str, frames_by_model) -> dict:
 
         plain = QK.qconv_plain
         QK.qconv_plain = plain_forbidden
-        K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
-        E.fused_elan.launches = E.fused_elan.bf16_launches = 0
-        QK.qconv.launches = QK.qconv.depthwise_launches = 0
-        QK.qconv.wgmma_launches = QK.qconv.split_launches = 0
+        zero_counters()
         times = []
         try:
             for r in range(INT8_REQUESTS):
@@ -1904,6 +1982,559 @@ def drive_int8(smi: str, frames_by_model) -> dict:
         "by_model": by_model}
 
 
+def eval_buckets(seed: int):
+    """Phase 21's host-route buckets: for each EVAL_BUCKETS shape,
+    EVAL_BATCH seeded BGR frames at that letterboxed shape, each standing
+    for a frame of twice its size (the auto=True letterbox at SIZE of a
+    (2h, 2w) frame is an exact half, with no pad: no OpenCV needed)."""
+    rng = np.random.default_rng(seed)
+    buckets = {}
+    for b, (h, w) in enumerate(EVAL_BUCKETS):
+        frames = rng.integers(0, 256, (EVAL_BATCH, h, w, 3), dtype=np.uint8)
+        buckets[(h, w)] = [(f"0--Host/host_{b}_{i}.jpg", (2 * h, 2 * w, 3),
+                            f) for i, f in enumerate(frames)]
+    return buckets
+
+
+def txt_rows(rows: np.ndarray, inp_hw, img0_shape) -> np.ndarray:
+    """What `write_pred_file` writes for Detections rows, as
+    `read_pred_file` parses it: x1 y1 w h conf after the inverse
+    letterbox, int(v + 0.5) coordinates, conf clamped to 1 at 3 decimals."""
+    r = rows[:, :5].astype(np.float64)
+    if len(r):
+        LB.scale_coords(inp_hw, r[:, :4], img0_shape)
+    out = []
+    for x1, y1, x2, y2, c in r:
+        ix1, iy1, ix2, iy2 = (int(v + 0.5) for v in (x1, y1, x2, y2))
+        out.append([ix1, iy1, ix2 - ix1, iy2 - iy1,
+                    float("%.03f" % (c if c <= 1 else 1))])
+    return np.array(out, np.float64).reshape(-1, 5)
+
+
+def counts_since_zero():
+    return {"seq": K.nms_keep.launches,
+            "fixpoint": K.nms_keep.fixpoint_launches,
+            "fused": E.fused_elan.launches + E.fused_elan.bf16_launches,
+            "qconv": QK.qconv.launches}
+
+
+def check_eval_point(det: FaceDetector, rows: torch.Tensor,
+                     dets: NMS.Detections, smi: str) -> dict:
+    """Phase 21a on one counted eval batch (B = 16, its rows as the
+    engine gave them to the postprocess and its Detections): the keep
+    mask kernel on the batch's candidates, bit for bit against
+    nms_keep_plain on two images; those two images' Detections against
+    the CPU postprocess of their rows; the kernel, its two passes apart,
+    and the plain version timed at this point, beside its bound. Returns
+    the kernels line's eval fields."""
+    b = rows.shape[0]
+    k = min(det.max_candidates, rows.shape[1])
+    check((b, k) == (EVAL_BATCH, EVAL_K), f"eval batch {b} x K {k}")
+    cpu = det.postprocess(rows[:2].cpu())
+    check(same_detections(NMS.Detections(*(t[:2] for t in dets)), cpu),
+          "eval: the card's Detections of 2 images differ from the CPU "
+          "postprocess of their rows")
+    _, _, _, nms_boxes, valid, _, _ = NMS._gather_candidates_planar(
+        rows, nc=det.spec.nc, conf_thres=det.conf_thres, k=k)
+    boxes = nms_boxes.float().contiguous()
+    thr = det.iou_thres
+    keep = K.nms_keep(boxes, valid, thr)
+    want = K.nms_keep_plain(boxes[:2], valid[:2], thr)
+    check(torch.equal(keep[:2], want), "eval: nms_keep differs from "
+                                       "nms_keep_plain at B=16, K=16384")
+    ms = cuda_ms(lambda: K.nms_keep(boxes, valid, thr), 10)
+    mask = torch.empty(K.mask_words(b, k), dtype=torch.int64,
+                       device=boxes.device)
+    scan_keep = torch.empty_like(keep)
+    pass1 = cuda_ms(lambda: K.launch_mask(boxes, valid, thr, mask), 10)
+    pass2 = cuda_ms(lambda: K.launch_scan(mask, valid, scan_keep), 10)
+    check(torch.equal(scan_keep, keep), "eval: nms_keep's passes run apart "
+                                        "differ from the kernel's call")
+    del mask
+    # the plain version materializes (B, K, K): two images at a time
+    plain = cuda_ms(lambda: [K.nms_keep_plain(boxes[i:i + 2], valid[i:i + 2],
+                                              thr) for i in range(0, b, 2)],
+                    1, warmup=0)
+    # the function's bound, as at every other point: inputs and output
+    # once against the keeper pairs' operations. The scratch is this
+    # design's own traffic, not the function's: its time stands apart.
+    bound, by = nms_bound(keep, valid)
+    scratch = 2 * K.mask_words(b, k) * 8  # pass 1 writes it, pass 2 reads
+    t_scratch = scratch / HBM_BYTES_PER_S * 1e3
+    t_dense = b * k * k / 2 * OPS_PER_IOU / F32_OPS_PER_S * 1e3
+    print(f"nms_keep at the eval point B={b} K={k} on {smi} (the w6 eval "
+          f"batch's own candidates, {int(valid.sum())} valid, kept "
+          f"{int(keep.sum())}): kernel {ms:.4f} ms (pass 1 {pass1:.4f}, "
+          f"pass 2 {pass2:.4f} apart), plain {plain:.4f} ms (2 images at "
+          f"a time); bound {bound:.4f} ms by {by} (inputs and output "
+          f"once, keeper pairs' operations), kernel at "
+          f"{ms / bound:.1f}x it; the design's scratch "
+          f"{scratch / 1e6:.1f} MB written and read {t_scratch:.4f} ms, "
+          f"all K^2/2 pairs' operations {t_dense:.4f} ms; "
+          f"kernel == plain on 2 images, Detections == CPU postprocess")
+    return {"eval_ms": ms, "eval_pass1_ms": pass1, "eval_pass2_ms": pass2,
+            "eval_plain_ms": plain, "eval_bound_ms": bound,
+            "eval_bound_by": by, "eval_scratch_bytes": scratch,
+            "eval_scratch_ms": t_scratch, "eval_dense_ops_ms": t_dense,
+            "eval_kept": int(keep.sum()), "eval_valid": int(valid.sum())}
+
+
+def check_written(save: str, buckets, seen, device_hw=None) -> int:
+    """Every txt of the written buckets parses back with read_pred_file
+    to as many rows as its count line and as its image's Detections
+    kept; the first two images' rows equal what the writer makes of their
+    Detections (the host route's equal the CPU postprocess,
+    `check_eval_point`). `seen` holds each engine call's (rows,
+    Detections) in the writer's order. Returns the rows written."""
+    total, call = 0, 0
+    for shape, items in sorted(buckets.items(), key=lambda kv: -len(kv[1])):
+        for i in range(0, len(items), EVAL_BATCH):
+            chunk = items[i:i + EVAL_BATCH]
+            rows, dets = seen[call]
+            kept = dets.valid.sum(1).cpu().tolist()
+            want = (NMS.detections_to_numpy(
+                NMS.Detections(*(t[:2] for t in dets)))
+                if call == 0 else None)
+            for j, (name, img0_shape, _) in enumerate(chunk):
+                path = os.path.join(save, name[:-4] + ".txt")
+                count = int(open(path).read().splitlines()[1])
+                stem, got = WF.read_pred_file(path)
+                check(stem == Path(name).stem and count == len(got)
+                      == kept[j], f"eval: {name} wrote {count} rows, parsed "
+                                  f"{len(got)}, kept {kept[j]}")
+                if want is not None and j < 2:
+                    inp_hw = device_hw or shape
+                    check(np.array_equal(got, txt_rows(want[j], inp_hw,
+                                                       img0_shape)),
+                          f"eval: {name}'s txt differs from its rows")
+                total += len(got)
+            call += 1
+    return total
+
+
+def eval_gt(save: str, events_dirs) -> dict:
+    """Seeded ground truth for the written predictions: per image its
+    first three written boxes and two random ones, easy keeping the
+    first, medium two, hard all."""
+    rng = np.random.default_rng(33)
+    events = {}
+    for event in events_dirs:
+        images = []
+        for txt in sorted(os.listdir(os.path.join(save, event))):
+            stem, rows = WF.read_pred_file(os.path.join(save, event, txt))
+            xy = rng.uniform(0, 900, (2, 2))
+            faces = np.concatenate([rows[:3, :4], np.concatenate(
+                [xy, rng.uniform(8, 120, (2, 2))], 1)]).round()
+            n = len(faces)
+            images.append((stem, faces, {"easy": [1], "medium": [1, 2],
+                                         "hard": list(range(1, n + 1))}))
+        events[event] = images
+    return events
+
+
+def drive_eval_writer(smi: str, gt_dir: str, save: str):
+    """Phase 21a: cli/test_widerface.write_buckets at the eval point,
+    float32 w6, host route on two buckets and device route on raw
+    frames; then evaluation() against seeded .mat files through the
+    native IoU and numpy. Returns (the kernels line's nms_keep eval
+    fields, the gate, the host buckets)."""
+    tag = "w6 eval"
+    det = FaceDetector("yolov7-w6-face", img_sizes=(SIZE,), conf_thres=0.01,
+                       iou_thres=0.5, max_det=EVAL_DET,
+                       max_candidates=EVAL_K, seed=0, device="cuda")
+    buckets = eval_buckets(30)
+    batch0 = np.ascontiguousarray(np.stack(
+        [f[:, :, ::-1] for _, _, f in buckets[EVAL_BUCKETS[0]]]))
+    # a gate at which the busiest frame of the first bucket gates
+    # EVAL_GATED > K rows, so the truncation report must show it
+    rows = det.forward_rows(batch0)
+    conf = (rows[..., 4] * rows[..., 5]).sort(dim=1, descending=True)[0]
+    det.conf_thres = float(conf[:, EVAL_GATED].max())
+    del rows, conf
+    raw = np.random.default_rng(31).integers(
+        0, 256, (EVAL_BATCH, *EVAL_RAW_HW, 3), dtype=np.uint8)
+    raw_buckets = {EVAL_RAW_HW: [(f"1--Device/dev_{i}.jpg", raw[i].shape,
+                                  raw[i]) for i in range(EVAL_BATCH)]}
+    for items in buckets.values():  # warm-ups of each shape, not counted
+        det.run_network(np.ascontiguousarray(np.stack(
+            [f[:, :, ::-1] for _, _, f in items])))
+    det.run_network_raw(det.upload(raw), SIZE, auto=True)
+    torch.cuda.synchronize()
+
+    seen, outs = [], {}
+    post = det.postprocess
+
+    def record(rows):
+        dets = post(rows)
+        seen.append((rows, dets))
+        return dets
+
+    det.postprocess = record
+    try:
+        for route, bks, dev in (("host", buckets, False),
+                                ("device", raw_buckets, True)):
+            start = len(seen)
+            zero_counters()
+            out, ms = timed(lambda: TW.write_buckets(
+                det, bks, save, img_size=SIZE, batch_size=EVAL_BATCH,
+                device_preprocess=dev))
+            got = counts_since_zero()
+            check(got == {"seq": out["batches"], "fixpoint": 0, "fused": 0,
+                          "qconv": 0} and out["batches"] == len(seen) - start
+                  == sum(-(-len(v) // EVAL_BATCH) for v in bks.values()),
+                  f"{tag} {route}: launches {got} for {out['batches']} "
+                  f"engine calls")
+            EVAL_LAUNCHES[f"{tag} {route}"] = got["seq"]
+            outs[route] = (out, ms, len(seen) - start)
+    finally:
+        del det.postprocess
+    gated = outs["host"][0]["gated"] + outs["device"][0]["gated"]
+    trunc = TW.report_truncation(gated, EVAL_K)
+    check(trunc["truncated_images"] > 0 and trunc["max_gated"] > EVAL_K,
+          f"{tag}: no image gated more than K = {EVAL_K}: {trunc}")
+    for route, (out, ms, calls) in outs.items():
+        bm = out["batch_ms"]
+        print(f"{tag} {route} route on {smi}: {out['written']} txts in "
+              f"{ms:.3f} ms, {calls} engine calls of B={EVAL_BATCH} at "
+              f"K={EVAL_K} (ms a batch {[round(v, 3) for v in bm]}, "
+              f"median {np.median(bm):.3f}), "
+              f"{out['written'] / ms * 1e3:.1f} img/s; nms_keep launches "
+              f"{EVAL_LAUNCHES[f'{tag} {route}']}")
+    stamp(f"{tag}: counted runs done")
+    fields = check_eval_point(det, *seen[0], smi)
+    stamp(f"{tag}: eval point checked and timed")
+    geom = DP.letterbox_geometry(EVAL_RAW_HW, SIZE, auto=True,
+                                 stride=det.stride)
+    n_rows = (check_written(save, buckets, seen)
+              + check_written(save, raw_buckets, seen[outs["host"][2]:],
+                              device_hw=geom.out_hw))
+    stamp(f"{tag}: txts parsed back")
+    check(NAT.available(), "the native postprocess library (g++) did not "
+                           "build")
+    write_widerface_gt(gt_dir, eval_gt(save, ("0--Host", "1--Device")))
+    aps = WF.evaluation(save, gt_dir, verbose=False)
+    available = NAT.available
+    NAT.available = lambda: False
+    try:
+        aps_numpy = WF.evaluation(save, gt_dir, verbose=False)
+    finally:
+        NAT.available = available
+    check(aps == aps_numpy and all(0 < v <= 1 for v in aps.values()),
+          f"{tag}: evaluation {aps} through the native IoU, {aps_numpy} "
+          f"through numpy")
+    host_bm = outs["host"][0]["batch_ms"]
+    # where an eval batch's time goes: forward (with decode) and postprocess
+    rows, fwd_ms = timed(lambda: det.forward_rows(batch0))
+    _, post_ms = timed(lambda: det.postprocess(rows))
+    print(f"{tag}: a B={EVAL_BATCH} batch at {EVAL_BUCKETS[0][0]}x"
+          f"{EVAL_BUCKETS[0][1]}: forward+decode {fwd_ms:.3f} ms, "
+          f"postprocess {post_ms:.3f} ms (host clock, synchronized)")
+    print(f"{tag}: {n_rows} rows written and parsed back; truncation "
+          f"{trunc}; evaluation() easy/medium/hard {aps['easy']:.6f} / "
+          f"{aps['medium']:.6f} / {aps['hard']:.6f} (native IoU == numpy)")
+    host_out, host_ms, _ = outs["host"]
+    fields.update(
+        eval_batch_ms=float(np.median(host_bm)),
+        eval_img_per_s=EVAL_BATCH / float(np.median(host_bm)) * 1e3,
+        eval_writer_img_per_s=host_out["written"] / host_ms * 1e3,
+        eval_forward_ms=fwd_ms, eval_postprocess_ms=post_ms,
+        eval_device_batch_ms=float(np.median(outs["device"][0]["batch_ms"])),
+        eval_truncated_images=trunc["truncated_images"])
+    gate = det.conf_thres
+    del det, seen, rows
+    torch.cuda.empty_cache()
+    stamp("phase 21a (the WIDER writer at the eval point) done")
+    return fields, gate, buckets
+
+
+def drive_eval_int8(smi: str, gate: float, buckets, save: str) -> dict:
+    """Phase 21b: the writer with --quantize semantics, one bucket at
+    B = 16 (640 x 512 network input, 512 x 640 frames), calibrated on its
+    first batch; every qconv launch of the counted run equals qconv_plain
+    and its launched plan qconv_plan's. Returns the launches by route."""
+    tag = "w6 int8 eval"
+    det = FaceDetector("yolov7-w6-face", img_sizes=(SIZE,), conf_thres=gate,
+                       iou_thres=0.5, max_det=EVAL_DET, max_candidates=EVAL_K,
+                       seed=0, quantize="int8", device="cuda")
+    bucket = {EVAL_BUCKETS[0]: buckets[EVAL_BUCKETS[0]]}
+    calls = []
+    real = QUANT.qconv
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    zero_counters()
+    QUANT.qconv = record
+    try:
+        out, ms = timed(lambda: TW.write_buckets(
+            det, bucket, save, img_size=SIZE, batch_size=EVAL_BATCH))
+    finally:
+        QUANT.qconv = real
+    got = counts_since_zero()
+    qc = {"qconv": QK.qconv.launches, "wgmma": QK.qconv.wgmma_launches,
+          "split": QK.qconv.split_launches,
+          "depthwise": QK.qconv.depthwise_launches}
+    convs = len(det._qparams["convs"])
+    check(got["seq"] == out["batches"] == 1 and got["fixpoint"] == 0
+          and got["fused"] == 0 and qc["qconv"] == len(calls) == convs,
+          f"{tag}: launches {got} {qc}, want 1 nms_keep and {convs} qconv")
+    EVAL_LAUNCHES[tag] = got["seq"]
+    plans = [QK.plan_for(a[0], a[1], k["stride"], k["pads"], k["groups"])
+             for a, k, _ in calls]
+    planned = {"qconv": convs,
+               "wgmma": sum(p.route == "wgmma" for p in plans),
+               "split": sum(p.split > 1 for p in plans),
+               "depthwise": sum(p.route == "direct" for p in plans)}
+    check(qc == planned, f"{tag}: launches by route {qc}, planned {planned}")
+    worst = flips = elements = 0
+    for args, kw, launched in calls:
+        again, want, _, w_, f_ = qconv_exact(args, kw, tag)
+        check(torch.equal(again, launched), f"{tag}: a conv's eval launch "
+                                            f"differs from its relaunch")
+        worst, flips, elements = max(worst, w_), flips + f_, \
+            elements + want.numel()
+    print(f"{tag} on {smi}: one bucket of B={EVAL_BATCH} at "
+          f"{EVAL_BUCKETS[0][0]}x{EVAL_BUCKETS[0][1]}, calibrated on it, "
+          f"{ms:.3f} ms (batch {out['batch_ms'][0]:.3f}); qconv launches "
+          f"{qc['qconv']} ({qc['wgmma']} wgmma, {qc['split']} split, "
+          f"{qc['depthwise']} direct, the rest mma) == qconv_plan's routes; "
+          f"each launch == qconv_plain ({flips} of {elements} outputs 1 "
+          f"apart at half integers), every launched plan == qconv_plan")
+    del det, calls
+    torch.cuda.empty_cache()
+    stamp("phase 21b (int8 eval) done")
+    return qc
+
+
+class MemoryFaces(DS.FaceDataset):
+    """A FaceDataset over seeded in-memory images and labels (the card
+    machine has no OpenCV or PIL to read files): `_enumerate` gives the
+    names, labels and native shapes, `load_image` the stored image at
+    the network size with its native (h0, w0)."""
+
+    def __init__(self, images, hw0, labels, **kw):
+        self.images, self.hw0, self.given = images, hw0, labels
+        super().__init__(None, **kw)
+
+    def _enumerate(self, path, prefix):
+        names = [f"mem/{i}.jpg" for i in range(len(self.images))]
+        shapes = np.array([(w, h) for h, w in self.hw0], np.float64)
+        return names, names, list(self.given), shapes
+
+    def load_image(self, index):
+        img = self.images[index]
+        return img.copy(), self.hw0[index], img.shape[:2]
+
+
+def validation_labels(det: FaceDetector, images: np.ndarray):
+    """Labels from the card's own detections: per image its first three
+    kept boxes, jittered, and one random box, as normalized `0 cx cy w h`
+    rows with 5 keypoints inside the box (the occlusion column dropped,
+    as load_label_file does)."""
+    rng = np.random.default_rng(41)
+    labels = []
+    for i in range(0, len(images), VAL_BATCH):
+        batch = np.ascontiguousarray(images[i:i + VAL_BATCH][..., ::-1])
+        for rows in NMS.detections_to_numpy(det.run_network(batch)):
+            xy = rng.uniform(0.05, 0.6, 2) * SIZE
+            boxes = np.concatenate([rows[:3, :4], [[*xy, *(
+                xy + rng.uniform(0.05, 0.25, 2) * SIZE)]]])
+            n = len(boxes)
+            boxes = np.clip(boxes + rng.normal(0, 6, (n, 4)), 1, SIZE - 1)
+            boxes[:, 2:] = np.maximum(boxes[:, 2:], boxes[:, :2] + 4)
+            c = (boxes[:, :2] + boxes[:, 2:]) / 2
+            wh = boxes[:, 2:] - boxes[:, :2]
+            kpts = c[:, None] + rng.uniform(-1 / 3, 1 / 3, (n, 5, 2)) \
+                * wh[:, None]
+            labels.append(np.concatenate(
+                [np.zeros((n, 1)), c, wh, kpts.reshape(n, 10)], 1)
+                .astype(np.float32) / np.float32([1] + [SIZE] * 14))
+    return labels
+
+
+def drive_validate(smi: str) -> None:
+    """Phase 21c: infer/validate.validate on the card, w6 float32 unfused
+    at b8@640 over a MemoryFaces dataset: one nms_keep launch a batch;
+    P / R / mAP equal to those of the same decoded rows postprocessed and
+    scored on the CPU."""
+    tag = "w6 validate"
+    det = FaceDetector("yolov7-w6-face", img_sizes=(SIZE,), conf_thres=0.001,
+                       iou_thres=0.6, max_candidates=VAL.MAX_CANDIDATES,
+                       seed=0, device="cuda")
+    images = np.random.default_rng(40).integers(
+        0, 256, (VAL_IMAGES, SIZE, SIZE, 3), dtype=np.uint8)
+    hw0 = [(2 * SIZE, 2 * SIZE)] * VAL_IMAGES
+    ds = MemoryFaces(images, hw0, validation_labels(det, images),
+                     img_size=SIZE, kpt_label=5, stride=det.stride,
+                     batch_size=VAL_BATCH)
+    real = NMS.non_max_suppression
+    preds = []
+
+    def record(pred, *args, **kw):
+        preds.append(pred)
+        return real(pred, *args, **kw)
+
+    zero_counters()
+    NMS.non_max_suppression = record
+    try:
+        res, ms = timed(lambda: VAL.validate(det.model, ds,
+                                             batch_size=VAL_BATCH,
+                                             verbose=False))
+    finally:
+        NMS.non_max_suppression = real
+    got = counts_since_zero()
+    batches = VAL_IMAGES // VAL_BATCH
+    check(got == {"seq": batches, "fixpoint": 0, "fused": 0, "qconv": 0}
+          and len(preds) == batches, f"{tag}: launches {got} for "
+                                     f"{batches} batches")
+    EVAL_LAUNCHES[tag] = got["seq"]
+    engine, it = VAL._engine, iter(preds)
+    VAL._engine = lambda model, images_u8, **kw: real(
+        next(it).cpu(), kw["conf_thres"], kw["iou_thres"], nc=1, nkpt=5,
+        max_candidates=VAL.MAX_CANDIDATES, max_det=kw["max_det"])
+    try:
+        res_cpu = VAL.validate(det.model, ds, batch_size=VAL_BATCH,
+                               verbose=False)
+    finally:
+        VAL._engine = engine
+    keys = ("mp", "mr", "map50", "map", "images", "truncated_images")
+    check(all(res[k] == res_cpu[k] for k in keys) and 0 < res["map50"] < 1,
+          f"{tag}: card {res} against the CPU scoring {res_cpu}")
+    print(f"{tag} b{VAL_BATCH}@{SIZE} on {smi}: {res['images']} images, P "
+          f"{res['mp']:.6f} R {res['mr']:.6f} mAP50 {res['map50']:.6f} mAP "
+          f"{res['map']:.6f} (== the CPU postprocess and scoring of the "
+          f"card's rows), {res['truncated_images']} truncated at K="
+          f"{VAL.MAX_CANDIDATES}; {ms:.3f} ms, "
+          f"{res['ms_per_image']:.3f} ms an image; nms_keep launches "
+          f"{got['seq']}")
+    del det, preds
+    torch.cuda.empty_cache()
+    stamp("phase 21c (validate) done")
+
+
+def drive_production(smi: str, tmp: str) -> None:
+    """Phase 21d: ProductionPipeline at the production defaults (w6,
+    scales 640 + 3840, conf 0.6, IoU 0.3, API preprocessing, bf16 as the
+    batch CLI), device preprocessing: detect_frame a frame, then the
+    batched branch (detect_frames) over 2 seeded 1080x1920 frames, whose
+    host API preprocess (OpenCV) becomes the card's, rounded to uint8;
+    nms_keep launches: one a scale call and one a merge; frames_to_json
+    with the contract's tensors."""
+    tag = "w6 production"
+    det = FaceDetector("yolov7-w6-face", img_sizes=TTA_SIZES, conf_thres=0.6,
+                       iou_thres=0.3, use_api_preprocess=True,
+                       use_device_preprocess=True, dtype=torch.bfloat16,
+                       seed=0, device="cuda")
+    pipe = PROD.ProductionPipeline(det, os.path.join(tmp, "json"),
+                                   os.path.join(tmp, "faces"))
+    frames = tta_frames()
+
+    def card_api(img_bgr, img_size):
+        x, _ = det.device_input(det.upload(img_bgr[None]), img_size,
+                                auto=True)
+        return (x[0].float() * 255.0).round().clamp(0, 255).to(
+            torch.uint8).cpu().numpy()
+
+    det.preprocess = card_api
+    merge = NMS.weighted_nms_merge
+    merges = []
+
+    def record_merge(*args, **kw):
+        merges.append(1)
+        return merge(*args, **kw)
+
+    pipe.detect_frame(frames[0])  # warm-ups, not counted
+    pipe.detect_frames(frames)
+    NMS.weighted_nms_merge = record_merge
+    try:
+        results = {}
+        for branch, fn, calls in (
+                ("detect_frame", lambda: [pipe.detect_frame(f)[0]
+                                          for f in frames],
+                 len(frames) * len(TTA_SIZES)),
+                ("batched", lambda: pipe.detect_frames(frames)[0],
+                 len(TTA_SIZES))):
+            merges.clear()
+            zero_counters()
+            found, ms = timed(fn)
+            got = counts_since_zero()
+            check(got == {"seq": calls + len(merges), "fixpoint": 0,
+                          "fused": 0, "qconv": 0},
+                  f"{tag} {branch}: launches {got}, want {calls} scale "
+                  f"calls and {len(merges)} merges")
+            EVAL_LAUNCHES[f"{tag} {branch}"] = got["seq"]
+            data = PROD.frames_to_json(found, ms / 1e3)
+            names = {t["name"]: t for t in data["yolo_face_prediction"]}
+            check(set(names) == CONTRACT_TENSORS and names[
+                "yolo-face-bboxes"]["shape"][0] == len(frames),
+                f"{tag} {branch}: frames_to_json tensors {sorted(names)}")
+            results[branch] = ms
+            print(f"{tag} {branch} on {smi} (API preprocessing on the "
+                  f"card: cli/batch_predict's default host OpenCV "
+                  f"preprocess is not in this time): {len(frames)} frames "
+                  f"{TTA_HW[0]}x{TTA_HW[1]}, {ms / len(frames):.3f} ms a "
+                  f"frame, faces {[f['num_faces'] for f in found]}, "
+                  f"nms_keep launches {got['seq']} ({calls} scale calls, "
+                  f"{len(merges)} merges); frames_to_json has the "
+                  f"contract's tensors")
+    finally:
+        NMS.weighted_nms_merge = merge
+        del det.preprocess
+    del det
+    torch.cuda.empty_cache()
+    stamp("phase 21d (production) done")
+
+
+def drive_phase21(smi: str):
+    """Phase 21: evaluation and production on the card. Returns (the
+    nms_keep entry's eval fields, the qconv entry's eval launches)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_",
+                                     dir=ROOT) as tmp:
+        save = os.path.join(tmp, "widerface_txt")
+        fields, gate, buckets = drive_eval_writer(
+            smi, os.path.join(tmp, "ground_truth"), save)
+        qconv_eval = drive_eval_int8(smi, gate, buckets,
+                                     os.path.join(tmp, "int8_txt"))
+        drive_validate(smi)
+        drive_production(smi, tmp)
+    fields["eval_launches"] = sum(EVAL_LAUNCHES[t] for t in (
+        "w6 eval host", "w6 eval device", "w6 int8 eval"))
+    return fields, qconv_eval
+
+
+def write_widerface_gt(gt_dir: str, events) -> None:
+    """The four WIDER FACE ground-truth .mat files in `gt_dir`, the layout
+    `eval.widerface.load_gt` reads: `events` maps an event name to its
+    images, each (name, faces (n, 4) as x y w h, {"easy" | "medium" |
+    "hard": 1-based indices of the faces that setting keeps})."""
+    from scipy.io import savemat
+
+    def cells(values):
+        out = np.empty((len(values), 1), object)
+        for i, v in enumerate(values):
+            out[i, 0] = v
+        return out
+
+    os.makedirs(gt_dir, exist_ok=True)
+    images = list(events.values())
+    savemat(os.path.join(gt_dir, "wider_face_val.mat"), {
+        "event_list": cells(list(events)),
+        "file_list": cells([cells([name for name, _, _ in imgs])
+                            for imgs in images]),
+        "face_bbx_list": cells([cells([np.asarray(f, np.float64)
+                                       .reshape(-1, 4)
+                                       for _, f, _ in imgs])
+                                for imgs in images])})
+    for setting in ("easy", "medium", "hard"):
+        savemat(os.path.join(gt_dir, f"wider_{setting}_val.mat"), {
+            "gt_list": cells([cells([np.asarray(k[setting], np.int32)
+                                     .reshape(-1, 1)
+                                     for _, _, k in imgs])
+                              for imgs in images])})
+
+
 def group_entry(s):
     """The time fields of a kernels-line entry from check_groups' sums."""
     return {"ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -2019,6 +2650,15 @@ def main() -> None:
 
     # phase 20: int8 serving
     qconv_entry = drive_int8(smi, {w6: frames[w6], tiny: frames[tiny]})
+
+    # phase 21: evaluation and production
+    eval_fields, qconv_eval = drive_phase21(smi)
+    qconv_entry["eval_launches"] = qconv_eval
+    qconv_entry["launches"] += qconv_eval["qconv"]
+    for key in ("depthwise", "wgmma", "split"):
+        qconv_entry[f"{key}_launches"] += qconv_eval[key]
+    qconv_entry["launches_by_path"]["yolov7-w6-face int8 eval b16"] = \
+        qconv_eval
     api_seq = sum(c["seq"] for c in API_LAUNCHES.values())
     for d, acc in ((torch.float32, elan), (bf16, bf16_elan)):
         acc["abs"] = max(acc["abs"], new_worst[d][0])
@@ -2040,7 +2680,8 @@ def main() -> None:
     plain_ms = cuda_ms(lambda: K.nms_keep_plain(boxes, valid, thr), 5)
     for version, name, line, launches, iters in (
             ("seq", "nms_keep", 94,
-             total["seq"] + tta_launches + tiled_launches + api_seq, 20),
+             total["seq"] + tta_launches + tiled_launches + api_seq
+             + sum(EVAL_LAUNCHES.values()), 20),
             ("fixpoint", "nms_keep_fixpoint", 35, fixpoint_launches, 20)):
         got = K.nms_keep(boxes, valid, thr, kernel_version=version)
         err = int((got.int() - want.int()).abs().max())
@@ -2085,7 +2726,10 @@ def main() -> None:
     pass2 = cuda_ms(lambda: K.launch_scan(mask, valid, scan_keep), 20)
     check(torch.equal(scan_keep, want), "nms_keep's passes run apart differ "
                                         "from the plain version")
-    entries[0].update(pass1_ms=pass1, pass2_ms=pass2, dense_bound_ms=dense_ms)
+    entries[0].update(pass1_ms=pass1, pass2_ms=pass2, dense_bound_ms=dense_ms,
+                      # phase 21: evaluation and production, one entry a
+                      # counted call; the eval point B = 16, K = 16384
+                      phase21_launches=dict(EVAL_LAUNCHES), **eval_fields)
     # the fixpoint version's sweep kernel apart, in clusters of 8 and 16
     sweep_keep = torch.empty_like(keep)
     counts = torch.empty(b, dtype=torch.int32, device=boxes.device)

@@ -1053,3 +1053,97 @@ def test_int8_engine_on_card_matches_cpu_postprocess(cuda_device, name):
     for got, want in zip(det.postprocess(rows), det.postprocess(rows.cpu())):
         assert torch.equal(got.cpu(), want)
     assert dets.valid.any()
+
+
+# ---------------------------------------------------------------------------
+# evaluation (WIDER writer, int8 eval batch) and the eval point of nms_keep
+# ---------------------------------------------------------------------------
+
+def test_nms_keep_at_the_eval_point(cuda_device):
+    """B = 16, K = 16384 (cli/test_widerface's batch and max_candidates):
+    one launch; the keep masks of the first and last images equal to
+    nms_keep_plain's."""
+    boxes, valid = candidates(16, 16384, seed=77, frac_valid=0.9,
+                              device=cuda_device)
+    launches = K.nms_keep.launches
+    got = K.nms_keep(boxes, valid, 0.5)
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == launches + 1
+    for i in (0, 15):
+        want = K.nms_keep_plain(boxes[i:i + 1], valid[i:i + 1], 0.5)
+        assert torch.equal(got[i:i + 1], want)
+    assert not bool(got[~valid].any())
+
+
+def test_wider_writer_on_card_matches_cpu_postprocess(cuda_device,
+                                                      tmp_path):
+    """cli/test_widerface.write_buckets on the card, narrowed tiny, two
+    letterboxed buckets: one nms_keep launch an engine call, each call's
+    Detections equal to the CPU postprocess of its rows, and each txt's
+    count line its image's kept rows."""
+    from face_detection_multi_scale_tpu_torch.cli import test_widerface as TW
+    from face_detection_multi_scale_tpu_torch.eval.widerface import (
+        read_pred_file)
+
+    det = FaceDetector(narrow_tiny(), img_sizes=(192,), conf_thres=0.01,
+                       max_det=1024, max_candidates=2048,
+                       device=cuda_device)
+    rng = np.random.default_rng(21)
+    buckets = {hw: [(f"{b}--E/i{b}_{i}.jpg", (2 * hw[0], 2 * hw[1], 3),
+                     rng.integers(0, 256, (*hw, 3), dtype=np.uint8))
+                    for i in range(3)]
+               for b, hw in enumerate(((128, 192), (192, 128)))}
+    seen = []
+    post = det.postprocess
+    det.postprocess = lambda rows: seen.append((rows, post(rows))) or \
+        seen[-1][1]
+    launches = K.nms_keep.launches
+    out = TW.write_buckets(det, buckets, str(tmp_path), img_size=192,
+                           batch_size=2)
+    torch.cuda.synchronize()
+    assert out["batches"] == len(seen) == 4
+    assert K.nms_keep.launches == launches + 4
+    for rows, dets in seen:
+        for got, want in zip(dets, post(rows.cpu())):
+            assert torch.equal(got.cpu(), want)
+    kept = [int(v) for _, d in seen for v in d.valid.sum(1).cpu()]
+    names = [n for items in buckets.values() for n, _, _ in items]
+    for name, n in zip(names, kept):
+        assert len(read_pred_file(str(tmp_path / (name[:-4] + ".txt")))[1]) \
+            == n
+    assert sum(kept) > 0
+
+
+def test_int8_eval_batch_every_conv_exact(cuda_device):
+    """An int8 tiny detector calibrated lazily on a B = 16 batch of 640 x
+    512 network inputs (the --quantize eval's batch): every qconv launch
+    of that batch equal to qconv_plain (chip_smoke.qconv_exact, which also
+    holds the launched plan to qconv_plan's), one nms_keep launch."""
+    import chip_smoke
+    from face_detection_multi_scale_tpu_torch.models import quant as Q
+
+    frames = np.random.default_rng(5).integers(0, 256, (16, 640, 512, 3),
+                                               dtype=np.uint8)
+    det = FaceDetector("yolov7-tiny-face", img_sizes=(640,),
+                       conf_thres=0.01, max_det=4096, max_candidates=16384,
+                       quantize="int8", device=cuda_device)
+    calls = []
+    real = Q.qconv
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, kw, out))
+        return out
+
+    seq = K.nms_keep.launches
+    Q.qconv = record
+    try:
+        det.run_network(frames)
+    finally:
+        Q.qconv = real
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == seq + 1
+    assert len(calls) == len(det._qparams["convs"])
+    for args, kw, launched in calls:
+        again, _, _, _, _ = chip_smoke.qconv_exact(args, kw, "int8 eval")
+        assert torch.equal(again, launched)
