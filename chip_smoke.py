@@ -211,19 +211,42 @@ Phases, each fatal on failure (nothing is caught to carry on):
      branch (detect_frames, its host API preprocess made on the card and
      rounded to uint8); one nms_keep launch a scale call and a merge;
      frames_to_json with the contract's tensors; ms a frame
- 22. one JSON line with every kernel's launches, error, times and bound;
+ 22. path train (yolov7-face at full width, the JAX CLI's default
+     --model, seeded weights; float32 with TF32 off): (a) one micro-step
+     at b2@256 from the same state on the card and on the CPU in float32
+     and on the CPU in float64 (the exact step), each compared in units
+     of its tolerance (loss components rtol 5e-4, every parameter and EMA
+     parameter after the SGD apply rtol 5e-3 / atol 5e-5, BN running
+     statistics rtol 1e-4, means also atol 1e-6): the card's float32
+     step within the tolerance of the exact one, or within twice the
+     CPU's float32 step's distance from it (a random model's float32
+     step is that ill-conditioned; train_step_parity); (b) b16@640 at nominal
+     batch 64 (4 micro-steps an apply), 8 micro-steps from an in-memory
+     non-augmenting FaceDataset through the DataLoader: the micro-step
+     (forward + loss + backward) and apply by CUDA events (medians), img/s,
+     the losses and torch.cuda.max_memory_allocated; (c)
+     yolov7-tiny-face overfits one b2@128 batch in 120 steps (the last
+     total loss under half the first, the box loss under 0.1); (d)
+     cli/train.train_run for one epoch over in-memory sets: the
+     epoch-end validate on the EMA model launches nms_keep once a
+     validation batch and the fixpoint kernel never, `last` and `best`
+     load back equal to the final state, and best_inference.npz, loaded
+     by FaceDetector(torch_weights=), serves the EMA model's Detections
+ 23. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
      of 16 blocks; fused_elan_bf16 beside fused_elan; `launches` sums
      every counted path's run, `launches_by_path` splits it,
      `api_launches` holds phases 15-19's counted calls and
-     `phase21_launches` phase 21's (nms_keep's `launches` includes both);
+     `phase21_launches` phase 21's and `train_launches` phase 22's
+     (nms_keep's `launches` includes them all), `train_timed` phase
+     22(b)'s numbers;
      nms_keep's `eval_*` fields hold the eval point (B = 16, K = 16384):
      `eval_bound_ms` is `nms_bound`'s, `eval_scratch_ms` the scratch's
      bytes at 3.35 TB/s, and `eval_launches` its launches there; qconv's `eval_launches` the
      int8 eval's launches by route; the fused entries' `by_model` hold
      the yolov7-face and yolov7s-face group sums
- 23. the last line: {"ok": true, "device": {...}}
+ 24. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
@@ -250,6 +273,7 @@ import torch
 
 from face_detection_multi_scale_tpu_torch import native as NAT
 from face_detection_multi_scale_tpu_torch.cli import test_widerface as TW
+from face_detection_multi_scale_tpu_torch.cli import train as TRAIN_CLI
 from face_detection_multi_scale_tpu_torch.data import dataset as DS
 from face_detection_multi_scale_tpu_torch.data import letterbox as LB
 from face_detection_multi_scale_tpu_torch.eval import widerface as WF
@@ -265,6 +289,9 @@ from face_detection_multi_scale_tpu_torch.infer.detector import (
 from face_detection_multi_scale_tpu_torch.infer.results import Detections
 from face_detection_multi_scale_tpu_torch.models import fused as FUSED
 from face_detection_multi_scale_tpu_torch.models import quant as QUANT
+from face_detection_multi_scale_tpu_torch.models import zoo
+from face_detection_multi_scale_tpu_torch.models.model import (
+    YoloFace, init_weights)
 from face_detection_multi_scale_tpu_torch.models.head import (
     decode, reshape_level)
 from face_detection_multi_scale_tpu_torch.ops.boxes import box_iou
@@ -274,6 +301,12 @@ from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
 from face_detection_multi_scale_tpu_torch.ops import qconv_kernel as QK
 from face_detection_multi_scale_tpu_torch.tools import probe_mm as PM
 from face_detection_multi_scale_tpu_torch.tools import qconv_ab as QAB
+from face_detection_multi_scale_tpu_torch.train import checkpoint as CKPT
+from face_detection_multi_scale_tpu_torch.train import loss as TLOSS
+from face_detection_multi_scale_tpu_torch.train import trainer as TR
+from face_detection_multi_scale_tpu_torch.train.hyp import HYP_SCRATCH_P6
+from face_detection_multi_scale_tpu_torch.train.targets import (
+    build_targets_batched)
 from face_detection_multi_scale_tpu_torch.tools.forward_format_ab import (
     kernel_profile)
 
@@ -336,6 +369,22 @@ EVAL_GATED = 17000  # rows the busiest frame of the gate's batch gates
 VAL_IMAGES, VAL_BATCH = 16, 8
 # each counted call of phase 21: {tag: nms_keep launches}
 EVAL_LAUNCHES = {}
+# phase 22: single-card training of the JAX CLI's default --model
+TRAIN_MODEL = "yolov7-face"
+PARITY_SIZE, PARITY_BATCH = 256, 2            # (a) one micro-step, card/CPU
+TIMED_SIZE, TIMED_BATCH, TIMED_NOMINAL = 640, 16, 64  # (b) 4 micro-steps
+TIMED_STEPS = 8                                       # an apply
+LEARN_MODEL, LEARN_SIZE, LEARN_BATCH, LEARN_STEPS = (
+    "yolov7-tiny-face", 128, 2, 120)          # (c) tests/test_training_learns
+EPOCH_SIZE, EPOCH_TRAIN, EPOCH_VAL, EPOCH_VAL_BATCH = 256, 4, 16, 8  # (d)
+# card against CPU after one train step (tests/test_trainer_lockstep.py's
+# parameter bounds); a running mean moves by 0.03 x a batch mean, and a
+# mean near 0 is also held absolutely (0.03 x the forwards' ~3e-5)
+TRAIN_LOSS_RTOL = 5e-4
+TRAIN_PARAM_TOL = dict(rtol=5e-3, atol=5e-5)
+TRAIN_BN_RTOL, TRAIN_BN_MEAN_ATOL = 1e-4, 1e-6
+# phase 22's counted calls: {tag: nms_keep launches}
+TRAIN_LAUNCHES = {}
 CONTRACT_TENSORS = {
     "yolo-face-bboxes", "yolo-face-confidence", "yolo-face-class_names",
     "yolo-face-class_indexes", "yolo-face-class_groups",
@@ -2535,6 +2584,377 @@ def write_widerface_gt(gt_dir: str, events) -> None:
                               for imgs in images])})
 
 
+# ---------------------------------------------------------------------------
+# phase 22: training
+# ---------------------------------------------------------------------------
+
+def face_labels(rng, n: int):
+    """n images' seeded labels: 1-3 faces each, normalized `0 cx cy w h`
+    rows with 5 landmarks inside the box (load_label_file's layout)."""
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(1, 4))
+        xy = rng.uniform(0.25, 0.75, (k, 2))
+        wh = rng.uniform(0.08, 0.4, (k, 2))
+        kpt = xy[:, None] + rng.uniform(-0.25, 0.25, (k, 5, 2)) * wh[:, None]
+        out.append(np.concatenate([np.zeros((k, 1)), xy, wh,
+                                   kpt.reshape(k, 10)], 1).astype(np.float32))
+    return out
+
+
+def face_batch(rng, b: int, size: int):
+    """A seeded uint8 NHWC batch and its collated label rows."""
+    images = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
+    labels = DS.collate([(images[i], l, "", None) for i, l in
+                         enumerate(face_labels(rng, b))])[1]
+    return images, labels
+
+
+def memory_faces(rng, n: int, size: int, stride: int) -> MemoryFaces:
+    images = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+    return MemoryFaces(images, [(size, size)] * n, face_labels(rng, n),
+                       img_size=size, kpt_label=5, stride=stride)
+
+
+def tolerance_ratio(got: torch.Tensor, want: torch.Tensor, rtol: float,
+                    atol: float = 0.0) -> float:
+    """max |got - want| / (atol + rtol |want|): within the tolerance iff
+    <= 1."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def train_step_parity(spec_fn, size: int, batch: int, seed: int,
+                      accumulate: bool = False) -> dict:
+    """One train step of the same seeded model and state on the card and on
+    the CPU in float32 (TF32 off, as the trainer runs), and on the CPU in
+    float64, the exact step: make_train_step, or with `accumulate` two
+    make_accum_steps micro-steps and an apply. The state is past the
+    warmup, so kernels move too.
+
+    Each comparison is a tolerance ratio, max |got - want| / (atol + rtol
+    |want|), over the loss components (rtol TRAIN_LOSS_RTOL), every
+    parameter and EMA parameter (TRAIN_PARAM_TOL) and every BN running
+    statistic (TRAIN_BN_RTOL; means also TRAIN_BN_MEAN_ATOL). A random
+    model's float32 step is ill-conditioned: the CPU's own float32 step
+    can miss the float64 one by more than these tolerances (yolov7-face
+    b2@256: 2.65x on its first convs' weights). So the check is that the
+    card's float32 step is as close to the exact step as the CPU's float32
+    step, within a factor 2, or within the tolerance itself. Returns the
+    ratios card/exact ("card"), CPU/exact ("cpu") and card/CPU
+    ("card_cpu"), and the card step's components."""
+    cfg = TR.TrainConfig(epochs=300, steps_per_epoch=10, warmup_epochs=0.0,
+                         min_warmup_steps=1, batch_size=batch)
+    rng = np.random.default_rng(seed)
+    batches = [face_batch(rng, batch, size) for _ in range(2)]
+    init = init_weights(YoloFace(spec_fn()),
+                        torch.Generator().manual_seed(seed)).state_dict()
+    runs = {}
+    for key, device, dtype in (("exact", "cpu", torch.float64),
+                               ("cpu", "cpu", torch.float32),
+                               ("card", "cuda", torch.float32)):
+        net = YoloFace(spec_fn())
+        net.load_state_dict(init)
+        net.to(device, dtype)
+        spec = net.spec
+        grids = [(size // st, size // st) for st in spec.strides]
+        targets = [build_targets_batched(l, batch, spec, grids)
+                   for _, l in batches]
+        state = TR.create_train_state(net)
+        state.step = state.ema_updates = 1
+        hyp = dict(HYP_SCRATCH_P6)
+        if accumulate:
+            grad_fn, apply_fn = TR.make_accum_steps(net, cfg, hyp, size)
+            acc = TR.zero_grads_like(state.params)
+            comps = []
+            for (images, _), tg in zip(batches, targets):
+                state, acc, _, c = grad_fn(state, images, tg, acc)
+                comps.append(c)
+            state = apply_fn(state, acc, 2)
+            comps = torch.stack(comps)
+        else:
+            state, _, comps = TR.make_train_step(net, cfg, hyp, size)(
+                state, batches[0][0], targets[0])
+        check(state.step == 2, f"{key} train step: {state.step} applies")
+        runs[key] = (comps.cpu(), net.state_dict(), state.ema_params,
+                     list(state.params))
+
+    def ratios(a, b):
+        (ca, sa, ea, names), (cb, sb, eb, _) = runs[a], runs[b]
+        out = {"loss": tolerance_ratio(ca, cb, TRAIN_LOSS_RTOL, 1e-7),
+               "param": 0.0, "ema": 0.0, "bn": 0.0}
+        for name in names:
+            out["param"] = max(out["param"], tolerance_ratio(
+                sa[name], sb[name], **TRAIN_PARAM_TOL))
+            out["ema"] = max(out["ema"], tolerance_ratio(
+                ea[name], eb[name], **TRAIN_PARAM_TOL))
+        for name in sb:
+            if name.endswith(("running_mean", "running_var")):
+                atol = TRAIN_BN_MEAN_ATOL if name.endswith("mean") else 0.0
+                out["bn"] = max(out["bn"], tolerance_ratio(
+                    sa[name], sb[name], TRAIN_BN_RTOL, atol))
+        return out
+
+    out = {"card": ratios("card", "exact"), "cpu": ratios("cpu", "exact"),
+           "card_cpu": ratios("card", "cpu"),
+           "components": runs["card"][0]}
+    moved = max(float((runs["card"][1][n].cpu() - init[n]).abs().max())
+                for n in runs["card"][3])
+    check(moved > 0, "the train step moved nothing")
+    check(all(out["card"][k] <= max(1.0, 2.0 * out["cpu"][k])
+              for k in out["card"]),
+          f"train step{' (accumulated)' if accumulate else ''}: the card's "
+          f"float32 step against the exact (float64) one {out['card']}, "
+          f"beyond twice the CPU's float32 step's {out['cpu']}")
+    return out
+
+
+def drive_train_timed(smi: str) -> dict:
+    """Phase 22(b): yolov7-face b16@640, nominal batch 64 (4 micro-steps an
+    apply), TIMED_STEPS micro-steps from an in-memory non-augmenting
+    FaceDataset through the DataLoader, the targets and
+    make_accum_steps; each micro-step (forward + loss + backward, the
+    batch's host-to-card copy included) and each apply timed by CUDA
+    events, the whole run by the host clock; the peak memory."""
+    spec = zoo.get_spec(TRAIN_MODEL)
+    net = init_weights(YoloFace(spec), torch.Generator().manual_seed(0))
+    net.cuda()
+    ds = memory_faces(np.random.default_rng(50),
+                      TIMED_BATCH * TIMED_STEPS, TIMED_SIZE,
+                      spec.max_stride)
+    loader = DS.DataLoader(ds, TIMED_BATCH, shuffle=True, seed=0, workers=1)
+    accumulate = TIMED_NOMINAL // TIMED_BATCH
+    hyp = dict(HYP_SCRATCH_P6)
+    cfg = TR.TrainConfig(steps_per_epoch=len(loader),
+                         batch_size=TIMED_BATCH, nominal_batch=TIMED_NOMINAL)
+    grad_fn, apply_fn = TR.make_accum_steps(net, cfg, hyp, TIMED_SIZE)
+    state = TR.create_train_state(net)
+    acc = TR.zero_grads_like(state.params)
+    grids = [(TIMED_SIZE // st,) * 2 for st in spec.strides]
+    events = lambda: [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+    micro, applies, comps = [], [], []
+    # a warm-up micro-step (cuDNN's first calls, the allocator) on its own
+    # batch, its gradients dropped
+    images, labels = face_batch(np.random.default_rng(51), TIMED_BATCH,
+                                TIMED_SIZE)
+    (_, warm_ms) = timed(lambda: grad_fn(
+        state, images, build_targets_batched(labels, TIMED_BATCH, spec,
+                                             grids),
+        TR.zero_grads_like(state.params)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ni, (images, labels, _, _) in enumerate(loader, 1):
+        targets = build_targets_batched(labels, len(images), spec, grids)
+        ev = events()
+        ev[0].record()
+        state, acc, _, c = grad_fn(state, images, targets, acc)
+        ev[1].record()
+        micro.append(ev)
+        comps.append(c)
+        if ni % accumulate == 0:
+            ev = events()
+            ev[0].record()
+            state = apply_fn(state, acc, ni - 1)
+            ev[1].record()
+            applies.append(ev)
+            acc = TR.zero_grads_like(state.params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ms = [a.elapsed_time(b) for a, b in micro]
+    apply_ms = [a.elapsed_time(b) for a, b in applies]
+    comps = torch.stack(comps).cpu().numpy()
+    check(len(ms) == TIMED_STEPS and state.step == TIMED_STEPS // accumulate
+          and np.isfinite(comps).all(), f"timed training: {len(ms)} "
+                                        f"micro-steps, {state.step} applies")
+    images, labels = face_batch(np.random.default_rng(52), TIMED_BATCH,
+                                TIMED_SIZE)
+    targets = build_targets_batched(labels, TIMED_BATCH, spec, grids)
+    prof = kernel_profile(lambda: grad_fn(state, images, targets, acc))
+    out = {"micro_ms": float(np.median(ms)), "micro_ms_all": ms,
+           "apply_ms": float(np.median(apply_ms)), "apply_ms_all": apply_ms,
+           "img_s": TIMED_BATCH * TIMED_STEPS / wall, "wall_s": wall,
+           "warmup_ms": warm_ms, "busy_share": prof["kernel_ms"]
+           / prof["wall_ms"], "launches": prof["launches"],
+           "img_s_micro": TIMED_BATCH / (np.median(ms) / 1e3),
+           "peak_bytes": peak,
+           "losses": dict(zip(("box", "obj", "cls", "kpt", "kptv", "total"),
+                              comps[-1].tolist()))}
+    print(f"train {TRAIN_MODEL} b{TIMED_BATCH}@{TIMED_SIZE} (float32, TF32 "
+          f"off; nominal batch {TIMED_NOMINAL}: {accumulate} micro-steps an "
+          f"apply) on {smi}: micro-step (forward + loss + backward) median "
+          f"{out['micro_ms']:.3f} ms (all {[round(v, 3) for v in ms]}), "
+          f"apply (SGD + EMA) median {out['apply_ms']:.3f} ms, "
+          f"{out['img_s_micro']:.2f} img/s by the micro-step, "
+          f"{out['img_s']:.2f} img/s over the {TIMED_STEPS} micro-steps "
+          f"and applies by the host clock ({wall:.3f} s, loader and "
+          f"targets included; a warm-up micro-step before, "
+          f"{warm_ms:.1f} ms); losses {out['losses']}; peak memory "
+          f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); "
+          f"one traced micro-step: {prof['wall_ms']:.3f} ms, kernels "
+          f"{prof['kernel_ms']:.3f} ms in {prof['launches']} launches "
+          f"(busy {out['busy_share']:.3f}), top "
+          f"{[(k['name'][:60], round(k['ms'], 3), k['launches']) for k in prof['top'][:5]]}")
+    del net, state, acc, loader, ds
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_train_learns(smi: str) -> dict:
+    """Phase 22(c): yolov7-tiny-face overfits one fixed b2@128 batch for
+    LEARN_STEPS steps (tests/test_training_learns.py's setup and
+    criteria): the last total loss under half the first, the box loss
+    after the run under 0.1."""
+    spec = zoo.get_spec(LEARN_MODEL)
+    net = init_weights(YoloFace(spec), torch.Generator().manual_seed(1))
+    net.cuda()
+    s, b = LEARN_SIZE, LEARN_BATCH
+    images = np.random.default_rng(0).integers(0, 255, (b, s, s, 3),
+                                               np.uint8)
+    labels = np.array([[0, 0, 0.3, 0.4, 0.2, 0.25] + [0.3, 0.4] * 5,
+                       [0, 0, 0.7, 0.6, 0.15, 0.2] + [0.7, 0.6] * 5,
+                       [1, 0, 0.5, 0.5, 0.3, 0.3] + [0.5, 0.5] * 5],
+                      np.float32)
+    # the fixed batch's targets on the card once, as the JAX test puts
+    # them on the device once
+    targets = TLOSS.targets_to_device(build_targets_batched(
+        labels, b, spec, [(s // st, s // st) for st in spec.strides],
+        cap_per_image=64), "cuda")
+    cfg = TR.TrainConfig(epochs=10, steps_per_epoch=40, lr0=0.01,
+                         warmup_epochs=0.5, min_warmup_steps=20,
+                         batch_size=b)
+    step = TR.make_train_step(net, cfg, dict(HYP_SCRATCH_P6,
+                                             weight_decay=0.0), s)
+    state = TR.create_train_state(net)
+    x = torch.as_tensor(images).cuda()
+    first = None
+    t0 = time.perf_counter()
+    for _ in range(LEARN_STEPS):
+        state, _, comps = step(state, x, targets)
+        if first is None:
+            first = comps.cpu().numpy()
+    last = comps.cpu().numpy()
+    _, _, after = step(state, x, targets)
+    after = after.cpu().numpy()
+    secs = time.perf_counter() - t0
+    check(last[5] < 0.5 * first[5] and after[0] < 0.1,
+          f"{LEARN_MODEL} did not overfit: total {first[5]} -> {last[5]}, "
+          f"box after {after[0]}")
+    prof = kernel_profile(lambda: step(state, x, targets))
+    print(f"train {LEARN_MODEL} overfits b{b}@{s} on {smi}: total loss "
+          f"{first[5]:.5f} -> {last[5]:.5f} in {LEARN_STEPS} steps (< half), "
+          f"box {after[0]:.5f} (< 0.1); {secs * 1e3 / (LEARN_STEPS + 1):.3f} "
+          f"ms a step by the host clock; one traced step: "
+          f"{prof['wall_ms']:.3f} ms, kernels {prof['kernel_ms']:.3f} ms in "
+          f"{prof['launches']} launches (busy "
+          f"{prof['kernel_ms'] / prof['wall_ms']:.3f})")
+    del net, state
+    return {"first_total": float(first[5]), "last_total": float(last[5]),
+            "box_after": float(after[0])}
+
+
+def states_equal(a: TR.TrainState, b: TR.TrainState) -> bool:
+    pairs = [(a.model.state_dict(), b.model.state_dict()),
+             (a.momentum_buf, b.momentum_buf), (a.ema_params, b.ema_params),
+             (a.second_moment or {}, b.second_moment or {})]
+    return (a.step, a.ema_updates) == (b.step, b.ema_updates) and all(
+        x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+        for x, y in pairs)
+
+
+def drive_train_epoch(smi: str, tmp: str) -> None:
+    """Phase 22(d): cli/train.train_run on the card over in-memory sets
+    (EPOCH_TRAIN training and EPOCH_VAL validation images at EPOCH_SIZE,
+    batch 2, nominal batch 4: 2 micro-steps and an apply), one epoch: the
+    epoch-end validate on the EMA model launches nms_keep once a
+    validation batch and the fixpoint kernel never; `last` and `best`
+    load back equal to the final state; best_inference.npz, loaded by
+    FaceDetector(torch_weights=) on the card, serves the EMA model's
+    Detections."""
+    tag = f"{TRAIN_MODEL} train validate"
+    spec = zoo.get_spec(TRAIN_MODEL)
+    rng = np.random.default_rng(60)
+    train_ds = memory_faces(rng, EPOCH_TRAIN, EPOCH_SIZE, spec.max_stride)
+    val_ds = memory_faces(rng, EPOCH_VAL, EPOCH_SIZE, spec.max_stride)
+    args = TRAIN_CLI.parse_args([
+        "--model", TRAIN_MODEL, "--data", "in-memory", "--img-size",
+        str(EPOCH_SIZE), "--batch-size", "2", "--nominal-batch", "4",
+        "--epochs", "1", "--val-batch-size", str(EPOCH_VAL_BATCH),
+        "--min-warmup-steps", "1", "--project", tmp, "--name", "train",
+        "--noautoanchor", "--no-tensorboard", "--workers", "1",
+        "--device", "cuda"])
+    zero_counters()
+    (_, ms) = timed(lambda: TRAIN_CLI.train_run(
+        args, quiet=True, datasets=(train_ds, val_ds)))
+    got = counts_since_zero()
+    batches = EPOCH_VAL // EPOCH_VAL_BATCH
+    check(got == {"seq": batches, "fixpoint": 0, "fused": 0, "qconv": 0},
+          f"{tag}: launches {got} for {batches} validation batches")
+    TRAIN_LAUNCHES[tag] = got["seq"]
+    state = TRAIN_CLI.train_run.last["state"]
+    check(state.step == 1 and state.ema_updates == 1,
+          f"{tag}: {state.step} applies, want 1")
+    weights = os.path.join(tmp, "train", "weights")
+    for ckpt in ("last", "best"):
+        other = TR.create_train_state(init_weights(
+            YoloFace(zoo.get_spec(TRAIN_MODEL)),
+            torch.Generator().manual_seed(9)).cuda())
+        _, meta = CKPT.load_checkpoint(weights, ckpt, other)
+        check(states_equal(other, state) and meta["epoch"] == 0,
+              f"{tag}: {ckpt} loaded back differs from the saved state")
+    frames = np.ascontiguousarray(val_ds.images[:EPOCH_VAL_BATCH])
+    kw = dict(img_sizes=(EPOCH_SIZE,), conf_thres=0.001, device="cuda")
+    stripped = FaceDetector(TRAIN_MODEL, torch_weights=os.path.join(
+        weights, "best_inference.npz"), **kw)
+    served = FaceDetector(TRAIN_MODEL, variables=TR.ema_model(
+        state).state_dict(), **kw)
+    a, b = stripped.run_network(frames), served.run_network(frames)
+    kept = int(a.valid.sum())
+    check(same_detections(a, b) and kept > 0,
+          f"{tag}: best_inference.npz serves other Detections than the "
+          f"EMA model ({kept} kept)")
+    res = json.loads(open(os.path.join(tmp, "train", "results.txt"))
+                     .read().split(" ", 7)[-1].rsplit(" ", 1)[0])
+    print(f"{tag} on {smi}: 1 epoch of {EPOCH_TRAIN // 2} micro-steps "
+          f"b2@{EPOCH_SIZE} (1 apply), validate b{EPOCH_VAL_BATCH} over "
+          f"{EPOCH_VAL} images on the EMA model: nms_keep launches "
+          f"{got['seq']}, fixpoint 0; P {res['mp']:.6f} R {res['mr']:.6f} "
+          f"mAP50 {res['map50']:.6f}; last and best load back equal; "
+          f"best_inference.npz serves the EMA model's Detections ({kept} "
+          f"kept on {EPOCH_VAL_BATCH} frames); train_run {ms:.1f} ms")
+    del stripped, served, state
+    torch.cuda.empty_cache()
+
+
+def drive_phase22(smi: str) -> dict:
+    """Phase 22: the training path on the card. Returns the timed run's
+    numbers."""
+    t0 = time.perf_counter()
+    parity = train_step_parity(lambda: zoo.get_spec(TRAIN_MODEL),
+                               PARITY_SIZE, PARITY_BATCH, seed=7)
+    print(f"train {TRAIN_MODEL} one micro-step b{PARITY_BATCH}@{PARITY_SIZE}"
+          f" on {smi}, tolerance ratios (loss rtol {TRAIN_LOSS_RTOL}, "
+          f"params and EMA {TRAIN_PARAM_TOL}, BN rtol {TRAIN_BN_RTOL}): "
+          f"card float32 against the exact float64 step {parity['card']}, "
+          f"the CPU's float32 against it {parity['cpu']}, card against CPU "
+          f"{parity['card_cpu']}; components "
+          f"{parity['components'].tolist()}")
+    stamp("phase 22a (train step parity) done")
+    timed_out = drive_train_timed(smi)
+    stamp("phase 22b (timed training) done")
+    drive_train_learns(smi)
+    stamp("phase 22c (overfit) done")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
+                                     dir=ROOT) as tmp:
+        drive_train_epoch(smi, tmp)
+    stamp(f"phase 22d (epoch end) done; phase 22 took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return timed_out
+
+
 def group_entry(s):
     """The time fields of a kernels-line entry from check_groups' sums."""
     return {"ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -2653,6 +3073,9 @@ def main() -> None:
 
     # phase 21: evaluation and production
     eval_fields, qconv_eval = drive_phase21(smi)
+
+    # phase 22: training (the epoch-end validate launches nms_keep)
+    train_timed = drive_phase22(smi)
     qconv_entry["eval_launches"] = qconv_eval
     qconv_entry["launches"] += qconv_eval["qconv"]
     for key in ("depthwise", "wgmma", "split"):
@@ -2681,7 +3104,8 @@ def main() -> None:
     for version, name, line, launches, iters in (
             ("seq", "nms_keep", 94,
              total["seq"] + tta_launches + tiled_launches + api_seq
-             + sum(EVAL_LAUNCHES.values()), 20),
+             + sum(EVAL_LAUNCHES.values()) + sum(TRAIN_LAUNCHES.values()),
+             20),
             ("fixpoint", "nms_keep_fixpoint", 35, fixpoint_launches, 20)):
         got = K.nms_keep(boxes, valid, thr, kernel_version=version)
         err = int((got.int() - want.int()).abs().max())
@@ -2729,7 +3153,11 @@ def main() -> None:
     entries[0].update(pass1_ms=pass1, pass2_ms=pass2, dense_bound_ms=dense_ms,
                       # phase 21: evaluation and production, one entry a
                       # counted call; the eval point B = 16, K = 16384
-                      phase21_launches=dict(EVAL_LAUNCHES), **eval_fields)
+                      phase21_launches=dict(EVAL_LAUNCHES), **eval_fields,
+                      # phase 22: the training path's epoch-end validate
+                      train_launches=dict(TRAIN_LAUNCHES),
+                      train_timed={k: v for k, v in train_timed.items()
+                                   if not k.endswith("_all")})
     # the fixpoint version's sweep kernel apart, in clusters of 8 and 16
     sweep_keep = torch.empty_like(keep)
     counts = torch.empty(b, dtype=torch.int32, device=boxes.device)

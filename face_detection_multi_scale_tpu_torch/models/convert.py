@@ -22,7 +22,9 @@ Rules:
 The result loads with `load_state_dict(strict=True)` into the YoloFace of
 the same spec. A reference checkpoint's state dict loads through
 `load_reference_state_dict`, which drops what the model does not keep as
-weights (the JAX converter's rule).
+weights (the JAX converter's rule). `state_dict_to_jax` is the way back,
+a copy of the JAX package's `convert_state_dict` (numeric components
+merge into the name before them).
 """
 
 from __future__ import annotations
@@ -105,6 +107,65 @@ def jax_to_state_dict(variables) -> Dict[str, torch.Tensor]:
             put(f"{module}.num_batches_tracked",
                 torch.tensor(0, dtype=torch.long))
     return out
+
+
+def _merge_numeric(parts):
+    out = []
+    for p in parts:
+        if p.isdigit() and out:
+            out[-1] = f"{out[-1]}_{p}"
+        else:
+            out.append(p)
+    return out
+
+
+def torch_key_to_flax_path(key: str) -> Tuple[Tuple[str, ...], str]:
+    """"model.8.cv1.conv.weight" -> (("model_8", "cv1", "conv"), "weight"),
+    the inverse of `flax_path_to_torch_key` (the leaf is renamed by
+    `state_dict_to_jax`)."""
+    parts = key.split(".")
+    leaf = parts.pop()
+    return tuple(_merge_numeric(parts)), leaf
+
+
+def state_dict_to_jax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """A state dict of this package's YoloFace (or a reference one) ->
+    the JAX package's variables {"params": ..., "batch_stats": ...} of
+    float32 numpy arrays: OIHW kernels to HWIO, BN weight -> scale,
+    running_mean/var -> mean/var, implicit (1, C, 1, 1) -> (C,);
+    num_batches_tracked and the anchor buffers are dropped."""
+    bn_modules = {torch_key_to_flax_path(k)[0] for k in state_dict
+                  if k.endswith("running_mean")}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+
+    def put(tree, path, leaf, value):
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+
+    for key, value in state_dict.items():
+        path, leaf = torch_key_to_flax_path(key)
+        if leaf in SKIPPED_LEAVES:
+            continue
+        v = (value.detach().cpu().float().numpy()
+             if isinstance(value, torch.Tensor)
+             else np.asarray(value, np.float32))
+        if leaf == "weight" and v.ndim == 4:
+            put(params, path, "kernel", v.transpose(2, 3, 1, 0).copy())
+        elif leaf == "weight" and v.ndim == 1 and path in bn_modules:
+            put(params, path, "scale", v)
+        elif leaf == "bias":
+            put(params, path, "bias", v)
+        elif leaf in ("running_mean", "running_var"):
+            put(stats, path, leaf[len("running_"):], v)
+        elif leaf == "implicit":
+            put(params, path, "implicit", v.reshape(-1))
+        else:
+            raise ValueError(f"unhandled leaf {leaf!r} of shape {v.shape} "
+                             f"at {key}")
+    return {"params": params, "batch_stats": stats}
 
 
 def load_reference_state_dict(net: torch.nn.Module,

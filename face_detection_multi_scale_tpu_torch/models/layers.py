@@ -84,9 +84,31 @@ def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
         b, c, h, w)
 
 
-def batch_norm(c: int) -> nn.BatchNorm2d:
+class BatchNorm(nn.BatchNorm2d):
+    """nn.BatchNorm2d whose training forward follows flax's nn.BatchNorm,
+    the JAX package's: normalise with the batch mean and biased variance
+    and update the running statistics as
+    `ra = (1 - momentum) * ra + momentum * batch_stat` with the *biased*
+    variance, where torch's own BatchNorm folds in the unbiased one
+    (n / (n - 1) larger). The eval forward (the running statistics), the
+    parameters and the state-dict keys are nn.BatchNorm2d's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+
+def batch_norm(c: int) -> BatchNorm:
     """The model family's BatchNorm (eps 1e-3, momentum 0.03)."""
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+    return BatchNorm(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvBN(nn.Module):

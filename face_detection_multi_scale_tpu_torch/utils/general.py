@@ -1,13 +1,16 @@
-"""Small shape/size and file utilities (copies of the JAX package's
-`make_divisible`, `check_img_size`, `increment_path`, `_xyxy2xywh_np`,
-`_xywh2xyxy_np` and `save_one_box`)."""
+"""Small shape/size, file and training utilities (copies of the JAX
+package's `make_divisible`, `check_img_size`, `increment_path`,
+`_xyxy2xywh_np`, `_xywh2xyxy_np`, `save_one_box`, `init_seeds`,
+`labels_to_class_weights` and `labels_to_image_weights`)."""
 
 from __future__ import annotations
 
 import math
+import random
 from pathlib import Path
 
 import numpy as np
+import torch
 
 
 def make_divisible(x: float, divisor: int) -> int:
@@ -77,3 +80,40 @@ def save_one_box(xyxy, im, file="image.jpg", gain: float = 1.02,
     cv2.imwrite(str(out), np.ascontiguousarray(
         crop if BGR else crop[..., ::-1]))
     return out
+
+
+def init_seeds(seed: int = 0) -> torch.Generator:
+    """Seed the host RNGs (`random`, `np.random`, torch's) and hand back a
+    torch.Generator seeded the same (reference utils/general.py:41-45;
+    the JAX package returns a PRNGKey), for draws that should not ride
+    the global state."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return torch.Generator().manual_seed(seed)
+
+
+def labels_to_class_weights(labels, nc: int = 1):
+    """Inverse-frequency class weights from training labels
+    (reference utils/general.py:250-266): per-class occurrence counts
+    with empty bins as 1, inverted and normalized to sum 1."""
+    rows = [l for l in labels if l is not None and len(l)]
+    if not rows:
+        return np.ones(nc) / nc
+    classes = np.concatenate(rows, 0)[:, 0].astype(int)
+    weights = np.bincount(classes, minlength=nc).astype(np.float64)
+    weights[weights == 0] = 1
+    weights = 1 / weights
+    return weights / weights.sum()
+
+
+def labels_to_image_weights(labels, nc: int = 1, class_weights=None):
+    """Per-image sampling weights from class weights and image contents
+    (reference utils/general.py:269-274)."""
+    if class_weights is None:
+        class_weights = np.ones(nc)
+    counts = np.array([
+        np.bincount(l[:, 0].astype(int), minlength=nc)
+        if l is not None and len(l) else np.zeros(nc, int)
+        for l in labels])
+    return (np.asarray(class_weights).reshape(1, nc) * counts).sum(1)

@@ -1147,3 +1147,57 @@ def test_int8_eval_batch_every_conv_exact(cuda_device):
     for args, kw, launched in calls:
         again, _, _, _, _ = chip_smoke.qconv_exact(args, kw, "int8 eval")
         assert torch.equal(again, launched)
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_train_step_on_card_matches_cpu(cuda_device, accumulate):
+    """Narrowed tiny at b4@64: one make_train_step (or two accumulated
+    micro-steps and an apply) on the card and on the CPU from the same
+    seeded state, at phase 22(a)'s tolerances (losses rtol 5e-4,
+    parameters and EMA rtol 5e-3 / atol 5e-5, BN statistics rtol 1e-4):
+    the card's float32 step within them of the CPU's, and
+    chip_smoke.train_step_parity's check against the float64 step."""
+    import chip_smoke
+
+    out = chip_smoke.train_step_parity(narrow_tiny, 64, 4, seed=3,
+                                       accumulate=accumulate)
+    assert all(v <= 1.0 for v in out["card_cpu"].values()), out
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adam"])
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path, optimizer):
+    """A card TrainState after a step saved (sync and by the background
+    writer) and loaded into another card state: every tensor equal and
+    still on the card, the counters and the meta back."""
+    import chip_smoke
+    from face_detection_multi_scale_tpu_torch.models.model import (
+        YoloFace, init_weights)
+    from face_detection_multi_scale_tpu_torch.train import checkpoint as C
+    from face_detection_multi_scale_tpu_torch.train import trainer as TR
+    from face_detection_multi_scale_tpu_torch.train.hyp import (
+        HYP_SCRATCH_P6)
+    from face_detection_multi_scale_tpu_torch.train.targets import (
+        build_targets_batched)
+
+    def state(seed):
+        net = init_weights(YoloFace(narrow_tiny()),
+                           torch.Generator().manual_seed(seed))
+        return TR.create_train_state(net.to(cuda_device), optimizer)
+
+    s = state(0)
+    images, labels = chip_smoke.face_batch(np.random.default_rng(1), 2, 64)
+    targets = build_targets_batched(labels, 2, s.model.spec, [
+        (64 // st,) * 2 for st in s.model.spec.strides])
+    step = TR.make_train_step(s.model, TR.TrainConfig(optimizer=optimizer),
+                              dict(HYP_SCRATCH_P6), 64)
+    s, _, _ = step(s, images, targets)
+    meta = {"epoch": 4, "best_fitness": 0.5}
+    C.save_checkpoint(str(tmp_path), "last", s, meta)
+    writer = C.AsyncCheckpointWriter()
+    writer.save(str(tmp_path), "best", s, meta)
+    writer.close()
+    for tag in ("last", "best"):
+        other, got = C.load_checkpoint(str(tmp_path), tag, state(1))
+        assert got == meta and chip_smoke.states_equal(other, s)
+        assert all(t.is_cuda for t in other.ema_params.values())
+        assert all(t.is_cuda for t in other.model.state_dict().values())
