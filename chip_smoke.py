@@ -212,7 +212,12 @@ Phases, each fatal on failure (nothing is caught to carry on):
      rounded to uint8); one nms_keep launch a scale call and a merge;
      frames_to_json with the contract's tensors; ms a frame
  22. path train (yolov7-face at full width, the JAX CLI's default
-     --model, seeded weights; float32 with TF32 off): (a) one micro-step
+     --model, seeded weights; float32 with TF32 off, then each part again
+     in bf16 mixed precision, `YoloFace(spec, dtype=torch.bfloat16)` and
+     `--dtype bfloat16`: float32 parameters, gradients, optimizer state,
+     EMA and BN statistics, checked, and the bf16 loss within rtol 0.05
+     of the float32 loss on the card; (b) prints bf16 beside float32):
+     (a) one micro-step
      at b2@256 from the same state on the card and on the CPU in float32
      and on the CPU in float64 (the exact step), each compared in units
      of its tolerance (loss components rtol 5e-4, every parameter and EMA
@@ -240,7 +245,7 @@ Phases, each fatal on failure (nothing is caught to carry on):
      `api_launches` holds phases 15-19's counted calls and
      `phase21_launches` phase 21's and `train_launches` phase 22's
      (nms_keep's `launches` includes them all), `train_timed` phase
-     22(b)'s numbers;
+     22(b)'s numbers by dtype;
      nms_keep's `eval_*` fields hold the eval point (B = 16, K = 16384):
      `eval_bound_ms` is `nms_bound`'s, `eval_scratch_ms` the scratch's
      bytes at 3.35 TB/s, and `eval_launches` its launches there; qconv's `eval_launches` the
@@ -261,6 +266,7 @@ fused_elan; 1979 TOPS int8 for qconv. Operations count what this run's data need
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import json
 import os
 import subprocess
@@ -385,6 +391,10 @@ TRAIN_PARAM_TOL = dict(rtol=5e-3, atol=5e-5)
 TRAIN_BN_RTOL, TRAIN_BN_MEAN_ATOL = 1e-4, 1e-6
 # phase 22's counted calls: {tag: nms_keep launches}
 TRAIN_LAUNCHES = {}
+# bf16 training (22, bf16 parts): its loss against the float32 step's
+# (tests/test_train_features.py::test_bf16_mixed_precision_train_step)
+TRAIN_BF16_LOSS_RTOL = 0.05
+DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 CONTRACT_TENSORS = {
     "yolo-face-bboxes", "yolo-face-confidence", "yolo-face-class_names",
     "yolo-face-class_indexes", "yolo-face-class_groups",
@@ -2625,12 +2635,17 @@ def tolerance_ratio(got: torch.Tensor, want: torch.Tensor, rtol: float,
 
 
 def train_step_parity(spec_fn, size: int, batch: int, seed: int,
-                      accumulate: bool = False) -> dict:
+                      accumulate: bool = False,
+                      compute: torch.dtype = torch.float32) -> dict:
     """One train step of the same seeded model and state on the card and on
     the CPU in float32 (TF32 off, as the trainer runs), and on the CPU in
     float64, the exact step: make_train_step, or with `accumulate` two
     make_accum_steps micro-steps and an apply. The state is past the
-    warmup, so kernels move too.
+    warmup, so kernels move too. With `compute=torch.bfloat16` the card's
+    and the CPU's steps are bf16 mixed precision (`YoloFace(spec,
+    dtype=)`, float32 parameters), still held against the float64 step,
+    and every parameter, gradient, optimizer-state tensor, EMA tensor and
+    BN running statistic of the card's run must be float32.
 
     Each comparison is a tolerance ratio, max |got - want| / (atol + rtol
     |want|), over the loss components (rtol TRAIN_LOSS_RTOL), every
@@ -2643,6 +2658,7 @@ def train_step_parity(spec_fn, size: int, batch: int, seed: int,
     step, within a factor 2, or within the tolerance itself. Returns the
     ratios card/exact ("card"), CPU/exact ("cpu") and card/CPU
     ("card_cpu"), and the card step's components."""
+    mixed = compute != torch.float32
     cfg = TR.TrainConfig(epochs=300, steps_per_epoch=10, warmup_epochs=0.0,
                          min_warmup_steps=1, batch_size=batch)
     rng = np.random.default_rng(seed)
@@ -2653,7 +2669,8 @@ def train_step_parity(spec_fn, size: int, batch: int, seed: int,
     for key, device, dtype in (("exact", "cpu", torch.float64),
                                ("cpu", "cpu", torch.float32),
                                ("card", "cuda", torch.float32)):
-        net = YoloFace(spec_fn())
+        net = YoloFace(spec_fn(), dtype=torch.float32 if key == "exact"
+                       else compute)
         net.load_state_dict(init)
         net.to(device, dtype)
         spec = net.spec
@@ -2676,6 +2693,19 @@ def train_step_parity(spec_fn, size: int, batch: int, seed: int,
             state, _, comps = TR.make_train_step(net, cfg, hyp, size)(
                 state, batches[0][0], targets[0])
         check(state.step == 2, f"{key} train step: {state.step} applies")
+        if key == "card" and mixed:
+            # the gradients of a further step, on a copy (the state
+            # dicts kept below alias the model's tensors)
+            twin = copy.deepcopy(net)
+            grads = TR._grad_fn(twin, TR.scale_loss_gains(
+                hyp, spec.nl, spec.nc, size))(batches[0][0], targets[0])[2]
+            dtypes = {t.dtype for tree in (
+                net.state_dict(), state.momentum_buf, state.ema_params,
+                grads) for k, t in tree.items()
+                if not k.endswith("num_batches_tracked")}
+            check(dtypes == {torch.float32}, f"bf16 train step: state and "
+                                             f"gradient dtypes {dtypes}")
+            del twin, grads
         runs[key] = (comps.cpu(), net.state_dict(), state.ema_params,
                      list(state.params))
 
@@ -2701,23 +2731,28 @@ def train_step_parity(spec_fn, size: int, batch: int, seed: int,
     moved = max(float((runs["card"][1][n].cpu() - init[n]).abs().max())
                 for n in runs["card"][3])
     check(moved > 0, "the train step moved nothing")
+    what = "bf16" if mixed else "float32"
     check(all(out["card"][k] <= max(1.0, 2.0 * out["cpu"][k])
               for k in out["card"]),
           f"train step{' (accumulated)' if accumulate else ''}: the card's "
-          f"float32 step against the exact (float64) one {out['card']}, "
-          f"beyond twice the CPU's float32 step's {out['cpu']}")
+          f"{what} step against the exact (float64) one {out['card']}, "
+          f"beyond twice the CPU's {what} step's {out['cpu']}")
     return out
 
 
-def drive_train_timed(smi: str) -> dict:
+def drive_train_timed(smi: str, dtype: torch.dtype = torch.float32
+                      ) -> dict:
     """Phase 22(b): yolov7-face b16@640, nominal batch 64 (4 micro-steps an
     apply), TIMED_STEPS micro-steps from an in-memory non-augmenting
     FaceDataset through the DataLoader, the targets and
     make_accum_steps; each micro-step (forward + loss + backward, the
     batch's host-to-card copy included) and each apply timed by CUDA
-    events, the whole run by the host clock; the peak memory."""
+    events, the whole run by the host clock; the peak memory. `dtype` is
+    the model's compute dtype (bf16: mixed precision, float32
+    parameters)."""
     spec = zoo.get_spec(TRAIN_MODEL)
-    net = init_weights(YoloFace(spec), torch.Generator().manual_seed(0))
+    net = init_weights(YoloFace(spec, dtype=dtype),
+                       torch.Generator().manual_seed(0))
     net.cuda()
     ds = memory_faces(np.random.default_rng(50),
                       TIMED_BATCH * TIMED_STEPS, TIMED_SIZE,
@@ -2774,7 +2809,8 @@ def drive_train_timed(smi: str) -> dict:
                                 TIMED_SIZE)
     targets = build_targets_batched(labels, TIMED_BATCH, spec, grids)
     prof = kernel_profile(lambda: grad_fn(state, images, targets, acc))
-    out = {"micro_ms": float(np.median(ms)), "micro_ms_all": ms,
+    out = {"dtype": DTYPE_NAMES[dtype],
+           "micro_ms": float(np.median(ms)), "micro_ms_all": ms,
            "apply_ms": float(np.median(apply_ms)), "apply_ms_all": apply_ms,
            "img_s": TIMED_BATCH * TIMED_STEPS / wall, "wall_s": wall,
            "warmup_ms": warm_ms, "busy_share": prof["kernel_ms"]
@@ -2783,8 +2819,10 @@ def drive_train_timed(smi: str) -> dict:
            "peak_bytes": peak,
            "losses": dict(zip(("box", "obj", "cls", "kpt", "kptv", "total"),
                               comps[-1].tolist()))}
-    print(f"train {TRAIN_MODEL} b{TIMED_BATCH}@{TIMED_SIZE} (float32, TF32 "
-          f"off; nominal batch {TIMED_NOMINAL}: {accumulate} micro-steps an "
+    what = ("bf16 mixed precision" if dtype == torch.bfloat16
+            else "float32, TF32 off")
+    print(f"train {TRAIN_MODEL} b{TIMED_BATCH}@{TIMED_SIZE} ({what}; "
+          f"nominal batch {TIMED_NOMINAL}: {accumulate} micro-steps an "
           f"apply) on {smi}: micro-step (forward + loss + backward) median "
           f"{out['micro_ms']:.3f} ms (all {[round(v, 3) for v in ms]}), "
           f"apply (SGD + EMA) median {out['apply_ms']:.3f} ms, "
@@ -2803,13 +2841,15 @@ def drive_train_timed(smi: str) -> dict:
     return out
 
 
-def drive_train_learns(smi: str) -> dict:
+def drive_train_learns(smi: str, dtype: torch.dtype = torch.float32
+                       ) -> dict:
     """Phase 22(c): yolov7-tiny-face overfits one fixed b2@128 batch for
     LEARN_STEPS steps (tests/test_training_learns.py's setup and
     criteria): the last total loss under half the first, the box loss
-    after the run under 0.1."""
+    after the run under 0.1; in the compute `dtype`."""
     spec = zoo.get_spec(LEARN_MODEL)
-    net = init_weights(YoloFace(spec), torch.Generator().manual_seed(1))
+    net = init_weights(YoloFace(spec, dtype=dtype),
+                       torch.Generator().manual_seed(1))
     net.cuda()
     s, b = LEARN_SIZE, LEARN_BATCH
     images = np.random.default_rng(0).integers(0, 255, (b, s, s, 3),
@@ -2841,10 +2881,11 @@ def drive_train_learns(smi: str) -> dict:
     after = after.cpu().numpy()
     secs = time.perf_counter() - t0
     check(last[5] < 0.5 * first[5] and after[0] < 0.1,
-          f"{LEARN_MODEL} did not overfit: total {first[5]} -> {last[5]}, "
-          f"box after {after[0]}")
+          f"{LEARN_MODEL} ({DTYPE_NAMES[dtype]}) did not overfit: total "
+          f"{first[5]} -> {last[5]}, box after {after[0]}")
     prof = kernel_profile(lambda: step(state, x, targets))
-    print(f"train {LEARN_MODEL} overfits b{b}@{s} on {smi}: total loss "
+    print(f"train {LEARN_MODEL} ({DTYPE_NAMES[dtype]}) overfits b{b}@{s} "
+          f"on {smi}: total loss "
           f"{first[5]:.5f} -> {last[5]:.5f} in {LEARN_STEPS} steps (< half), "
           f"box {after[0]:.5f} (< 0.1); {secs * 1e3 / (LEARN_STEPS + 1):.3f} "
           f"ms a step by the host clock; one traced step: "
@@ -2865,16 +2906,20 @@ def states_equal(a: TR.TrainState, b: TR.TrainState) -> bool:
         for x, y in pairs)
 
 
-def drive_train_epoch(smi: str, tmp: str) -> None:
+def drive_train_epoch(smi: str, tmp: str,
+                      dtype: torch.dtype = torch.float32) -> None:
     """Phase 22(d): cli/train.train_run on the card over in-memory sets
     (EPOCH_TRAIN training and EPOCH_VAL validation images at EPOCH_SIZE,
-    batch 2, nominal batch 4: 2 micro-steps and an apply), one epoch: the
-    epoch-end validate on the EMA model launches nms_keep once a
-    validation batch and the fixpoint kernel never; `last` and `best`
-    load back equal to the final state; best_inference.npz, loaded by
+    batch 2, nominal batch 4: 2 micro-steps and an apply), one epoch, with
+    `--dtype` the compute dtype: the epoch-end validate on the EMA model
+    launches nms_keep once a validation batch and the fixpoint kernel
+    never; `last` and `best` load back equal to the final state, every
+    tensor float32; best_inference.npz, loaded by
     FaceDetector(torch_weights=) on the card, serves the EMA model's
     Detections."""
-    tag = f"{TRAIN_MODEL} train validate"
+    name = DTYPE_NAMES[dtype]
+    tag = f"{TRAIN_MODEL} train validate" + (
+        "" if dtype == torch.float32 else f" {name}")
     spec = zoo.get_spec(TRAIN_MODEL)
     rng = np.random.default_rng(60)
     train_ds = memory_faces(rng, EPOCH_TRAIN, EPOCH_SIZE, spec.max_stride)
@@ -2885,7 +2930,7 @@ def drive_train_epoch(smi: str, tmp: str) -> None:
         "--epochs", "1", "--val-batch-size", str(EPOCH_VAL_BATCH),
         "--min-warmup-steps", "1", "--project", tmp, "--name", "train",
         "--noautoanchor", "--no-tensorboard", "--workers", "1",
-        "--device", "cuda"])
+        "--dtype", name, "--device", "cuda"])
     zero_counters()
     (_, ms) = timed(lambda: TRAIN_CLI.train_run(
         args, quiet=True, datasets=(train_ds, val_ds)))
@@ -2895,16 +2940,23 @@ def drive_train_epoch(smi: str, tmp: str) -> None:
           f"{tag}: launches {got} for {batches} validation batches")
     TRAIN_LAUNCHES[tag] = got["seq"]
     state = TRAIN_CLI.train_run.last["state"]
-    check(state.step == 1 and state.ema_updates == 1,
+    check(state.step == 1 and state.ema_updates == 1
+          and state.model.compute_dtype == (
+              None if dtype == torch.float32 else dtype),
           f"{tag}: {state.step} applies, want 1")
     weights = os.path.join(tmp, "train", "weights")
     for ckpt in ("last", "best"):
         other = TR.create_train_state(init_weights(
-            YoloFace(zoo.get_spec(TRAIN_MODEL)),
+            YoloFace(zoo.get_spec(TRAIN_MODEL), dtype=dtype),
             torch.Generator().manual_seed(9)).cuda())
         _, meta = CKPT.load_checkpoint(weights, ckpt, other)
-        check(states_equal(other, state) and meta["epoch"] == 0,
-              f"{tag}: {ckpt} loaded back differs from the saved state")
+        dtypes = {t.dtype for t in list(other.model.state_dict().values())
+                  + list(other.momentum_buf.values())
+                  + list(other.ema_params.values()) if t.is_floating_point()}
+        check(states_equal(other, state) and meta["epoch"] == 0
+              and dtypes == {torch.float32},
+              f"{tag}: {ckpt} loaded back differs from the saved state "
+              f"(dtypes {dtypes})")
     frames = np.ascontiguousarray(val_ds.images[:EPOCH_VAL_BATCH])
     kw = dict(img_sizes=(EPOCH_SIZE,), conf_thres=0.001, device="cuda")
     stripped = FaceDetector(TRAIN_MODEL, torch_weights=os.path.join(
@@ -2930,27 +2982,53 @@ def drive_train_epoch(smi: str, tmp: str) -> None:
 
 
 def drive_phase22(smi: str) -> dict:
-    """Phase 22: the training path on the card. Returns the timed run's
-    numbers."""
+    """Phase 22: the training path on the card, in float32 and in bf16
+    mixed precision. Returns the timed runs' numbers by dtype."""
     t0 = time.perf_counter()
-    parity = train_step_parity(lambda: zoo.get_spec(TRAIN_MODEL),
-                               PARITY_SIZE, PARITY_BATCH, seed=7)
-    print(f"train {TRAIN_MODEL} one micro-step b{PARITY_BATCH}@{PARITY_SIZE}"
-          f" on {smi}, tolerance ratios (loss rtol {TRAIN_LOSS_RTOL}, "
-          f"params and EMA {TRAIN_PARAM_TOL}, BN rtol {TRAIN_BN_RTOL}): "
-          f"card float32 against the exact float64 step {parity['card']}, "
-          f"the CPU's float32 against it {parity['cpu']}, card against CPU "
-          f"{parity['card_cpu']}; components "
-          f"{parity['components'].tolist()}")
-    stamp("phase 22a (train step parity) done")
-    timed_out = drive_train_timed(smi)
-    stamp("phase 22b (timed training) done")
-    drive_train_learns(smi)
-    stamp("phase 22c (overfit) done")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
-                                     dir=ROOT) as tmp:
-        drive_train_epoch(smi, tmp)
-    stamp(f"phase 22d (epoch end) done; phase 22 took "
+    bf16 = torch.bfloat16
+    parity = {}
+    for dtype in (torch.float32, bf16):
+        parity[dtype] = p = train_step_parity(
+            lambda: zoo.get_spec(TRAIN_MODEL), PARITY_SIZE, PARITY_BATCH,
+            seed=7, compute=dtype)
+        print(f"train {TRAIN_MODEL} one micro-step b{PARITY_BATCH}@"
+              f"{PARITY_SIZE} ({DTYPE_NAMES[dtype]}) on {smi}, tolerance "
+              f"ratios (loss rtol {TRAIN_LOSS_RTOL}, params and EMA "
+              f"{TRAIN_PARAM_TOL}, BN rtol {TRAIN_BN_RTOL}): card against "
+              f"the exact float64 step {p['card']}, the CPU's "
+              f"{DTYPE_NAMES[dtype]} step against it {p['cpu']}, card "
+              f"against CPU {p['card_cpu']}; components "
+              f"{p['components'].tolist()}")
+    total32 = float(parity[torch.float32]["components"][5])
+    total16 = float(parity[bf16]["components"][5])
+    check(abs(total16 - total32) <= TRAIN_BF16_LOSS_RTOL * abs(total32),
+          f"bf16 train step: loss {total16} against the float32 step's "
+          f"{total32}, beyond rtol {TRAIN_BF16_LOSS_RTOL}")
+    print(f"train {TRAIN_MODEL} bf16 micro-step loss {total16:.6f} against "
+          f"float32 {total32:.6f} on the card (rel "
+          f"{abs(total16 - total32) / abs(total32):.5f}, rtol "
+          f"{TRAIN_BF16_LOSS_RTOL})")
+    stamp("phase 22a (train step parity, float32 and bf16) done")
+    timed_out = {DTYPE_NAMES[d]: drive_train_timed(smi, d)
+                 for d in (torch.float32, bf16)}
+    a, b = timed_out["float32"], timed_out["bfloat16"]
+    print(f"train {TRAIN_MODEL} b{TIMED_BATCH}@{TIMED_SIZE} bf16 beside "
+          f"float32 on {smi}: micro-step {b['micro_ms']:.3f} / "
+          f"{a['micro_ms']:.3f} ms, apply {b['apply_ms']:.3f} / "
+          f"{a['apply_ms']:.3f} ms, {b['img_s_micro']:.2f} / "
+          f"{a['img_s_micro']:.2f} img/s, peak {b['peak_bytes'] / 2**30:.3f}"
+          f" / {a['peak_bytes'] / 2**30:.3f} GiB, traced busy share "
+          f"{b['busy_share']:.3f} / {a['busy_share']:.3f}, launches "
+          f"{b['launches']} / {a['launches']}")
+    stamp("phase 22b (timed training, float32 and bf16) done")
+    for dtype in (torch.float32, bf16):
+        drive_train_learns(smi, dtype)
+    stamp("phase 22c (overfit, float32 and bf16) done")
+    for dtype in (torch.float32, bf16):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_",
+                                         dir=ROOT) as tmp:
+            drive_train_epoch(smi, tmp, dtype)
+    stamp(f"phase 22d (epoch end, float32 and bf16) done; phase 22 took "
           f"{time.perf_counter() - t0:.1f} s")
     return timed_out
 
@@ -3156,8 +3234,10 @@ def main() -> None:
                       phase21_launches=dict(EVAL_LAUNCHES), **eval_fields,
                       # phase 22: the training path's epoch-end validate
                       train_launches=dict(TRAIN_LAUNCHES),
-                      train_timed={k: v for k, v in train_timed.items()
-                                   if not k.endswith("_all")})
+                      train_timed={
+                          d: {k: v for k, v in t.items()
+                              if not k.endswith("_all")}
+                          for d, t in train_timed.items()})
     # the fixpoint version's sweep kernel apart, in clusters of 8 and 16
     sweep_keep = torch.empty_like(keep)
     counts = torch.empty(b, dtype=torch.int32, device=boxes.device)

@@ -6,7 +6,7 @@
 The JAX package's cli/train.py (the reference train.py:582-619 argparse;
 defaults: cfg yolov7-face, hyp scratch.p6, img 960, kpt-label 5) with
 every flag it takes, plus `--device`. The loop is the JAX one: host
-dataloader + target assignment, the float32 train step (forward, loss,
+dataloader + target assignment, the train step (forward, loss,
 backward, nesterov SGD or Adam, ramped EMA) with gradient accumulation
 to the nominal batch across epochs, image weights, multi-scale, logging,
 per-epoch validation on the EMA weights (infer/validate.validate, whose
@@ -15,8 +15,16 @@ checkpoints by fitness, resume, and the stripped EMA weights
 `best_inference.npz` at the end (the JAX package's .npz layout, which
 `FaceDetector(torch_weights=)` and the JAX loader both read).
 
-Not ported here: `--dtype bfloat16` (mixed-precision training) and data
-parallel training over several processes; both raise.
+`--dtype bfloat16` is mixed-precision training, as in the JAX CLI: the
+model computes in bf16 (`YoloFace(spec, dtype=)`: bf16 convs, float32
+BN statistics, float32 implicit priors and loss), while the parameters,
+gradients, optimizer state, EMA and checkpoints stay float32; the
+epoch-end validate runs the bf16 model on the EMA parameters. The
+reference's amp.autocast (train.py:364,425), with no GradScaler: bf16
+has float32's exponent range.
+
+Not ported here: data parallel training over several processes; it
+raises.
 """
 
 from __future__ import annotations
@@ -52,8 +60,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--kpt-label", type=int, default=5)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"],
-                    help="bfloat16 = mixed-precision training, not ported "
-                         "yet (raises)")
+                    help="bfloat16 = mixed precision: convs compute in "
+                         "bf16; parameters, optimizer state and loss "
+                         "reductions stay float32")
     ap.add_argument("--weights", default=None,
                     help="initial weights: torch .pt or inference .npz")
     ap.add_argument("--resume", nargs="?", const=True, default=False)
@@ -124,17 +133,13 @@ def main(argv=None):
 
 def _device(args) -> torch.device:
     """The one device of the run; raises for what the port cannot do."""
-    if args.dtype != "float32":
-        raise NotImplementedError(
-            f"--dtype {args.dtype}: mixed-precision training is not ported "
-            "yet (ROADMAP queue 1, module 8: bf16 training)")
     if (torch.distributed.is_available()
             and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError(
-            "training over several processes (DDP with SyncBN semantics) "
-            "is not ported yet; it waits for the data-parallel run_network "
-            "(ROADMAP queue 1, module 7)")
+            "training over several processes (DDP with SyncBN semantics, "
+            "ROADMAP queue 1, module 8) is not ported yet; it waits for "
+            "the data-parallel run_network (module 7)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
@@ -240,7 +245,7 @@ def train_run(args, hyp_override=None, quiet=False, datasets=None):
     # the model after autoanchor, so its spec holds the anchors; seeded
     # like the JAX init_model (its own draws: the same seed gives other
     # weights than the JAX package's)
-    model = YoloFace(spec)
+    model = YoloFace(spec, dtype=getattr(torch, args.dtype))
     init_weights(model, torch.Generator().manual_seed(args.seed))
     if args.weights:
         if args.weights.endswith(".npz"):

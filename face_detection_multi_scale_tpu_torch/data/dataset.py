@@ -1,12 +1,13 @@
 """Training/validation dataset: WIDER FACE images + 5-landmark labels with
 mosaic / perspective / HSV / flip augmentation, its collate and loader.
 
-A copy of the JAX package's data/dataset.py (its dataset tools,
-`autosplit`, `extract_boxes` and friends, are not ported): the label
-files and their cache, `FaceDataset` (square or `rect` batch shapes, the
+A copy of the JAX package's data/dataset.py: the label files and their
+cache, `FaceDataset` (square or `rect` batch shapes, the
 longest-side resize, the letterbox, and with `augment=True` mosaic /
 mosaic9, mixup, `random_perspective`, `augment_hsv` and the flips),
-`cutout`, `replicate`, `collate` and `DataLoader`. Host-side numpy/cv2
+`cutout`, `replicate`, `collate`, `DataLoader`, and the dataset tools
+`create_folder`, `flatten_recursive`, `autosplit` and `extract_boxes`
+(reference utils/datasets.py:1064-1133). Host-side numpy/cv2
 re-implementation of the reference data layer (reference
 utils/datasets.py:349-676 LoadImagesAndLabels, :680-710
 load_image/augment_hsv, :724-782 load_mosaic, :906-1016
@@ -688,6 +689,89 @@ def replicate(img: np.ndarray, labels: np.ndarray):
         labels = np.append(
             labels, [[labels[i, 0], x1a, y1a, x2a, y2a]], axis=0)
     return img, labels
+
+
+def create_folder(path):
+    """Fresh output folder, removing any existing one
+    (utils/datasets.py:1064-1068)."""
+    import shutil
+
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+
+
+def flatten_recursive(path):
+    """Copy every file in a directory tree into <path>_flat
+    (utils/datasets.py:1071-1076)."""
+    import shutil
+
+    new_path = Path(str(path) + "_flat")
+    create_folder(new_path)
+    for file in sorted(Path(path).rglob("*")):
+        if file.is_file():
+            shutil.copyfile(file, new_path / file.name)
+    return new_path
+
+
+def autosplit(path, weights=(0.9, 0.1, 0.0), annotated_only: bool = False):
+    """Write autosplit_{train,val,test}.txt next to an images dir, each
+    image assigned to a split by weighted draw from the global `random`
+    (utils/datasets.py:1113-1133): one seed gives the JAX package's
+    lists."""
+    path = Path(path)
+    files = sorted(p for p in path.rglob("*.*")
+                   if p.suffix[1:].lower() in IMG_FORMATS)
+    indices = random.choices([0, 1, 2], weights=weights, k=len(files))
+    txt = ["autosplit_train.txt", "autosplit_val.txt",
+           "autosplit_test.txt"]
+    for x in txt:
+        if (path / x).exists():
+            (path / x).unlink()
+    for i, img in zip(indices, files):
+        if (not annotated_only
+                or Path(img2label_paths([str(img)])[0]).exists()):
+            with open(path / txt[i], "a") as f:
+                f.write(str(img) + "\n")
+
+
+def extract_boxes(path):
+    """Crop every labeled box into path/classifier/<cls>/... jpgs,
+    turning a detection dataset into a classification one
+    (utils/datasets.py:1078-1110). Boxes are padded by 1.2x + 3 px."""
+    import shutil
+
+    import cv2
+
+    path = Path(path)
+    if (path / "classifier").is_dir():
+        shutil.rmtree(path / "classifier")
+    for im_file in sorted(path.rglob("*.*")):
+        if im_file.suffix[1:].lower() not in IMG_FORMATS:
+            continue
+        im = cv2.imread(str(im_file))[..., ::-1]
+        h, w = im.shape[:2]
+        lb_file = Path(img2label_paths([str(im_file)])[0])
+        if not lb_file.exists():
+            continue
+        with open(lb_file) as f:
+            lb = np.array([x.split() for x in
+                           f.read().strip().splitlines()], np.float32)
+        for j, x in enumerate(lb):
+            c = int(x[0])
+            out = (path / "classifier" / str(c)
+                   / f"{path.stem}_{im_file.stem}_{j}.jpg")
+            out.parent.mkdir(parents=True, exist_ok=True)
+            b = x[1:5] * [w, h, w, h]
+            b[2:] = b[2:] * 1.2 + 3
+            bx = np.empty(4)
+            bx[0], bx[1] = b[0] - b[2] / 2, b[1] - b[3] / 2
+            bx[2], bx[3] = b[0] + b[2] / 2, b[1] + b[3] / 2
+            bx = bx.astype(int)
+            bx[[0, 2]] = np.clip(bx[[0, 2]], 0, w)
+            bx[[1, 3]] = np.clip(bx[[1, 3]], 0, h)
+            assert cv2.imwrite(str(out), im[bx[1]:bx[3], bx[0]:bx[2]]), \
+                f"box failure in {out}"
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,11 @@ native image space, greedy IoU-ladder matching, ap_per_class.
 It takes the `YoloFace` module, whose weights live in it, where the JAX
 function takes `(model, variables)`. There is no jit: the forward runs
 eagerly on the module's device under `torch.inference_mode()`, in full
-float32 (TF32 off) for a float32 module, and the keep mask of a batch on
-the card is one `nms_keep` kernel launch.
+float32 (TF32 off) for a float32 module; a bf16 training model
+(`YoloFace(spec, dtype=torch.bfloat16)`, float32 parameters) runs its
+bf16 forward on the float32 /255 input, as the JAX validate runs
+`YoloFace(dtype=bfloat16)`. The keep mask of a batch on the card is one
+`nms_keep` kernel launch.
 """
 
 from __future__ import annotations

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from face_detection_multi_scale_tpu_torch.models.layers import (
-    ConvBN, DWConvBN, ImplicitA, ImplicitM)
+    Conv2d, ConvBN, DWConvBN, ImplicitA, ImplicitM)
 from face_detection_multi_scale_tpu_torch.models.spec import ModelSpec
 
 
@@ -44,7 +44,7 @@ class DetectionHead(nn.Module):
         na, no_det, no_kpt = s.na, s.no_det, s.no_kpt
         self.implicit = variant in ("idetect", "ikeypoint")
         self.nkpt = s.nkpt
-        self.m = nn.ModuleList(nn.Conv2d(c, no_det * na, 1) for c in ch)
+        self.m = nn.ModuleList(Conv2d(c, no_det * na, 1) for c in ch)
         if self.implicit:
             self.ia = nn.ModuleList(ImplicitA(c) for c in ch)
             self.im = nn.ModuleList(ImplicitM(no_det * na) for _ in ch)
@@ -57,20 +57,20 @@ class DetectionHead(nn.Module):
                     for _ in range(5):
                         mods += [DWConvBN(c, c, 3), ConvBN(c, c, 1, 1)]
                     mods += [DWConvBN(c, c, 3),
-                             nn.Conv2d(c, no_kpt * na, 1)]
+                             Conv2d(c, no_kpt * na, 1)]
                     return nn.Sequential(*mods)
                 self.m_kpt = nn.ModuleList(tower(c) for c in ch)
             else:
                 self.m_kpt = nn.ModuleList(
-                    nn.Conv2d(c, no_kpt * na, 1) for c in ch)
+                    Conv2d(c, no_kpt * na, 1) for c in ch)
 
     def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         outs = []
         for i, x in enumerate(xs):
             xa = self.ia[i](x) if self.implicit else x
-            # the conv runs in its own dtype (flax's Conv(dtype=) casts its
-            # input): in a bf16 model ImplicitA's output is float32
-            det = self.m[i](xa.to(self.m[i].weight.dtype))
+            # the conv casts its input to its compute dtype (flax's
+            # Conv(dtype=)): in a bf16 model ImplicitA's output is float32
+            det = self.m[i](xa)
             if self.implicit:
                 det = self.im[i](det)
             if self.nkpt:

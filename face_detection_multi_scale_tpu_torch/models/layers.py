@@ -26,7 +26,7 @@ Parity targets (reference file:line):
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -84,6 +84,23 @@ def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
         b, c, h, w)
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in `compute_dtype`, flax's `Conv(dtype=)`: the
+    input, kernel and bias are cast to it, and the parameters keep their
+    own dtype. A bf16 training model (`YoloFace(spec, dtype=bfloat16)`)
+    so convolves in bf16 with float32 parameters, whose gradients come
+    back float32 through the casts. None (the default) computes in the
+    kernel's dtype: a float32, float64 or `cast_model`-cast model casts
+    only its input, as flax's float32 Conv casts a bf16 input."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
 class BatchNorm(nn.BatchNorm2d):
     """nn.BatchNorm2d whose training forward follows flax's nn.BatchNorm,
     the JAX package's: normalise with the batch mean and biased variance
@@ -91,19 +108,34 @@ class BatchNorm(nn.BatchNorm2d):
     `ra = (1 - momentum) * ra + momentum * batch_stat` with the *biased*
     variance, where torch's own BatchNorm folds in the unbiased one
     (n / (n - 1) larger). The eval forward (the running statistics), the
-    parameters and the state-dict keys are nn.BatchNorm2d's."""
+    parameters and the state-dict keys are nn.BatchNorm2d's.
+
+    The batch statistics come from the normalising F.batch_norm call
+    itself (momentum 1 into fresh float32 vectors: the batch mean and the
+    unbiased variance), so the map is read once. A bf16 map (a bf16
+    training model) is so normalised as flax's `BatchNorm(dtype=
+    bfloat16)` does it: float32 batch statistics (flax's
+    `force_float32_reductions`), float32 running statistics, and a bf16
+    output (F.batch_norm with a bf16 input and float32 parameters
+    normalises in float32 and rounds once)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        stat = torch.promote_types(self.running_mean.dtype, torch.float32)
+        mean = torch.zeros(self.num_features, dtype=stat, device=x.device)
+        var = torch.ones(self.num_features, dtype=stat, device=x.device)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            n = x.numel() // x.shape[1]
             keep = 1.0 - self.momentum
             self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+            # var is the unbiased batch variance: back to the biased one
+            self.running_var.mul_(keep).add_(
+                var, alpha=self.momentum * (n - 1) / n)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True,
-                            0.0, self.eps)
+        return y
 
 
 def batch_norm(c: int) -> BatchNorm:
@@ -122,7 +154,7 @@ class ConvBN(nn.Module):
         k = tuple(k) if isinstance(k, (tuple, list)) else (k, k)
         pad = tuple(p) if isinstance(p, (tuple, list)) else \
             tuple(autopad(kk, p) for kk in k)
-        self.conv = nn.Conv2d(c1, c2, k, s, pad, groups=g, bias=False)
+        self.conv = Conv2d(c1, c2, k, s, pad, groups=g, bias=False)
         self.bn = batch_norm(c2)
         self.act = act_fn(act)
 
@@ -262,9 +294,9 @@ class DWConvblock(nn.Module):
 
     def __init__(self, c1: int, c2: int, k: int, s: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(c1, c1, k, s, k // 2, groups=c1, bias=False)
+        self.conv1 = Conv2d(c1, c1, k, s, k // 2, groups=c1, bias=False)
         self.bn1 = batch_norm(c1)
-        self.conv2 = nn.Conv2d(c1, c2, 1, 1, 0, bias=False)
+        self.conv2 = Conv2d(c1, c2, 1, 1, 0, bias=False)
         self.bn2 = batch_norm(c2)
 
     def forward(self, x):
@@ -284,20 +316,20 @@ class ShuffleBlock(nn.Module):
         bf = c2 // 2
         if stride > 1:
             self.branch1 = nn.Sequential(
-                nn.Conv2d(c1, c1, 3, stride, 1, groups=c1, bias=False),
+                Conv2d(c1, c1, 3, stride, 1, groups=c1, bias=False),
                 batch_norm(c1),
-                nn.Conv2d(c1, bf, 1, 1, 0, bias=False),
+                Conv2d(c1, bf, 1, 1, 0, bias=False),
                 batch_norm(bf), nn.SiLU())
             c_in = c1
         else:
             self.branch1 = nn.Sequential()
             c_in = bf
         self.branch2 = nn.Sequential(
-            nn.Conv2d(c_in, bf, 1, 1, 0, bias=False), batch_norm(bf),
+            Conv2d(c_in, bf, 1, 1, 0, bias=False), batch_norm(bf),
             nn.SiLU(),
-            nn.Conv2d(bf, bf, 3, stride, 1, groups=bf, bias=False),
+            Conv2d(bf, bf, 3, stride, 1, groups=bf, bias=False),
             batch_norm(bf),
-            nn.Conv2d(bf, bf, 1, 1, 0, bias=False), batch_norm(bf),
+            Conv2d(bf, bf, 1, 1, 0, bias=False), batch_norm(bf),
             nn.SiLU())
 
     def forward(self, x):
@@ -314,7 +346,7 @@ class ConvBnReluMaxpool(nn.Module):
 
     def __init__(self, c1: int, c2: int):
         super().__init__()
-        self.conv = nn.Sequential(nn.Conv2d(c1, c2, 3, 2, 1, bias=False),
+        self.conv = nn.Sequential(Conv2d(c1, c2, 3, 2, 1, bias=False),
                                   batch_norm(c2), nn.SiLU())
 
     def forward(self, x):
@@ -364,8 +396,8 @@ class BottleneckCSP(nn.Module):
         super().__init__()
         c_ = int(c2 * e)
         self.cv1 = ConvBN(c1, c_, 1, 1)
-        self.cv2 = nn.Conv2d(c1, c_, 1, 1, bias=False)
-        self.cv3 = nn.Conv2d(c_, c_, 1, 1, bias=False)
+        self.cv2 = Conv2d(c1, c_, 1, 1, bias=False)
+        self.cv3 = Conv2d(c_, c_, 1, 1, bias=False)
         self.cv4 = ConvBN(2 * c_, c2, 1, 1)
         self.bn = batch_norm(2 * c_)
         self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, 1.0)

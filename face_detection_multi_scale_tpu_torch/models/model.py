@@ -166,9 +166,18 @@ class YoloFace(nn.Module):
     inside and returns the per-level raw maps as (bs, na, ny, nx, no), the
     training-mode output contract of the reference head
     (models/yolo.py:273-274). `models.head.decode` gives inference rows.
+
+    `dtype` is the compute dtype, the JAX `YoloFace(dtype=)`: with
+    bfloat16 every conv computes in bf16 on float32 parameters (mixed
+    precision, `layers.Conv2d`), every BatchNorm takes float32 statistics
+    and returns bf16, and the implicit priors stay float32. The
+    parameters, their gradients and the BN running statistics stay
+    float32, so the trainer, the EMA model and `validate` run a bf16
+    model with no dtype argument of their own. float32 (the default)
+    computes in the parameters' dtype.
     """
 
-    def __init__(self, spec: ModelSpec):
+    def __init__(self, spec: ModelSpec, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.spec = spec.resolve()
         mods = []
@@ -184,6 +193,10 @@ class YoloFace(nn.Module):
                 mods.append(build_node_block(self.spec, node))
         self.model = nn.ModuleList(mods)
         self._save = set(self.spec.save)
+        self.compute_dtype = None if dtype == torch.float32 else dtype
+        for mod in self.modules():
+            if isinstance(mod, L.Conv2d):
+                mod.compute_dtype = self.compute_dtype
 
     def forward(self, x: torch.Tensor,
                 reshape_heads: bool = True) -> List[torch.Tensor]:

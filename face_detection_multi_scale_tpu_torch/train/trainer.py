@@ -5,8 +5,12 @@ The port's counterpart of the JAX package's train/trainer.py, each JAX
 function at its name, in eager PyTorch: autograd differentiates the
 unfused `YoloFace` in train mode (cuDNN's convolutions and their
 backward), and the optimizer updates the module's parameters in place.
-The step runs in full float32 (cuDNN's TF32 off), as the JAX float32
-step does.
+The step computes in the model's dtype, as the JAX step does: a float32
+model in full float32 (cuDNN's TF32 off), a `YoloFace(spec,
+dtype=torch.bfloat16)` in bf16 mixed precision (bf16 convs, float32 BN
+statistics, implicit priors and loss). Either way the parameters, their
+gradients, the optimizer state and the EMA are float32, and the images
+enter as float32 / 255 (the first conv casts them).
 
 Reference parity (train.py):
   * 3 param groups — BN scales & implicit priors (no decay), conv
@@ -308,8 +312,8 @@ def _images(images, param: torch.Tensor) -> torch.Tensor:
 
 def _grad_fn(model: YoloFace, h: Dict[str, float]):
     """(images, targets) -> (loss, components, grads of the trainable
-    parameters) of `model` in train mode (its BN statistics update), TF32
-    off."""
+    parameters) of `model` in train mode (its BN statistics update), in
+    its compute dtype; TF32 off for whatever computes in float32."""
     spec = model.spec
 
     def run(images, targets):

@@ -457,9 +457,12 @@ def test_dataset_augment_raises_naming_module_8(corpora):
     ported: on the mixed-aspect corpus with mosaic, mixup, a warp and the
     flips, each sample equals the JAX package's under the same seeds
     (images bit for bit, labels within 1e-6). What module 8 still lacks,
-    bf16 training, raises naming it."""
+    training over several processes, raises naming it; bf16 training,
+    ported since, does not."""
     import argparse
     import random
+
+    import torch
 
     from face_detection_multi_scale_tpu_torch.cli import train
 
@@ -478,5 +481,10 @@ def test_dataset_augment_raises_naming_module_8(corpora):
             samples.append(ds.get(i))
         assert np.array_equal(samples[0][0], samples[1][0])
         np.testing.assert_allclose(samples[0][1], samples[1][1], atol=1e-6)
-    with pytest.raises(NotImplementedError, match="module 8"):
-        train._device(argparse.Namespace(dtype="bfloat16", device="cpu"))
+    args = argparse.Namespace(dtype="bfloat16", device="cpu")
+    assert train._device(args) == torch.device("cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.distributed, "is_initialized", lambda: True)
+        mp.setattr(torch.distributed, "get_world_size", lambda: 2)
+        with pytest.raises(NotImplementedError, match="module 8"):
+            train._device(args)

@@ -62,3 +62,31 @@ def test_detector_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FaceDetector("yolov7-tiny-face")
+
+
+# the port's CLIs that run no model: the WIDER scoring of written txts, a
+# file diff and a relauncher (the runs it relaunches keep their --device)
+HOST_ONLY_CLIS = {"evaluate_widerface.py", "compare_json_shapes.py",
+                  "resume_runs.py"}
+
+
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in (PORT / "cli").glob("*.py") if p.name != "__init__.py"))
+def test_every_cli_is_scanned_and_takes_the_card_by_default(name):
+    """Each port CLI is among the scanned files, and each one that runs
+    a model takes `--device` with the card as its default."""
+    path = PORT / "cli" / name
+    assert path in port_files()
+    src = path.read_text()
+    takes_device = 'add_argument("--device", default="cuda"' in src
+    assert takes_device != (name in HOST_ONLY_CLIS), name
+
+
+def test_new_modules_are_scanned():
+    """The demo entry points' and the dataset tools' modules (streams,
+    detect, serve, the two small CLIs, resume_runs) are scanned."""
+    scanned = {str(p.relative_to(PORT)) for p in port_files()
+               if PORT in p.parents}
+    assert {"data/streams.py", "data/dataset.py", "cli/detect.py",
+            "cli/serve.py", "cli/compare_json_shapes.py",
+            "cli/compare_resize_methods.py", "cli/resume_runs.py"} <= scanned
