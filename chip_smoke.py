@@ -237,21 +237,46 @@ Phases, each fatal on failure (nothing is caught to carry on):
      validation batch and the fixpoint kernel never, `last` and `best`
      load back equal to the final state, and best_inference.npz, loaded
      by FaceDetector(torch_weights=), serves the EMA model's Detections
- 23. one JSON line with every kernel's launches, error, times and bound;
+ 23. export (w6 at full width, phase 4's seeded weights, frames and gate):
+     (a) export_model.trace_program of the b8@640 inference function with
+     its postprocess (decode, non_max_suppression at max_candidates 2048,
+     max_det 300, iou 0.5) on the card, float32 (TF32 off) then bf16;
+     saved to a .pt2, the in-memory program dropped, load_program; the
+     graph holds exactly one fdms_torch.nms_keep node; each call of the
+     loaded program launches nms_keep once (counters zeroed just before,
+     read just after REQUESTS calls), the fixpoint and fused_elan kernels
+     never; `valid` equal to the live card pipeline's (the same weights
+     and dtype: the served model, decode, non_max_suppression at K =
+     2048) and the other four fields exact or within phase 4's
+     decoded-row tolerance (float32) or phase 9's bf16 share (which held
+     is printed); export, save and load seconds, the artifact's bytes,
+     and medians of 9 b8 requests of the loaded program and of the live
+     pipeline, interleaved, synchronized. (b) w6 b1@640 exported with raw
+     heads: the loaded program's maps on the card, native.dump_raw_heads,
+     the port's fdms_detect app (g++) at a gate that 300-800 rows of the
+     frame pass (no truncation on either side), iou 0.45, max_det 300:
+     the same rows as the card's live Detections of the frame, boxes
+     within 2e-2 and conf within 1e-4 (tests/test_native_app.py), each
+     app row paired with the nearest card row (confs within ulps may
+     swap); the app's ms a frame beside a bare process start. (c) phase 20's w6 int8 request still launches 107
+     qconv (106 wgmma): the live int8 walk calls the wrapper, not the
+     custom op; its ms printed beside PERF.md §5's 13.088
+ 24. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
      of 16 blocks; fused_elan_bf16 beside fused_elan; `launches` sums
      every counted path's run, `launches_by_path` splits it,
      `api_launches` holds phases 15-19's counted calls and
      `phase21_launches` phase 21's and `train_launches` phase 22's
-     (nms_keep's `launches` includes them all), `train_timed` phase
-     22(b)'s numbers by dtype;
+     and `export_launches` phase 23's (nms_keep's `launches` includes
+     them all), `export` phase 23's numbers, `train_timed` phase 22(b)'s
+     numbers by dtype;
      nms_keep's `eval_*` fields hold the eval point (B = 16, K = 16384):
      `eval_bound_ms` is `nms_bound`'s, `eval_scratch_ms` the scratch's
      bytes at 3.35 TB/s, and `eval_launches` its launches there; qconv's `eval_launches` the
      int8 eval's launches by route; the fused entries' `by_model` hold
      the yolov7-face and yolov7s-face group sums
- 24. the last line: {"ok": true, "device": {...}}
+ 25. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
@@ -277,6 +302,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from face_detection_multi_scale_tpu_torch import export_model as EXPORT
 from face_detection_multi_scale_tpu_torch import native as NAT
 from face_detection_multi_scale_tpu_torch.cli import test_widerface as TW
 from face_detection_multi_scale_tpu_torch.cli import train as TRAIN_CLI
@@ -394,6 +420,17 @@ TRAIN_LAUNCHES = {}
 # bf16 training (22, bf16 parts): its loss against the float32 step's
 # (tests/test_train_features.py::test_bf16_mixed_precision_train_step)
 TRAIN_BF16_LOSS_RTOL = 0.05
+# phase 23: export. The JAX export's NMS capacity; timed rounds of the
+# loaded program against the live pipeline; the raw-heads frame's gated
+# rows for the native app (a band, the gate in its widest gap)
+EXPORT_K = EXPORT.MAX_CANDIDATES
+EXPORT_ROUNDS = 9
+APP_GATED = (300, 800)
+APP_IOU, APP_MAX_DET = 0.45, 300  # tests/test_native_app.py's
+APP_BOX_ATOL, APP_CONF_ATOL = 2e-2, 1e-4
+INT8_W6_RECORDED_MS = 13.088  # the w6 int8 request in PERF.md §5's table
+# phase 23's counted program calls: {tag: nms_keep launches}
+EXPORT_LAUNCHES = {}
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 CONTRACT_TENSORS = {
     "yolo-face-bboxes", "yolo-face-confidence", "yolo-face-class_names",
@@ -3033,6 +3070,258 @@ def drive_phase22(smi: str) -> dict:
     return timed_out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: export
+# ---------------------------------------------------------------------------
+
+def live_request(net, spec, frames, dtype, conf, iou, max_det):
+    """The live card pipeline of an exported program: uint8 frames to the
+    card, `dtype` / 255, the served model, decode, non_max_suppression at
+    the export's capacity."""
+    x = torch.as_tensor(frames).cuda().to(dtype) / 255.0
+    with torch.inference_mode(), full_fp32():
+        return NMS.non_max_suppression(
+            decode(net(x), spec), conf, iou, nc=spec.nc, nkpt=spec.nkpt,
+            max_candidates=EXPORT_K, max_det=max_det)
+
+
+def fields_agree(got, want: NMS.Detections, dtype, tag: str) -> str:
+    """`valid` equal; the other four fields exact, or within phase 4's
+    decoded-row tolerance (float32) or phase 9's bf16 share of max |field|
+    (bf16). Returns which held."""
+    check(len(got) == 5 and torch.equal(got[4], want.valid),
+          f"{tag}: valid differs from the live pipeline's")
+    if all(torch.equal(g, w) for g, w in zip(got[:4], want[:4])):
+        return "exact"
+    for name, g, w in zip(("boxes", "scores", "classes", "extras"),
+                          got[:4], want[:4]):
+        check(g.shape == w.shape and g.dtype == w.dtype,
+              f"{tag}: {name} {tuple(g.shape)} {g.dtype} against "
+              f"{tuple(w.shape)} {w.dtype}")
+        g, w = g.float(), w.float()
+        if dtype == torch.bfloat16:
+            share = float((g - w).abs().max() / w.abs().max().clamp(
+                min=1e-30))
+            check(share < BF16_RAW_SHARE, f"{tag}: {name} {share:.4g} of "
+                                          f"max |{name}| off the live")
+        else:
+            check(bool(((g - w).abs() <= ROW_TOL["atol"]
+                        + ROW_TOL["rtol"] * w.abs()).all()),
+                  f"{tag}: {name} beyond {ROW_TOL} of the live pipeline")
+    return ("within phase 9's bf16 share" if dtype == torch.bfloat16
+            else f"within {ROW_TOL}")
+
+
+def export_and_load(model, spec, tmp: str, tag: str, **kw):
+    """trace_program on the card, save, drop the in-memory program, then
+    load_program. Returns (the loaded program, {export_s, save_s, load_s,
+    bytes})."""
+    t0 = time.perf_counter()
+    exported = EXPORT.trace_program(model, spec, device="cuda", **kw)
+    t1 = time.perf_counter()
+    path = os.path.join(tmp, tag.replace(" ", "_") + ".pt2")
+    EXPORT.save_program(exported, path, {})
+    t2 = time.perf_counter()
+    del exported
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    prog = EXPORT.load_program(path)
+    t4 = time.perf_counter()
+    return prog, {"export_s": t1 - t0, "save_s": t2 - t1,
+                  "load_s": t4 - t3, "bytes": os.path.getsize(path)}
+
+
+def app_gate(rows: torch.Tensor) -> float:
+    """The native app's gate on one frame's decoded rows (1, N, no): the
+    midpoint of the widest gap between consecutive conf = obj * cls values
+    ranked APP_GATED, so that between 300 and 800 rows gate (the app does
+    not truncate; the card's K of 2048 then holds them all) and no row
+    lies near the gate. With one class conf <= obj, so the two-stage gate
+    is conf > gate."""
+    conf = (rows[0, :, 4] * rows[0, :, 5]).float().sort(descending=True)[0]
+    lo, hi = APP_GATED
+    band = conf[lo - 1:hi + 1].cpu().double()
+    i = int(torch.argmax(band[:-1] - band[1:]))
+    return float((band[i] + band[i + 1]) / 2)
+
+
+def drive_native_app(model, spec, frames: np.ndarray, smi: str, tmp: str,
+                     live_net) -> dict:
+    """Phase 23(b): w6 b1@640 exported with raw heads, the loaded program on
+    the card, dump_raw_heads, the port's fdms_detect against the card's
+    live Detections of the frame."""
+    prog, costs = export_and_load(model, spec, tmp, "w6 raw", img_size=SIZE,
+                                  batch=1, raw_heads=True)
+    frame = frames[:1]
+    raws = prog(frame)
+    check(len(raws) == spec.nl and all(
+        r.shape[:2] == (1, spec.na) and bool(torch.isfinite(r).all())
+        for r in raws), "w6 raw program: bad raw maps")
+    with torch.inference_mode(), full_fp32():
+        x = torch.as_tensor(frame).cuda().float() / 255.0
+        raws_live = live_net(x)
+        rows = decode(raws_live, spec)
+    raw_err = max(float((a - b).abs().max()) for a, b in zip(raws,
+                                                             raws_live))
+    gate = app_gate(rows)
+    with torch.inference_mode():
+        dets = NMS.non_max_suppression(rows, gate, APP_IOU, nc=spec.nc,
+                                       max_candidates=EXPORT_K,
+                                       max_det=APP_MAX_DET)
+    n_gated = int(dets.n_gated[0])
+    check(n_gated <= EXPORT_K, f"native app: {n_gated} rows gated, more "
+                               f"than K = {EXPORT_K}")
+    want = NMS.detections_to_numpy(dets)[0][:, :5]
+    path = os.path.join(tmp, "w6_heads.bin")
+    t0 = time.perf_counter()
+    NAT.dump_raw_heads(path, raws, spec)
+    dump_ms = (time.perf_counter() - t0) * 1e3
+    NAT.build_app()
+    app_ms, got = [], None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = NAT.run_native_detector(path, gate, APP_IOU, APP_MAX_DET)
+        app_ms.append((time.perf_counter() - t0) * 1e3)
+    spawn_ms = []  # what starting a process costs there, apart
+    for _ in range(3):
+        t0 = time.perf_counter()
+        subprocess.run(["true"], check=True)
+        spawn_ms.append((time.perf_counter() - t0) * 1e3)
+    check(got.shape == want.shape and len(got) > 0,
+          f"native app: {got.shape[0]} rows, the card's Detections "
+          f"{want.shape[0]}")
+    # rows whose confs agree to a few ulps may come out in either order
+    # (the app's sigmoid is C++'s): each app row is paired with the
+    # nearest card row, one to one
+    pair = np.abs(got[:, None] - want[None]).max(-1).argmin(1)
+    check(len(set(pair.tolist())) == len(pair),
+          "native app: rows pair up twice with the card's")
+    swapped = int((pair != np.arange(len(pair))).sum())
+    want = want[pair]
+    box_err = float(np.abs(got[:, :4] - want[:, :4]).max())
+    conf_err = float(np.abs(got[:, 4] - want[:, 4]).max())
+    check(box_err <= APP_BOX_ATOL and conf_err <= APP_CONF_ATOL,
+          f"native app: boxes {box_err:.4g} (atol {APP_BOX_ATOL}), conf "
+          f"{conf_err:.4g} (atol {APP_CONF_ATOL}) off the card's")
+    out = {**costs, "gate": gate, "gated": n_gated, "rows": len(got),
+           "rows_in_another_order": swapped, "raw_err_vs_live": raw_err,
+           "max_box_err": box_err, "max_conf_err": conf_err,
+           "dump_ms": dump_ms, "app_ms": float(np.median(app_ms)),
+           "spawn_ms": float(np.median(spawn_ms))}
+    print(f"phase 23(b) native app on w6 b1@{SIZE} raw heads ({smi}): "
+          f"export {costs['export_s']:.2f} s, save {costs['save_s']:.2f} s, "
+          f"load {costs['load_s']:.2f} s, {costs['bytes']} bytes; its maps "
+          f"within {raw_err:.3g} of the live forward's; gate "
+          f"{gate:.6g} ({n_gated} rows gated), {len(got)} rows as the "
+          f"card's Detections ({swapped} of them in another order: "
+          f"confs within ulps), boxes within {box_err:.3g}, conf within "
+          f"{conf_err:.3g}; dump {dump_ms:.3f} ms, the app "
+          f"{out['app_ms']:.3f} ms a frame (median of 3, process start "
+          f"and file read included; starting `true` alone "
+          f"{out['spawn_ms']:.3f} ms)")
+    return out
+
+
+def drive_export(smi: str, frames: np.ndarray, gate: float,
+                 qconv_entry: dict) -> dict:
+    """Phase 23: (a) w6 b8@640 exported with its postprocess on the card,
+    saved, loaded and served, float32 then bf16, against the live card
+    pipeline; (b) the native app on a raw-heads export; (c) phase 20's w6
+    int8 request, unchanged. Returns the numbers for the kernels line."""
+    name = "yolov7-w6-face"
+    spec = zoo.get_spec(name).resolve()
+    model = init_weights(YoloFace(spec), torch.Generator().manual_seed(0))
+    out = {"gate": gate}
+    with tempfile.TemporaryDirectory() as tmp:
+        live_f32 = None
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = DTYPE_NAMES[dtype]
+            tag = f"w6 {dn} pt2"
+            kw = dict(img_size=SIZE, batch=BATCH, conf_thres=gate,
+                      iou_thres=0.5, max_det=300, dtype=dtype)
+            prog, costs = export_and_load(model, spec, tmp, tag, **kw)
+            nodes = EXPORT.op_count(prog.exported, "fdms_torch.nms_keep")
+            check(nodes == 1, f"{tag}: {nodes} fdms_torch.nms_keep nodes")
+            live = EXPORT.serving_model(model, dtype, "cuda")
+            prog(frames[0])  # warm-up, not counted
+            zero_counters()
+            for r in range(REQUESTS):
+                got = prog(frames[r])
+                torch.cuda.synchronize()
+                check(K.nms_keep.launches == r + 1,
+                      f"{tag}: nms_keep launched {K.nms_keep.launches} "
+                      f"times in {r + 1} calls of the loaded program")
+            counts = {"seq": K.nms_keep.launches,
+                      "fixpoint": K.nms_keep.fixpoint_launches,
+                      "fused": E.fused_elan.launches
+                      + E.fused_elan.bf16_launches}
+            check(counts == {"seq": REQUESTS, "fixpoint": 0, "fused": 0},
+                  f"{tag}: launches {counts}")
+            EXPORT_LAUNCHES[tag] = counts["seq"]
+            want = live_request(live, spec, frames[REQUESTS - 1], dtype,
+                                gate, 0.5, 300)
+            held = fields_agree(got, want, dtype, tag)
+            kept = got[4].sum(1).tolist()
+            # the loaded program against the live pipeline, interleaved
+            times = {"program": [], "live": []}
+            for r in range(EXPORT_ROUNDS):
+                order = (("program", "live") if r % 2 == 0
+                         else ("live", "program"))
+                for which in order:
+                    fn = (lambda: prog(frames[r % REQUESTS])) \
+                        if which == "program" else \
+                        (lambda: live_request(live, spec,
+                                              frames[r % REQUESTS], dtype,
+                                              gate, 0.5, 300))
+                    _, ms = timed(fn)
+                    times[which].append(ms)
+            med = {k: float(np.median(v)) for k, v in times.items()}
+            out[dn] = {**costs, "launches": counts["seq"],
+                       "agreement": held, "kept": kept,
+                       "program_ms": med["program"], "live_ms": med["live"],
+                       "program_ms_all": times["program"],
+                       "live_ms_all": times["live"]}
+            print(f"phase 23(a) {tag} b{BATCH}@{SIZE} on {smi}: export "
+                  f"{costs['export_s']:.2f} s, save {costs['save_s']:.2f} s, "
+                  f"load {costs['load_s']:.2f} s, {costs['bytes']} bytes; 1 "
+                  f"fdms_torch.nms_keep node; nms_keep launches "
+                  f"{counts['seq']} in {REQUESTS} calls, fixpoint 0, "
+                  f"fused_elan 0; fields against the live pipeline: valid "
+                  f"exact, the rest {held}; kept {kept}; a b{BATCH} request "
+                  f"(median of {EXPORT_ROUNDS}, interleaved, host clock, "
+                  f"synchronized): loaded program {med['program']:.3f} ms "
+                  f"{[round(v, 3) for v in times['program']]}, live "
+                  f"{med['live']:.3f} ms "
+                  f"{[round(v, 3) for v in times['live']]}")
+            del prog
+            if dtype == torch.float32:
+                live_f32 = live
+            else:
+                del live
+            torch.cuda.empty_cache()
+            stamp(f"phase 23(a) {tag} done")
+        out["app"] = drive_native_app(model, spec, frames[0], smi, tmp,
+                                      live_f32)
+        del live_f32
+        torch.cuda.empty_cache()
+    stamp("phase 23(b) native app done")
+    # (c): the live int8 walk still calls the wrapper (no custom op)
+    qc = qconv_entry["launches_by_path"][f"{name} int8"]
+    w6_int8 = qconv_entry["by_model"][name]
+    check(qc["qconv"] == INT8_REQUESTS * 107
+          and qc["wgmma"] == INT8_REQUESTS * INT8_WGMMA[name],
+          f"phase 23(c): the w6 int8 request's qconv launches {qc}, want "
+          f"107 ({INT8_WGMMA[name]} wgmma) a request")
+    out["int8_request_ms"] = w6_int8["request_ms"]
+    print(f"phase 23(c) w6 int8 b{BATCH}@{SIZE} (phase 20, one run, not a "
+          f"claim): {qc['qconv'] // INT8_REQUESTS} qconv launches a request "
+          f"({qc['wgmma'] // INT8_REQUESTS} wgmma), request "
+          f"{w6_int8['request_ms']:.3f} ms beside the "
+          f"{INT8_W6_RECORDED_MS} ms that PERF.md §5 records")
+    stamp("phase 23 (export) done")
+    return out
+
+
 def group_entry(s):
     """The time fields of a kernels-line entry from check_groups' sums."""
     return {"ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -3067,8 +3356,10 @@ def main() -> None:
         0, 256, (REQUESTS, BATCH, SIZE, SIZE, 3), dtype=np.uint8)
         for name, seed in (("yolov7-w6-face", 0), ("yolov7-tiny-face", 1))}
     w6, tiny = "yolov7-w6-face", "yolov7-tiny-face"
-    counts_w6, (boxes, valid, thr), ref_w6, _, raws_w6 = drive_path(
+    counts_w6, (boxes, valid, thr), ref_w6, det_w6, raws_w6 = drive_path(
         w6, smi, 0, frames[w6])
+    w6_gate = det_w6.conf_thres  # phase 23 exports at phase 4's gate
+    del det_w6
     _, _, ref_tiny, _, raws_tiny = drive_path(tiny, smi, 1, frames[tiny],
                                               requests=2)
     tta_launches, tta_gate = drive_tta(smi)
@@ -3154,6 +3445,9 @@ def main() -> None:
 
     # phase 22: training (the epoch-end validate launches nms_keep)
     train_timed = drive_phase22(smi)
+
+    # phase 23: the exported program, the native app, int8 unchanged
+    export_fields = drive_export(smi, frames[w6], w6_gate, qconv_entry)
     qconv_entry["eval_launches"] = qconv_eval
     qconv_entry["launches"] += qconv_eval["qconv"]
     for key in ("depthwise", "wgmma", "split"):
@@ -3182,8 +3476,8 @@ def main() -> None:
     for version, name, line, launches, iters in (
             ("seq", "nms_keep", 94,
              total["seq"] + tta_launches + tiled_launches + api_seq
-             + sum(EVAL_LAUNCHES.values()) + sum(TRAIN_LAUNCHES.values()),
-             20),
+             + sum(EVAL_LAUNCHES.values()) + sum(TRAIN_LAUNCHES.values())
+             + sum(EXPORT_LAUNCHES.values()), 20),
             ("fixpoint", "nms_keep_fixpoint", 35, fixpoint_launches, 20)):
         got = K.nms_keep(boxes, valid, thr, kernel_version=version)
         err = int((got.int() - want.int()).abs().max())
@@ -3234,6 +3528,10 @@ def main() -> None:
                       phase21_launches=dict(EVAL_LAUNCHES), **eval_fields,
                       # phase 22: the training path's epoch-end validate
                       train_launches=dict(TRAIN_LAUNCHES),
+                      # phase 23: the loaded .pt2 programs' calls, and
+                      # what the export, load and serving cost
+                      export_launches=dict(EXPORT_LAUNCHES),
+                      export=export_fields,
                       train_timed={
                           d: {k: v for k, v in t.items()
                               if not k.endswith("_all")}

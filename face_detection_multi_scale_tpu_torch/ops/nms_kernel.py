@@ -30,6 +30,14 @@ count beside the mask (`nms_keep.last_fixpoint_sweeps`, the count that
 On a CPU tensor `nms_keep` runs `nms_keep_plain`, the same function by
 the fixpoint of the JAX package's `nms_keep_matrix`, for either version;
 on a CUDA tensor it launches the kernel or raises.
+
+The keep mask is also the torch custom op `fdms_torch::nms_keep`, with a
+fake version that gives the (B, K) bool shape, so that `torch.export`
+carries the kernel into a serialized program (export_model.py). The live
+paths call `nms_keep` directly; under `torch.compiler.is_exporting()`
+`nms_keep` emits the op instead. The op's CUDA version is the wrapper
+(the kernel, counted in `nms_keep.launches`, so a loaded program's calls
+count too); its CPU version is `nms_keep_plain`.
 """
 
 from __future__ import annotations
@@ -203,6 +211,16 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
                         f"{boxes.dtype} and {valid.dtype}")
     if boxes.device != valid.device:
         raise ValueError(f"boxes on {boxes.device}, valid on {valid.device}")
+    if torch.compiler.is_exporting():
+        return torch.ops.fdms_torch.nms_keep(boxes, valid, float(iou_thres),
+                                             kernel_version)
+    return _keep(boxes, valid, iou_thres, kernel_version)
+
+
+def _keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+          kernel_version: str) -> torch.Tensor:
+    """`nms_keep` on checked tensors: the plain version on the CPU, the
+    kernel on the card (counted)."""
     if boxes.device.type == "cpu":
         return nms_keep_plain(boxes, valid, iou_thres)
     if boxes.device.type != "cuda":
@@ -234,3 +252,19 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
 nms_keep.launches = 0
 nms_keep.fixpoint_launches = 0
 nms_keep.last_fixpoint_sweeps = None
+
+
+@torch.library.custom_op("fdms_torch::nms_keep", mutates_args=())
+def nms_keep_op(boxes: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+                kernel_version: str) -> torch.Tensor:
+    """`nms_keep` as a custom op (what an exported program calls): the
+    kernel on CUDA tensors, `nms_keep_plain` on CPU tensors."""
+    if boxes.device.type == "cpu":
+        # a fresh tensor: the plain loop may hand back `valid` itself
+        return nms_keep_plain(boxes, valid, iou_thres).clone()
+    return _keep(boxes, valid, iou_thres, kernel_version)
+
+
+@nms_keep_op.register_fake
+def _nms_keep_fake(boxes, valid, iou_thres, kernel_version):
+    return torch.empty(valid.shape, dtype=torch.bool, device=valid.device)

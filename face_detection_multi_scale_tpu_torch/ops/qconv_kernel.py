@@ -37,6 +37,13 @@ the kernel or raises. `qconv.launches` counts the kernel's launches;
 `qconv.split_launches` those of them on the direct route (grouped convs,
 depthwise in the zoo), on the wgmma route, and with K split over a
 cluster.
+
+`qconv` is also the torch custom op `fdms_torch::qconv` (a fake version
+gives the output's shape), which `qconv` emits in its place under
+`torch.compiler.is_exporting()`, so that an exported int8 walk holds one
+node a conv (the ONNX emitter, onnx/export.py, maps it). The live int8
+walk calls the wrapper directly: a dispatcher hop a conv would add host
+time to a host-bound path.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -331,6 +338,9 @@ def qconv(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
     ho, wo = out_hw(h, wd, (kh, kw), stride, pads)
     if ho < 1 or wo < 1:
         raise ValueError(f"empty output {ho}x{wo}")
+    if torch.compiler.is_exporting():
+        return torch.ops.fdms_torch.qconv(x, w, alpha, bias, float(inv_out),
+                                          stride, list(pads), groups, act)
     if x.device.type == "cpu":
         return qconv_plain(x, w, alpha, bias, inv_out, stride, pads, groups,
                            act)
@@ -404,3 +414,23 @@ qconv.launches = 0
 qconv.depthwise_launches = 0
 qconv.wgmma_launches = 0
 qconv.split_launches = 0
+
+
+@torch.library.custom_op("fdms_torch::qconv", mutates_args=())
+def qconv_op(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor,
+             bias: torch.Tensor, inv_out: float, stride: int,
+             pads: List[int], groups: int, act: str) -> torch.Tensor:
+    """`qconv` as a custom op (what an exported walk calls): the kernel on
+    CUDA tensors, `qconv_plain` on CPU tensors."""
+    if x.device.type == "cpu":
+        return qconv_plain(x, w, alpha, bias, inv_out, stride, tuple(pads),
+                           groups, act)
+    return qconv(x, w, alpha, bias, inv_out, stride, tuple(pads), groups,
+                 act)
+
+
+@qconv_op.register_fake
+def _qconv_fake(x, w, alpha, bias, inv_out, stride, pads, groups, act):
+    ho, wo = out_hw(x.shape[1], x.shape[2], tuple(w.shape[1:3]), stride,
+                    tuple(pads))
+    return x.new_empty((x.shape[0], ho, wo, w.shape[0]))

@@ -1201,3 +1201,51 @@ def test_checkpoint_round_trip_on_card(cuda_device, tmp_path, optimizer):
         assert got == meta and chip_smoke.states_equal(other, s)
         assert all(t.is_cuda for t in other.ema_params.values())
         assert all(t.is_cuda for t in other.model.state_dict().values())
+
+
+def test_program_on_card_launches_nms_keep(cuda_device, tmp_path):
+    """yolov7-tiny-face (seeded weights) exported with its postprocess at
+    b2@640 on the card, saved and loaded back: one fdms_torch.nms_keep
+    node, one kernel launch a call (none of the fixpoint kernel), and
+    the live card pipeline's Detections (`valid` exact, the rest within
+    the decoded-row tolerance)."""
+    from face_detection_multi_scale_tpu_torch import export_model as EM
+    from face_detection_multi_scale_tpu_torch.models.head import decode
+    from face_detection_multi_scale_tpu_torch.models.model import (
+        YoloFace, init_weights)
+
+    spec = zoo.get_spec("yolov7-tiny-face").resolve()
+    net = init_weights(YoloFace(spec), torch.Generator().manual_seed(1))
+    frames = np.random.default_rng(2).integers(0, 256, (2, 640, 640, 3),
+                                               dtype=np.uint8)
+    live = EM.serving_model(net, torch.float32, cuda_device)
+
+    def live_dets(gate):
+        with torch.inference_mode(), full_fp32():
+            x = torch.from_numpy(frames).to(cuda_device).float() / 255.0
+            rows = decode(live(x), spec)
+            if gate is None:
+                return rows
+            return NMS.non_max_suppression(rows, gate, 0.5,
+                                           max_candidates=2048, max_det=300)
+
+    # a gate that about a thousand rows of each image pass (random
+    # weights put most confidences far below the default 0.25)
+    rows = live_dets(None)
+    conf = (rows[..., 4] * rows[..., 5]).sort(dim=1, descending=True)[0]
+    gate = float(conf[:, 1000].min())
+    path = str(tmp_path / "tiny.pt2")
+    EM.export_program(net, spec, path, img_size=640, batch=2,
+                      conf_thres=gate, iou_thres=0.5, max_det=300,
+                      device=cuda_device)
+    prog = EM.load_program(path)
+    assert EM.op_count(prog.exported, "fdms_torch.nms_keep") == 1
+    seq, fix = K.nms_keep.launches, K.nms_keep.fixpoint_launches
+    got = prog(frames)
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == seq + 1
+    assert K.nms_keep.fixpoint_launches == fix
+    want = live_dets(gate)
+    assert torch.equal(got[4], want.valid) and int(want.valid.sum()) > 0
+    for g, w in zip(got[:4], want[:4]):
+        torch.testing.assert_close(g, w, atol=5e-3, rtol=1e-3)

@@ -90,3 +90,29 @@ def test_new_modules_are_scanned():
     assert {"data/streams.py", "data/dataset.py", "cli/detect.py",
             "cli/serve.py", "cli/compare_json_shapes.py",
             "cli/compare_resize_methods.py", "cli/resume_runs.py"} <= scanned
+
+
+def test_export_modules_are_scanned():
+    """The export slice's modules (the program and ONNX exports, the
+    emitter, the runner and the bindings copied from the JAX package, the
+    native app's bindings, the CLI) are scanned."""
+    scanned = {str(p.relative_to(PORT)) for p in port_files()
+               if PORT in p.parents}
+    assert {"export_model.py", "onnx/__init__.py", "onnx/export.py",
+            "onnx/runner.py", "onnx/onnx_pb2.py", "native/__init__.py",
+            "cli/export.py"} <= scanned
+
+
+def test_cli_export_defaults_to_the_card(monkeypatch, tmp_path):
+    """cli.export without --device asks for the card and raises where
+    there is none, before it builds anything; it does not move to the
+    CPU."""
+    import torch
+
+    from face_detection_multi_scale_tpu_torch.cli import export as CLI
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "m.pt2"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CLI.main(["--model", "yolov7-lite-t", "--img-size", "64",
+                  "--output", str(out)])
+    assert not out.exists()
