@@ -261,7 +261,28 @@ Phases, each fatal on failure (nothing is caught to carry on):
      swap); the app's ms a frame beside a bare process start. (c) phase 20's w6 int8 request still launches 107
      qconv (106 wgmma): the live int8 walk calls the wrapper, not the
      custom op; its ms printed beside PERF.md §5's 13.088
- 24. one JSON line with every kernel's launches, error, times and bound;
+ 24. extra blocks (models/layers_extra.py): the extra cfg
+     tests/data/yolov7s-face-extra.json (yolov7s-face at full width with
+     ConvFocus, MixConv2d, GhostConv, GhostBottleneck at s = 1 and 2,
+     CrossConv, C3TR, SPPCSP, Contract / Expand, BottleneckCSP2 and
+     BottleneckCSPF, a weighted Sum, and its 8 E-ELAN groups) through
+     FaceDetector(spec) at b8@640 with phase 4's gate rule: (a) float32
+     unfused, decoded rows within phase 4's tolerance of the CPU forward,
+     Detections equal to the CPU postprocess of the card's rows, one
+     nms_keep a request; (b) bf16, raws within 5e-2 of max |float32 raw|,
+     Detections equal to the CPU postprocess of the card's bf16 rows;
+     (c) fuse_elan=True in float32 and bf16, each group within phase 6's
+     (10's) bound of its plain version, fused_elan launched 8 times a
+     request; (d) quantize="int8" raises NotImplementedError naming
+     ConvFocus; (e) each extra block, activation module, Classify and
+     function alone on the card against its CPU output (atol 2e-4, rtol
+     1e-3; C3TR on a 20 x 36 map); (f) one float32 train micro-step at
+     b2@256, the card's step as close to the float64 one as twice the
+     CPU's, its loss within 1e-3 of the CPU's; (g) model_info of w6 and
+     of the extra cfg, the C3TR block's ms at b8@640 in float32 and bf16,
+     the request ms of each path, and one unfused request of each dtype
+     traced with utils/profiling.trace: its busy share and top kernels
+ 25. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
      of 16 blocks; fused_elan_bf16 beside fused_elan; `launches` sums
@@ -275,8 +296,9 @@ Phases, each fatal on failure (nothing is caught to carry on):
      `eval_bound_ms` is `nms_bound`'s, `eval_scratch_ms` the scratch's
      bytes at 3.35 TB/s, and `eval_launches` its launches there; qconv's `eval_launches` the
      int8 eval's launches by route; the fused entries' `by_model` hold
-     the yolov7-face and yolov7s-face group sums
- 25. the last line: {"ok": true, "device": {...}}
+     the yolov7-face and yolov7s-face group sums; nms_keep's `extra` holds
+     phase 24's numbers
+ 26. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
@@ -320,12 +342,15 @@ from face_detection_multi_scale_tpu_torch.infer.detector import (
     FaceDetector, full_fp32)
 from face_detection_multi_scale_tpu_torch.infer.results import Detections
 from face_detection_multi_scale_tpu_torch.models import fused as FUSED
+from face_detection_multi_scale_tpu_torch.models import layers_extra as LX
 from face_detection_multi_scale_tpu_torch.models import quant as QUANT
 from face_detection_multi_scale_tpu_torch.models import zoo
 from face_detection_multi_scale_tpu_torch.models.model import (
     YoloFace, init_weights)
 from face_detection_multi_scale_tpu_torch.models.head import (
     decode, reshape_level)
+from face_detection_multi_scale_tpu_torch.models.spec import (
+    spec_from_yolo_yaml)
 from face_detection_multi_scale_tpu_torch.ops.boxes import box_iou
 from face_detection_multi_scale_tpu_torch.ops import elan_kernel as E
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
@@ -341,6 +366,7 @@ from face_detection_multi_scale_tpu_torch.train.targets import (
     build_targets_batched)
 from face_detection_multi_scale_tpu_torch.tools.forward_format_ab import (
     kernel_profile)
+from face_detection_multi_scale_tpu_torch.utils import profiling as PROF
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -362,8 +388,10 @@ GROUPS = {"yolov7-w6-face": 11, "yolov7-tiny-face": 8, "yolov7-face": 8,
 NEW_MODELS = (("yolov7-face", 3), ("yolov7s-face", 4), ("yolov7-lite-t", 5),
               ("yolov7-lite-s", 6))  # (zoo name, seed of weights and frames)
 NEW_REQUESTS = 2
-# each counted path's run: {tag: {"seq": n, "fixpoint": n, "fused": n}}
+# each counted path's run: {tag: {"seq": n, "fixpoint": n, "fused": n}},
+# and its median request ms (host clock, synchronized)
 PATH_LAUNCHES = {}
+PATH_MS = {}
 PROBE_CELLS, PROBE_ITERS = 512, 6  # the JAX tool's defaults
 TTA_SIZES = (640, 3840)  # the JAX FaceDetector's default pyramid
 TTA_FRAMES, TTA_HW = 2, (1080, 1920)  # video frames of the production pipeline
@@ -431,6 +459,18 @@ APP_BOX_ATOL, APP_CONF_ATOL = 2e-2, 1e-4
 INT8_W6_RECORDED_MS = 13.088  # the w6 int8 request in PERF.md §5's table
 # phase 23's counted program calls: {tag: nms_keep launches}
 EXPORT_LAUNCHES = {}
+# phase 24: the extra cfg, its seed (weights and frames) and requests; a
+# block alone on the card against the CPU at the raw-map tolerance; the
+# train step's loss card against CPU
+EXTRA_NAME = "yolov7s-face-extra"
+EXTRA_CFG = Path(__file__).resolve().parent / "tests" / "data" / \
+    f"{EXTRA_NAME}.json"
+EXTRA_OPS = {"ConvFocus", "MixConv2d", "GhostConv", "GhostBottleneck",
+             "CrossConv", "C3TR", "SPPCSP", "Contract", "Expand",
+             "BottleneckCSP2", "BottleneckCSPF", "Sum"}
+EXTRA_SEED, EXTRA_REQUESTS = 8, 2
+EXTRA_BLOCK_TOL = dict(atol=2e-4, rtol=1e-3)
+EXTRA_STEP_LOSS_RTOL = 1e-3
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 CONTRACT_TENSORS = {
     "yolo-face-bboxes", "yolo-face-confidence", "yolo-face-class_names",
@@ -676,9 +716,10 @@ def set_gate(det: FaceDetector, batch: np.ndarray) -> None:
 
 def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
                fuse_elan=False, requests=None, ref=None,
-               dtype=torch.float32, ref_raws=None):
-    """Phases 4/5/7/8/12/14 for one zoo model, and 9/10/13/14 in bf16.
-    `ref` holds the
+               dtype=torch.float32, ref_raws=None, spec_fn=None):
+    """Phases 4/5/7/8/12/14 for one zoo model, and 9/10/13/14 in bf16;
+    phase 24 for the extra cfg, whose spec `spec_fn()` makes (`name` is
+    then its tag and GROUPS key). `ref` holds the
     unfused phase's card and CPU rows on 2 frames; without it the CPU
     forward is run here (float32 only). In bf16 the raws on 2 frames are
     held against `ref_raws` (label, raws) instead. Returns (the launch
@@ -689,7 +730,8 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
     tag = name + (" bf16" if bf16 else "") + \
         (f" fuse_elan={fuse_elan!r}" if fuse_elan else "")
     requests = requests or REQUESTS
-    det = FaceDetector(name, img_sizes=(SIZE,), conf_thres=0.5,
+    model = spec_fn() if spec_fn else name
+    det = FaceDetector(model, img_sizes=(SIZE,), conf_thres=0.5,
                        iou_thres=0.5, max_candidates=MAX_CANDIDATES,
                        seed=seed, fuse_elan=fuse_elan, dtype=dtype,
                        device="cuda")
@@ -735,6 +777,7 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
     check(max(n_gated) > det.max_candidates,
           f"{tag}: no image filled K = {det.max_candidates}")
     ms = [t * 1e3 for t in times]
+    PATH_MS[tag] = float(np.median(ms))
     print(f"{tag} run_network b{BATCH}@{SIZE} on {smi}: ms/batch "
           f"{[round(m, 3) for m in ms]}, median {np.median(ms):.3f}, "
           f"img/s {BATCH / np.median(times):.1f}")
@@ -767,8 +810,8 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
         # the card's float32 forward vs a CPU forward with the same weights
         rows_card = det.forward_rows(frames[0][:2]).cpu()
         if ref is None:
-            cpu = FaceDetector(name, img_sizes=(SIZE,), seed=seed,
-                               device="cpu")
+            cpu = FaceDetector(spec_fn() if spec_fn else name,
+                               img_sizes=(SIZE,), seed=seed, device="cpu")
             rows_cpu = cpu.forward_rows(frames[0][:2])
         else:
             rows_unfused, rows_cpu = ref
@@ -3322,6 +3365,258 @@ def drive_export(smi: str, frames: np.ndarray, gate: float,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the extra blocks (models/layers_extra.py) on the card
+# ---------------------------------------------------------------------------
+
+def extra_spec():
+    """The extra cfg, yolov7s-face at full width with extra ops in its
+    nodes (tests/data/yolov7s-face-extra.json, a reference-format cfg
+    written as JSON)."""
+    return spec_from_yolo_yaml(json.loads(EXTRA_CFG.read_text()), EXTRA_NAME)
+
+
+def extra_blocks():
+    """Phase 24(e): (label, module, inputs) of each extra block, activation
+    module, Classify and function, NCHW, at widths of the extra cfg's
+    stride-16 and stride-32 levels (C3TR on a non-square map); seeded."""
+    torch.manual_seed(24)
+    gen = torch.Generator().manual_seed(24)
+
+    def maps(*shapes):
+        return [torch.randn(s, generator=gen) for s in shapes]
+
+    return [
+        ("CrossConv", LX.CrossConv(104, 104, 3, 1), maps((2, 104, 40, 40))),
+        ("CrossConv s2", LX.CrossConv(56, 104, 3, 2, e=0.5),
+         maps((2, 56, 40, 24))),
+        ("Sum weighted", LX.Sum(3, True), [maps(*[(2, 56, 80, 80)] * 3)]),
+        ("GhostConv", LX.GhostConv(32, 56, 3, 2), maps((2, 32, 160, 160))),
+        ("GhostBottleneck s1", LX.GhostBottleneck(104, 104, 3, 1),
+         maps((2, 104, 40, 40))),
+        ("GhostBottleneck s2", LX.GhostBottleneck(56, 56, 3, 2),
+         maps((2, 56, 80, 80))),
+        ("MixConv2d", LX.MixConv2d(32, 32, (1, 3, 5)),
+         maps((2, 32, 80, 120))),
+        ("C3TR 20x36", LX.C3TR(208, 208, 2), maps((2, 208, 20, 36))),
+        ("TransformerLayer", LX.TransformerLayer(104, 4),
+         maps((400, 2, 104))),
+        ("BottleneckCSPF", LX.BottleneckCSPF(104, 56, 2),
+         maps((2, 104, 40, 40))),
+        ("BottleneckCSP2", LX.BottleneckCSP2(416, 104, 2),
+         maps((2, 416, 40, 40))),
+        ("SPPCSP", LX.SPPCSP(416, 208), maps((2, 416, 20, 20))),
+        ("ConvFocus", LX.ConvFocus(3, 32, 3), maps((2, 3, 128, 192))),
+        ("Classify", LX.Classify(208 + 104, 10),
+         [maps((2, 208, 20, 20), (2, 104, 40, 40))]),
+        ("FReLU", LX.FReLU(104), maps((2, 104, 40, 40))),
+        ("AconC", LX.AconC(104, gen), maps((2, 104, 40, 40))),
+        ("MetaAconC", LX.MetaAconC(104, generator=gen),
+         maps((2, 104, 40, 40))),
+        ("contract", FnModule(LX.contract, 2), maps((2, 104, 40, 40))),
+        ("expand", FnModule(LX.expand, 2), maps((2, 416, 20, 20))),
+        ("silu", FnModule(LX.silu), maps((2, 104, 40, 40))),
+        ("hardswish", FnModule(LX.hardswish), maps((2, 104, 40, 40))),
+        ("mish", FnModule(LX.mish), maps((2, 104, 40, 40)))]
+
+
+class FnModule(torch.nn.Module):
+    """A function of models/layers_extra.py as a module."""
+
+    def __init__(self, f, *args):
+        super().__init__()
+        self.f, self.args = f, args
+
+    def forward(self, x):
+        return self.f(x, *self.args)
+
+
+@torch.inference_mode()
+def check_extra_blocks(smi: str) -> float:
+    """Phase 24(e): each block alone on the card against its CPU output at
+    the forward tolerance (TF32 off). Returns the worst diff / limit."""
+    worst = 0.0
+    for label, mod, inputs in extra_blocks():
+        mod = mod.eval()
+        want = mod(*inputs)
+        card = copy.deepcopy(mod).cuda()
+        args = [[x.cuda() for x in a] if isinstance(a, list) else a.cuda()
+                for a in inputs]
+        with full_fp32():
+            got = card(*args)
+        torch.cuda.synchronize()
+        got = got.cpu()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"extra block {label}: bad card output")
+        err = (got - want).abs()
+        lim = EXTRA_BLOCK_TOL["atol"] + EXTRA_BLOCK_TOL["rtol"] * want.abs()
+        ratio = float((err / lim).max())
+        worst = max(worst, ratio)
+        print(f"extra block {label} {tuple(want.shape)} on {smi}: card vs "
+              f"CPU max |diff| {float(err.max()):.3g}, worst diff/limit "
+              f"{ratio:.3g}")
+        check(ratio <= 1.0, f"extra block {label}: card beyond "
+                            f"{EXTRA_BLOCK_TOL} of the CPU output")
+    return worst
+
+
+def traced_request(det: FaceDetector, frames: np.ndarray, smi: str):
+    """One request traced with utils/profiling.trace (after an untraced
+    one), printed: host-clock ms, device busy ms and its share, device
+    events, and the top kernels by device time. Returns them."""
+    det.run_network(frames)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_",
+                                     dir=ROOT) as tmp:
+        with PROF.trace(tmp) as prof:
+            t0 = time.perf_counter()
+            det.run_network(frames)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    busy = PROF.device_busy_ms(prof)
+    out = {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+           "device_events": sum(n for _, n in by_name.values()),
+           "top": [{"name": k[:120], "ms": ms, "launches": n}
+                   for k, (ms, n) in top]}
+    print(f"{det.spec.name} {DTYPE_NAMES[det.dtype]} request traced "
+          f"(utils/profiling.trace) on {smi}: {wall:.3f} ms host clock, "
+          f"device busy {busy:.3f} ms (share {busy / wall:.3f}), "
+          f"{out['device_events']} device events; top "
+          + "; ".join(f"{t['name'][:70]} {t['ms']:.3f} ms x{t['launches']}"
+                      for t in out["top"]))
+    return out
+
+
+def drive_phase24(smi: str) -> dict:
+    """Phase 24: the extra cfg served on the card (float32, bf16, fused in
+    both), int8's refusal, each extra block alone, one float32 train
+    micro-step, and the printed numbers. Returns the kernels line's
+    `extra` fields."""
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    spec = extra_spec()
+    ops = {n.op for n in spec.nodes}
+    check(EXTRA_OPS <= ops, f"the extra cfg lacks {EXTRA_OPS - ops}")
+    GROUPS[EXTRA_NAME] = len(FUSED.find_elan_blocks(spec))
+    check(GROUPS[EXTRA_NAME] >= 2, "the extra cfg keeps no E-ELAN group")
+    frames = np.random.default_rng(EXTRA_SEED).integers(
+        0, 256, (EXTRA_REQUESTS, BATCH, SIZE, SIZE, 3), dtype=np.uint8)
+    c3tr = next(i for i, n in enumerate(spec.nodes) if n.op == "C3TR")
+    c3tr_in = torch.randn(BATCH, spec.nodes[c3tr].c1, SIZE // 32,
+                          SIZE // 32, generator=torch.Generator()
+                          .manual_seed(EXTRA_SEED)).cuda()
+    out = {"groups": GROUPS[EXTRA_NAME], "c3tr_ms": {}}
+
+    # (a) float32, unfused: rows against the CPU forward, Detections
+    # against the CPU postprocess of the card's rows, one nms_keep a
+    # request
+    _, _, ref, det, raws32 = drive_path(
+        EXTRA_NAME, smi, EXTRA_SEED, frames, requests=EXTRA_REQUESTS,
+        spec_fn=extra_spec)
+    with torch.inference_mode(), full_fp32():
+        out["c3tr_ms"]["float32"] = cuda_ms(
+            lambda: det.model.model[c3tr](c3tr_in), 10)
+    out["traced"] = {"float32": traced_request(det, frames[0], smi)}
+    gate = det.conf_thres
+    del det
+    torch.cuda.empty_cache()
+
+    # (d) int8: the W8A8 walker has no extra op, in either package
+    try:
+        FaceDetector(extra_spec(), quantize="int8", device="cuda")
+    except NotImplementedError as err:
+        check("ConvFocus" in str(err), f"int8 on the extra cfg raised "
+                                       f"without naming its op: {err}")
+        print(f"{EXTRA_NAME} quantize='int8': NotImplementedError({err})")
+    else:
+        raise SystemExit("chip_smoke: FAILED: int8 on the extra cfg did "
+                         "not raise")
+
+    # (b) bf16, unfused, against the float32 card raws
+    *_, det, raws16 = drive_path(
+        EXTRA_NAME, smi, EXTRA_SEED, frames, requests=EXTRA_REQUESTS,
+        dtype=bf16, ref_raws=[("the float32 card forward", raws32)],
+        spec_fn=extra_spec)
+    with torch.inference_mode():
+        out["c3tr_ms"]["bfloat16"] = cuda_ms(
+            lambda: det.model.model[c3tr](c3tr_in.to(bf16)), 10)
+    out["traced"]["bfloat16"] = traced_request(det, frames[0], smi)
+    del det
+    torch.cuda.empty_cache()
+
+    # (c) fused in float32 and bf16: each group against its plain version,
+    # the launches as find_elan_blocks predicts, Sum and the extra blocks
+    # between the groups through the model's own modules
+    worst = {}
+    for dtype in (torch.float32, bf16):
+        *_, det, _ = drive_path(
+            EXTRA_NAME, smi, EXTRA_SEED, frames, fuse_elan=True,
+            requests=EXTRA_REQUESTS, dtype=dtype,
+            ref=ref if dtype == torch.float32 else None,
+            ref_raws=[("the bf16 unfused card forward", raws16)],
+            spec_fn=extra_spec)
+        w_abs, w_rel, _ = check_groups(det, frames[0], smi, timed=False)
+        worst[DTYPE_NAMES[dtype]] = {"abs": w_abs, "rel": w_rel}
+        del det
+        torch.cuda.empty_cache()
+    out["group_err"] = worst
+    stamp("phase 24(a)-(d) (the extra cfg served) done")
+
+    # (e) each block alone
+    out["block_worst_ratio"] = check_extra_blocks(smi)
+    stamp("phase 24(e) (extra blocks alone) done")
+
+    # (f) one float32 micro-step of the extra cfg, card against CPU
+    p = train_step_parity(extra_spec, PARITY_SIZE, PARITY_BATCH,
+                          seed=EXTRA_SEED)
+    loss_rel = p["card_cpu"]["loss"] * TRAIN_LOSS_RTOL
+    check(loss_rel <= EXTRA_STEP_LOSS_RTOL,
+          f"{EXTRA_NAME} train step: card loss off the CPU's by "
+          f"{loss_rel:.3g} (rtol {EXTRA_STEP_LOSS_RTOL})")
+    print(f"train {EXTRA_NAME} one float32 micro-step b{PARITY_BATCH}@"
+          f"{PARITY_SIZE} on {smi}, tolerance ratios (loss rtol "
+          f"{TRAIN_LOSS_RTOL}, params and EMA {TRAIN_PARAM_TOL}, BN rtol "
+          f"{TRAIN_BN_RTOL}): card against the exact float64 step "
+          f"{p['card']}, the CPU's float32 step against it {p['cpu']}, "
+          f"card against CPU {p['card_cpu']}; components "
+          f"{p['components'].tolist()}")
+    out["train_step"] = {k: p[k] for k in ("card", "cpu", "card_cpu")}
+    stamp("phase 24(f) (extra cfg train step) done")
+
+    # (g) the numbers
+    info = {name: PROF.model_info(YoloFace(fn()), img_size=SIZE,
+                                  verbose=False)
+            for name, fn in (("yolov7-w6-face",
+                              lambda: zoo.get_spec("yolov7-w6-face")),
+                             (EXTRA_NAME, extra_spec))}
+    out["model_info"] = info
+    out["request_ms"] = {tag[len(EXTRA_NAME) + 1:] or "float32": ms
+                         for tag, ms in PATH_MS.items()
+                         if tag.startswith(EXTRA_NAME)}
+    out["gate"] = gate
+    # the plain yolov7s-face's requests of phases 12-13, where this run had
+    # them (the same card, one call)
+    out["yolov7s_face_request_ms"] = {
+        tag[len("yolov7s-face") + 1:] or "float32": ms
+        for tag, ms in PATH_MS.items()
+        if tag in ("yolov7s-face", "yolov7s-face bf16")}
+    print(f"phase 24 on {smi}: model_info {info}; C3TR b{BATCH}@{SIZE} "
+          f"(node {c3tr}, {tuple(c3tr_in.shape)}) float32 "
+          f"{out['c3tr_ms']['float32']:.4f} ms, bf16 "
+          f"{out['c3tr_ms']['bfloat16']:.4f} ms; requests b{BATCH}@{SIZE} "
+          f"(median ms, host clock) {out['request_ms']}, yolov7s-face's "
+          f"{out['yolov7s_face_request_ms']}; traced request busy share "
+          f"{ {d: round(t['busy_share'], 4) for d, t in out['traced'].items()} }")
+    stamp(f"phase 24 (extra blocks) took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def group_entry(s):
     """The time fields of a kernels-line entry from check_groups' sums."""
     return {"ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -3448,6 +3743,9 @@ def main() -> None:
 
     # phase 23: the exported program, the native app, int8 unchanged
     export_fields = drive_export(smi, frames[w6], w6_gate, qconv_entry)
+
+    # phase 24: the extra blocks, served, alone and in a train step
+    extra_fields = drive_phase24(smi)
     qconv_entry["eval_launches"] = qconv_eval
     qconv_entry["launches"] += qconv_eval["qconv"]
     for key in ("depthwise", "wgmma", "split"):
@@ -3532,6 +3830,9 @@ def main() -> None:
                       # what the export, load and serving cost
                       export_launches=dict(EXPORT_LAUNCHES),
                       export=export_fields,
+                      # phase 24: the extra cfg (its paths' launches are
+                      # in launches_by_path)
+                      extra=extra_fields,
                       train_timed={
                           d: {k: v for k, v in t.items()
                               if not k.endswith("_all")}

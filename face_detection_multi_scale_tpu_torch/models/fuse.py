@@ -8,12 +8,15 @@ and the JAX fold do):
   * a BN fed directly by one bias-free conv folds into it: w' = w * g,
     b' = beta - mu * g, g = gamma / sqrt(var + eps), and the BN becomes an
     identity, so serving runs conv + bias only. The pairs, by the BN's
-    name in its parent module: `bn` after `conv` (ConvBN), `bnN` after
-    `convN` (DWConvblock), and in a Sequential index N after index N - 1
-    (ShuffleBlock's branches, ConvBnReluMaxpool's `conv`);
-  * any other BN (BottleneckCSP's `bn`, fed by a concat) becomes a
-    precomputed affine: weight g, bias beta - mu * g, running mean 0 and
-    running variance 1 - eps, so its normalization is the identity.
+    name in its parent module: `bn` after `conv` (ConvBN, and so
+    CrossConv's `cv2`, the JAX `cv2_conv` / `cv2_bn` pair; FReLU), `bnN`
+    after `convN` (DWConvblock), and in a Sequential index N after index
+    N - 1 (ShuffleBlock's branches, ConvBnReluMaxpool's `conv`);
+  * any other BN (fed by a concat: BottleneckCSP's, BottleneckCSPF's,
+    BottleneckCSP2's and SPPCSP's `bn`, MixConv2d's after `cat(m_g)`)
+    becomes a precomputed affine: weight g, bias beta - mu * g, running
+    mean 0 and running variance 1 - eps, so its normalization is the
+    identity.
 
 Do not train a folded model: the running statistics are gone by design.
 """

@@ -5,9 +5,10 @@ walks a YoloFace's resolved node list as `YoloFace.forward` does, but runs
 each E-ELAN group (two 1x1 branches + a 3x3 chain + concat + 1x1
 transition, reference cfg/yolov7-w6.yaml backbone and head groups) as one
 `ops/elan_kernel.fused_elan` launch, which keeps every intermediate out of
-the tensors the executor sees. Every node outside a group runs through the
-same module `model.model[i]` that `YoloFace.forward` runs, so
-`blocks=[]` is bit-identical to it.
+the tensors the executor sees. Every node outside a group (the extra
+blocks of models/layers_extra.py and `Sum` among them, as in the JAX
+executor) runs through the same module `model.model[i]` that
+`YoloFace.forward` runs, so `blocks=[]` is bit-identical to it.
 
 Pattern contract (find_elan_blocks): a Concat of >= 3 tensors whose
 members are exactly {the two sibling 1x1 convs, some of a consecutive 3x3

@@ -6,11 +6,12 @@ models/yolo.py Model.forward_once). The top-level modules live in
 `self.model` as an nn.ModuleList, so state-dict keys read
 `model.{i}.<submodule>...` exactly as in the reference checkpoints.
 
-The executor covers every op of the JAX package's models/layers.py, so
-all six zoo models build; a repeated node (n > 1 after the depth
-multiple) is an nn.Sequential of its blocks, keys `model.{i}.{j}.*`.
-The ops of the JAX package's layers_extra.py (GhostConv, C3TR, ...) are
-not ported and raise NotImplementedError naming the op.
+The executor builds every op of the JAX package's models/model.py: the
+blocks of its layers.py and layers_extra.py (models/layers_extra.py), the
+stateless ops (Contract and Expand among them) and `Sum`, whose weights
+live at `model.{i}.w`. A repeated node (n > 1 after the depth multiple)
+is an nn.Sequential of its blocks, keys `model.{i}.{j}.*`. An op that
+neither package knows raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from face_detection_multi_scale_tpu_torch.models import layers as L
+from face_detection_multi_scale_tpu_torch.models import layers_extra as LX
 from face_detection_multi_scale_tpu_torch.models.head import (
     DetectionHead, det_bias_prior, reshape_level)
 from face_detection_multi_scale_tpu_torch.models.spec import (
@@ -55,8 +57,9 @@ def resolve_act(spec: ModelSpec, node_args, default=True):
 
 def build_node_block(spec: ModelSpec, node: Node) -> nn.Module:
     """The torch module for one parametric node: one block, or an
-    nn.Sequential of node.n_resolved blocks."""
-    if node.n_resolved > 1:
+    nn.Sequential of node.n_resolved blocks (a `Sum` is one, as in the JAX
+    executor)."""
+    if node.n_resolved > 1 and node.op != "Sum":
         return nn.Sequential(*(_build_block(spec, node)
                                for _ in range(node.n_resolved)))
     return _build_block(spec, node)
@@ -95,6 +98,9 @@ def _build_block(spec: ModelSpec, node: Node) -> nn.Module:
         return L.DWConvblock(c1, c2, int(args[1]), int(args[2]))
     if op == "conv_bn_relu_maxpool":
         return L.ConvBnReluMaxpool(c1, c2)
+    if op == "Sum":
+        # the JAX executor's Sum: n from the routing, `weight` from args[1]
+        return LX.Sum(len(node.f), bool(args[1]) if len(args) > 1 else False)
     sc = bool(args[1]) if len(args) > 1 else True
     if op == "Bottleneck":
         return L.Bottleneck(c1, c2, sc, act=resolve_act(spec, args))
@@ -105,12 +111,35 @@ def _build_block(spec: ModelSpec, node: Node) -> nn.Module:
     if op == "Focus":
         k = int(args[1]) if len(args) > 1 else 1
         return L.Focus(c1, c2, k, act=resolve_act(spec, args))
-    raise NotImplementedError(f"op {op!r} is not ported to the torch "
-                              "executor (the JAX package's layers_extra.py)")
+
+    def arg(i, default):
+        return int(args[i]) if len(args) > i else default
+
+    if op == "ConvFocus":
+        return LX.ConvFocus(c1, c2, arg(1, 1), act=resolve_act(spec, args))
+    if op == "CrossConv":
+        return LX.CrossConv(c1, c2, arg(1, 3), arg(2, 1))
+    if op == "GhostConv":
+        return LX.GhostConv(c1, c2, arg(1, 1), arg(2, 1),
+                            act=resolve_act(spec, args))
+    if op == "GhostBottleneck":
+        return LX.GhostBottleneck(c1, c2, arg(1, 3), arg(2, 1))
+    if op == "MixConv2d":
+        ks = tuple(int(v) for v in args[1]) if len(args) > 1 else (1, 3)
+        return LX.MixConv2d(c1, c2, ks, arg(2, 1))
+    if op == "C3TR":
+        return LX.C3TR(c1, c2, node.repeats)
+    if op == "BottleneckCSPF":
+        return LX.BottleneckCSPF(c1, c2, node.repeats, sc)
+    if op == "BottleneckCSP2":
+        return LX.BottleneckCSP2(c1, c2, node.repeats)
+    if op == "SPPCSP":
+        return LX.SPPCSP(c1, c2)
+    raise NotImplementedError(f"op {op!r}")
 
 
 STATELESS_OPS = {"Concat", "ADD", "Upsample", "ZeroPad2d", "MaxPool2d",
-                 "MP", "SP", "SPF", "ReOrg"}
+                 "MP", "SP", "SPF", "ReOrg", "Contract", "Expand"}
 
 
 def apply_stateless_op(op: str, args, inp):
@@ -144,6 +173,10 @@ def apply_stateless_op(op: str, args, inp):
         return L.SPF(int(args[0]) if args else 3)(inp)
     if op == "ReOrg":
         return L.reorg(inp)
+    if op == "Contract":
+        return LX.contract(inp, int(args[0]) if args else 2)
+    if op == "Expand":
+        return LX.expand(inp, int(args[0]) if args else 2)
     raise NotImplementedError(f"stateless op {op!r}")
 
 
@@ -195,7 +228,7 @@ class YoloFace(nn.Module):
         self._save = set(self.spec.save)
         self.compute_dtype = None if dtype == torch.float32 else dtype
         for mod in self.modules():
-            if isinstance(mod, L.Conv2d):
+            if isinstance(mod, (L.Conv2d, LX.Linear)):
                 mod.compute_dtype = self.compute_dtype
 
     def forward(self, x: torch.Tensor,
@@ -252,25 +285,36 @@ def cast_model(model: YoloFace, dtype: torch.dtype) -> YoloFace:
     im is float32, the concatenated raw maps are float32, and the decode
     runs in float32; the kpt channels carry bf16 values. A plain
     `Detect` head has no priors, so its raws and decode are bf16, as in
-    the JAX package. Every BatchNorm left after the fold (BottleneckCSP's
-    concat-fed affine) computes in `dtype` too. Returns `model`."""
+    the JAX package. Every BatchNorm left after the fold (the CSP blocks'
+    and MixConv2d's concat-fed affines) computes in `dtype` too, and so
+    does every Linear of a transformer block; `Sum`'s weights (and an ACON
+    activation's p1, p2 and beta) stay float32, as the JAX modules take
+    no dtype, so a bf16 weighted sum comes out float32. Returns `model`."""
     model.to(dtype)
     for mod in model.modules():
         if isinstance(mod, (L.ImplicitA, L.ImplicitM)):
             mod.float()
+        elif isinstance(mod, LX.FLOAT32_PARAMS):
+            for p in mod.parameters(recurse=False):
+                p.data = p.data.float()
     return model
 
 
 @torch.no_grad()
 def init_weights(model: YoloFace, generator: torch.Generator) -> YoloFace:
     """Seeded random init that follows the JAX init where it matters:
-    conv kernels lecun-normal (flax's default: truncated normal, fan-in
-    variance), conv biases zero except the head's det-bias priors, BN at
-    identity statistics, ImplicitA ~ N(0, 0.02) and ImplicitM ~
-    1 + N(0, 0.02). Draws come from `generator` on the CPU, so the same
-    seed gives the same weights on every device."""
+    conv and linear kernels lecun-normal (flax's default: truncated
+    normal, fan-in variance), their biases zero except the head's
+    det-bias priors, BN at identity statistics, ImplicitA ~ N(0, 0.02)
+    and ImplicitM ~ 1 + N(0, 0.02), an ACON activation's p1 and p2 ~ N(0,
+    1); `Sum`'s weights keep their fixed start. Draws come from
+    `generator` on the CPU, so the same seed gives the same weights on
+    every device."""
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
+        if isinstance(mod, (LX.AconC, LX.MetaAconC)):
+            for p in (mod.p1, mod.p2):
+                p.copy_(torch.randn(p.shape, generator=generator))
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
             w = torch.empty(mod.weight.shape)
             fan_in = w[0].numel()
             # flax lecun_normal: truncated to +-2 std, rescaled so the

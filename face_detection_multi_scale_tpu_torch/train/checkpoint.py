@@ -193,7 +193,7 @@ def strip_to_inference(state: TrainState) -> Dict[str, Any]:
     statistics, as the JAX package's variables tree of numpy arrays."""
     sd = state.model.state_dict()
     sd.update(state.ema_params)
-    return state_dict_to_jax(sd)
+    return state_dict_to_jax(sd, model=state.model)
 
 
 def save_inference_weights(path: str, variables: Dict[str, Any]) -> None:

@@ -67,12 +67,13 @@ def scale_loss_gains(hyp: Dict[str, float], nl: int, nc: int,
 
 
 def _param_group(name: str, param: torch.Tensor) -> str:
-    """Classify a parameter: 'kernel' (a conv weight, decayed), 'bias'
-    (conv and BN biases), or 'other' (BN weights and the implicit priors,
-    no decay) — train.py:161-180; the JAX leaves `kernel` / `bias` /
-    the rest."""
+    """Classify a parameter: 'kernel' (a conv or linear weight, decayed),
+    'bias' (conv, linear and BN biases), or 'other' (BN weights, the
+    implicit priors, Sum's and the ACON activations' parameters, no
+    decay) — train.py:161-180; the JAX leaves `kernel` / `bias` / the
+    rest."""
     leaf = name.rsplit(".", 1)[-1]
-    if leaf == "weight" and param.ndim == 4:
+    if leaf == "weight" and param.ndim in (2, 4):
         return "kernel"
     if leaf == "bias":
         return "bias"

@@ -1249,3 +1249,74 @@ def test_program_on_card_launches_nms_keep(cuda_device, tmp_path):
     assert torch.equal(got[4], want.valid) and int(want.valid.sum()) > 0
     for g, w in zip(got[:4], want[:4]):
         torch.testing.assert_close(g, w, atol=5e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the extra cfg (models/layers_extra.py), chip_smoke phase 24 (a)-(c)
+# ---------------------------------------------------------------------------
+
+def extra_spec():
+    import json
+    from pathlib import Path
+
+    from face_detection_multi_scale_tpu_torch.models.spec import (
+        spec_from_yolo_yaml)
+    path = Path(__file__).resolve().parent / "data" / \
+        "yolov7s-face-extra.json"
+    return spec_from_yolo_yaml(json.loads(path.read_text()),
+                               "yolov7s-face-extra")
+
+
+def extra_detector(device, **kw):
+    det = FaceDetector(extra_spec(), img_sizes=(256,), max_candidates=1024,
+                       seed=8, device=device, **kw)
+    rows = det.forward_rows(EXTRA_FRAMES)
+    conf = (rows[..., 4] * rows[..., 5]).sort(dim=1, descending=True)[0]
+    det.conf_thres = float(conf[:, 1500].max())  # overfills K
+    return det
+
+
+EXTRA_FRAMES = np.random.default_rng(8).integers(0, 256, (2, 256, 256, 3),
+                                                 dtype=np.uint8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fuse_elan", [False, True])
+def test_extra_cfg_on_card(cuda_device, dtype, fuse_elan):
+    """The extra cfg at full width, b2@256 on the card: one nms_keep launch
+    a request and fused_elan once a group with fuse_elan; the Detections
+    equal to the CPU postprocess of the card's rows; in float32 the rows
+    within the decoded-row tolerance of a CPU forward (fused: of the
+    unfused card forward too), in bf16 the raws within 5e-2 of max
+    |float32 raw| of the card."""
+    det = extra_detector(cuda_device, dtype=dtype, fuse_elan=fuse_elan)
+    groups = len(find_elan_blocks(det.spec))
+    assert groups == 8
+    seq, f32, b16 = (K.nms_keep.launches, E.fused_elan.launches,
+                     E.fused_elan.bf16_launches)
+    dets = det.run_network(EXTRA_FRAMES)
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == seq + 1
+    fused = groups if fuse_elan else 0
+    bf16 = dtype == torch.bfloat16
+    assert E.fused_elan.launches == f32 + (0 if bf16 else fused)
+    assert E.fused_elan.bf16_launches == b16 + (fused if bf16 else 0)
+    assert int(dets.n_gated.max()) > det.max_candidates
+    rows = det.forward_rows(EXTRA_FRAMES)
+    want = det.postprocess(rows.cpu())
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(dets, want))
+    if not bf16:
+        cpu = FaceDetector(extra_spec(), img_sizes=(256,), seed=8,
+                           device="cpu")
+        torch.testing.assert_close(rows.cpu(), cpu.forward_rows(
+            EXTRA_FRAMES), atol=5e-3, rtol=1e-3)
+        return
+    ref = FaceDetector(extra_spec(), img_sizes=(256,), seed=8,
+                       device=cuda_device)
+    x = torch.as_tensor(EXTRA_FRAMES).to(cuda_device)
+    with torch.inference_mode():
+        got = det._forward(x.to(torch.bfloat16) / 255.0)
+        want_raws = ref._forward(x.float() / 255.0)
+    for g, w in zip(got, want_raws):
+        share = float((g.float() - w).abs().max() / w.abs().max())
+        assert share < 5e-2, share

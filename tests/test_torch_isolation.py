@@ -65,9 +65,11 @@ def test_detector_defaults_to_the_card(monkeypatch):
 
 
 # the port's CLIs that run no model: the WIDER scoring of written txts, a
-# file diff and a relauncher (the runs it relaunches keep their --device)
+# file diff, a relauncher (the runs it relaunches keep their --device) and
+# the blur and WIDER-annotation data tools
 HOST_ONLY_CLIS = {"evaluate_widerface.py", "compare_json_shapes.py",
-                  "resume_runs.py"}
+                  "resume_runs.py", "blur_dataset.py",
+                  "visualize_widerface.py"}
 
 
 @pytest.mark.parametrize("name", sorted(
@@ -90,6 +92,32 @@ def test_new_modules_are_scanned():
     assert {"data/streams.py", "data/dataset.py", "cli/detect.py",
             "cli/serve.py", "cli/compare_json_shapes.py",
             "cli/compare_resize_methods.py", "cli/resume_runs.py"} <= scanned
+
+
+def test_extra_blocks_and_data_tool_modules_are_scanned():
+    """The extra blocks, the blur and WIDER-annotation tools with their
+    CLIs, and the helpers of utils/ are scanned, and import with neither
+    OpenCV nor PIL loaded (both are imported inside the functions that
+    need them; the card's machine has no OpenCV)."""
+    import subprocess
+    import sys
+
+    new = ("models/layers_extra.py", "data/blur.py",
+           "data/widerface_annotations.py", "cli/blur_dataset.py",
+           "cli/visualize_widerface.py", "utils/general.py",
+           "utils/profiling.py")
+    scanned = {str(p.relative_to(PORT)) for p in port_files()
+               if PORT in p.parents}
+    assert set(new) <= scanned
+    mods = ", ".join("face_detection_multi_scale_tpu_torch." +
+                     m[:-3].replace("/", ".") for m in new)
+    code = (f"import importlib, sys\n"
+            f"for m in '{mods}'.split(', '):\n"
+            f"    importlib.import_module(m)\n"
+            f"print(sorted(k for k in ('cv2', 'PIL') if k in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip() == "[]"
 
 
 def test_export_modules_are_scanned():

@@ -196,13 +196,21 @@ def test_seeded_init_is_deterministic_and_follows_jax_priors():
 
 
 def test_unported_ops_raise_naming_the_op():
-    """Every zoo model builds; a spec with an op of the JAX package's
-    layers_extra.py (not ported) raises naming the op."""
+    """Every zoo model builds, and so does every op of the JAX package's
+    layers_extra.py; an op that neither package knows raises
+    NotImplementedError naming it, in both."""
     for name in TZ.available():
         TM.YoloFace(TZ.get_spec(name))
     for op, args in [("GhostConv", (64, 3, 2)), ("C3TR", (64,)),
                      ("CrossConv", (64, 3, 1))]:
         spec = TZ.get_spec("yolov7-tiny-face")
         spec.nodes[1] = Node(0, 1, op, args)
-        with pytest.raises(NotImplementedError, match=op):
-            TM.YoloFace(spec)
+        spec._resolved = False
+        TM.YoloFace(spec.resolve())
+    for pkg_zoo, build in ((TZ, TM.YoloFace), (JZ, lambda spec: jax.eval_shape(
+            functools.partial(JM.YoloFace(spec=spec).init, train=False),
+            jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))):
+        spec = pkg_zoo.get_spec("yolov7-tiny-face")
+        spec.nodes[1] = Node(0, 1, "HaarCascade", (64, 3, 2))
+        with pytest.raises(NotImplementedError, match="HaarCascade"):
+            build(spec)
