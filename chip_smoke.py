@@ -3,6 +3,8 @@
 against their plain PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root, one card
+    python3 chip_smoke.py --mesh-noise 8,9,10   # phase 26's float32
+                                 # ratios alone, a JSON line a seed
 
 Phases, each fatal on failure (nothing is caught to carry on):
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1
@@ -282,7 +284,41 @@ Phases, each fatal on failure (nothing is caught to carry on):
      of the extra cfg, the C3TR block's ms at b8@640 in float32 and bf16,
      the request ms of each path, and one unfused request of each dtype
      traced with utils/profiling.trace: its busy share and top kernels
- 25. one JSON line with every kernel's launches, error, times and bound;
+ 25. the data-parallel mesh (parallel/mesh.py), w6 at b8@640 on phase
+     4's seed, frames and gate: (a) a world of one process over NCCL in
+     this process: FaceDetector(mesh=make_data_mesh()) in float32, bf16,
+     fuse_elan=True and int8 (calibrated on its first batch, its qparams
+     broadcast; the mesh-less detector then serves the same qparams),
+     each request's Detections equal bit for bit to the same detector's
+     without a mesh, the same launches of every kernel, one nms_keep a
+     call; (b) two spawned processes sharing the card in a gloo group
+     (NCCL refuses two ranks on one device), 4 frames a rank: both ranks'
+     Detections and gathered rows equal, the gathered rows within phase
+     4's tolerance of the one-process b8 forward, the Detections equal to
+     the CPU postprocess of the gathered rows, one nms_keep a rank
+ 26. in the same two processes: yolov7-face (full width, scratch.p6)
+     trains at global b16@640 (8 rows a rank), 2 micro-steps of
+     make_accum_steps(mesh=) and an apply, in float32 with TF32 off and
+     in float64, against the one-process b16 step of the same dtype (rank
+     0 runs the references first, in a process as fresh as the ranks'):
+     in float64 the losses (rtol 1e-5), components (rtol 1e-5, atol
+     1e-7), parameters (rtol 2e-3, atol 1e-4) and BN statistics (rtol
+     1e-4, atol 1e-6) within those tolerances; in float32 the losses,
+     components and BN statistics too, and each parameter tensor within
+     them or, where float32 rounding alone parts the two steps by more
+     (a random model's first convs: the one-process float32 step is
+     itself beyond the tolerance of the exact one there), as near the
+     exact float64 step in L2 as the one-process float32 step is, within
+     a factor 2; parameters bit-identical across the ranks in both
+     dtypes; a rank's first micro-step ms, then its traced micro-step,
+     apply (the gradient all-reduce) and the window's busy share, beside
+     the one-process step's times. Then cli/train.train_run for one
+     epoch over the two ranks (global b2@256, nominal 4): rank 0's
+     epoch-end validate
+     launches nms_keep once a validation batch, rank 1 launches nothing,
+     both ranks end bit-identical, and rank 0 alone wrote results.txt and
+     the weights
+ 27. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
      of 16 blocks; fused_elan_bf16 beside fused_elan; `launches` sums
@@ -297,8 +333,11 @@ Phases, each fatal on failure (nothing is caught to carry on):
      bytes at 3.35 TB/s, and `eval_launches` its launches there; qconv's `eval_launches` the
      int8 eval's launches by route; the fused entries' `by_model` hold
      the yolov7-face and yolov7s-face group sums; nms_keep's `extra` holds
-     phase 24's numbers
- 26. the last line: {"ok": true, "device": {...}}
+     phase 24's numbers, its `mesh_launches` phases 25-26's calls (every
+     rank's; they are in every kernel's `launches` and
+     `launches_by_path`) and `mesh` their seconds, train tolerance
+     ratios and the ranks' busy shares
+ 28. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
@@ -313,16 +352,19 @@ fused_elan; 1979 TOPS int8 for qconv. Operations count what this run's data need
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from face_detection_multi_scale_tpu_torch import export_model as EXPORT
 from face_detection_multi_scale_tpu_torch import native as NAT
@@ -356,6 +398,7 @@ from face_detection_multi_scale_tpu_torch.ops import elan_kernel as E
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.ops import nms_kernel as K
 from face_detection_multi_scale_tpu_torch.ops import qconv_kernel as QK
+from face_detection_multi_scale_tpu_torch.parallel import mesh as PMESH
 from face_detection_multi_scale_tpu_torch.tools import probe_mm as PM
 from face_detection_multi_scale_tpu_torch.tools import qconv_ab as QAB
 from face_detection_multi_scale_tpu_torch.train import checkpoint as CKPT
@@ -367,6 +410,12 @@ from face_detection_multi_scale_tpu_torch.train.targets import (
 from face_detection_multi_scale_tpu_torch.tools.forward_format_ab import (
     kernel_profile)
 from face_detection_multi_scale_tpu_torch.utils import profiling as PROF
+
+# the helpers that the port's tests share with this script
+sys.path.append(str(Path(__file__).resolve().parent / "tests"))
+from torch_shared import (  # noqa: E402
+    MESH_BN_TOL, MESH_LOSS_RTOL, MESH_PARAM_TOL, MemoryFaces, face_labels,
+    memory_faces, step_ratios, tolerance_ratio)
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -2447,26 +2496,6 @@ def drive_eval_int8(smi: str, gate: float, buckets, save: str) -> dict:
     return qc
 
 
-class MemoryFaces(DS.FaceDataset):
-    """A FaceDataset over seeded in-memory images and labels (the card
-    machine has no OpenCV or PIL to read files): `_enumerate` gives the
-    names, labels and native shapes, `load_image` the stored image at
-    the network size with its native (h0, w0)."""
-
-    def __init__(self, images, hw0, labels, **kw):
-        self.images, self.hw0, self.given = images, hw0, labels
-        super().__init__(None, **kw)
-
-    def _enumerate(self, path, prefix):
-        names = [f"mem/{i}.jpg" for i in range(len(self.images))]
-        shapes = np.array([(w, h) for h, w in self.hw0], np.float64)
-        return names, names, list(self.given), shapes
-
-    def load_image(self, index):
-        img = self.images[index]
-        return img.copy(), self.hw0[index], img.shape[:2]
-
-
 def validation_labels(det: FaceDetector, images: np.ndarray):
     """Labels from the card's own detections: per image its first three
     kept boxes, jittered, and one random box, as normalized `0 cx cy w h`
@@ -2678,40 +2707,12 @@ def write_widerface_gt(gt_dir: str, events) -> None:
 # phase 22: training
 # ---------------------------------------------------------------------------
 
-def face_labels(rng, n: int):
-    """n images' seeded labels: 1-3 faces each, normalized `0 cx cy w h`
-    rows with 5 landmarks inside the box (load_label_file's layout)."""
-    out = []
-    for _ in range(n):
-        k = int(rng.integers(1, 4))
-        xy = rng.uniform(0.25, 0.75, (k, 2))
-        wh = rng.uniform(0.08, 0.4, (k, 2))
-        kpt = xy[:, None] + rng.uniform(-0.25, 0.25, (k, 5, 2)) * wh[:, None]
-        out.append(np.concatenate([np.zeros((k, 1)), xy, wh,
-                                   kpt.reshape(k, 10)], 1).astype(np.float32))
-    return out
-
-
 def face_batch(rng, b: int, size: int):
     """A seeded uint8 NHWC batch and its collated label rows."""
     images = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
     labels = DS.collate([(images[i], l, "", None) for i, l in
                          enumerate(face_labels(rng, b))])[1]
     return images, labels
-
-
-def memory_faces(rng, n: int, size: int, stride: int) -> MemoryFaces:
-    images = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
-    return MemoryFaces(images, [(size, size)] * n, face_labels(rng, n),
-                       img_size=size, kpt_label=5, stride=stride)
-
-
-def tolerance_ratio(got: torch.Tensor, want: torch.Tensor, rtol: float,
-                    atol: float = 0.0) -> float:
-    """max |got - want| / (atol + rtol |want|): within the tolerance iff
-    <= 1."""
-    got, want = got.detach().double().cpu(), want.detach().double().cpu()
-    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
 def train_step_parity(spec_fn, size: int, batch: int, seed: int,
@@ -3617,6 +3618,412 @@ def drive_phase24(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 25-26: the data-parallel mesh (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2     # phases 25b and 26: processes sharing the card over gloo
+MESH_REQUESTS = 2  # phase 25a: requests a serving mode
+MESH_MODES = (("float32", {}), ("bf16", {"dtype": torch.bfloat16}),
+              ("fused", {"fuse_elan": True}), ("int8", {"quantize": "int8"}))
+MESH_TRAIN_SIZE, MESH_TRAIN_BATCH, MESH_MICRO = 640, 16, 2   # phase 26
+MESH_SEED = 8
+MESH_TIMEOUT = 600.0
+# every counted mesh call: {tag: counts_since_zero() of the call(s)}
+MESH_LAUNCHES = {}
+
+
+def qconv_routes() -> dict:
+    return {"qconv": QK.qconv.launches, "wgmma": QK.qconv.wgmma_launches,
+            "split": QK.qconv.split_launches,
+            "depthwise": QK.qconv.depthwise_launches}
+
+
+def add_counts(acc: dict, more: dict) -> dict:
+    for key, v in more.items():
+        acc[key] = acc.get(key, 0) + v
+    return acc
+
+
+def drive_mesh_world_of_one(smi: str, frames: np.ndarray, gate: float
+                            ) -> dict:
+    """Phase 25a: a world of one process over NCCL, in this process:
+    FaceDetector("yolov7-w6-face", mesh=make_data_mesh()) in each serving
+    mode on phase 4's seed, frames and gate, beside the same detector
+    without a mesh; every request's Detections equal bit for bit, the
+    same launches of every kernel, one nms_keep a call. The int8 mesh
+    detector calibrates on its first batch (before the mesh splits it)
+    and broadcasts its qparams; the mesh-less one serves the same
+    qparams. Returns qconv's launches by route."""
+    routes = {}
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{PMESH._free_port()}",
+        world_size=1, rank=0)
+    try:
+        mesh = PMESH.make_data_mesh()
+        check(mesh.backend == "nccl" and mesh.size == 1
+              and mesh.group is not None, f"phase 25a mesh {mesh}")
+        for mode, kw in MESH_MODES:
+            tag = f"yolov7-w6-face {mode} mesh of 1 (nccl)"
+            common = dict(img_sizes=(SIZE,), conf_thres=gate, iou_thres=0.5,
+                          max_candidates=MAX_CANDIDATES, seed=0,
+                          device="cuda", **kw)
+            meshed = FaceDetector("yolov7-w6-face", mesh=mesh, **common)
+            plain = FaceDetector("yolov7-w6-face", **common)
+            counts, ms = {}, []
+            for r in range(MESH_REQUESTS):
+                zero_counters()
+                got, t = timed(lambda: meshed.run_network(frames[r]))
+                call = counts_since_zero()
+                if mode == "int8":
+                    add_counts(routes, qconv_routes())
+                    plain._qparams = meshed._qparams
+                add_counts(counts, call)
+                ms.append(t)
+                zero_counters()
+                want = plain.run_network(frames[r])
+                check(same_detections(got, want),
+                      f"{tag}: request {r}'s Detections differ from the "
+                      f"mesh-less detector's")
+                check(counts_since_zero() == call,
+                      f"{tag}: launches {counts_since_zero()} without the "
+                      f"mesh against {call} with it")
+            check(counts["seq"] == MESH_REQUESTS and counts["fixpoint"] == 0,
+                  f"{tag}: nms_keep launches {counts} for {MESH_REQUESTS} "
+                  f"calls")
+            MESH_LAUNCHES[tag] = counts
+            print(f"{tag} b{BATCH}@{SIZE} on {smi}: Detections equal to the "
+                  f"mesh-less detector's in {MESH_REQUESTS} requests; "
+                  f"launches {counts}; ms/batch "
+                  f"{[round(m, 3) for m in ms]}")
+            del meshed, plain
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    stamp("phase 25a (mesh of 1 over NCCL, four modes) done")
+    return routes
+
+
+def mesh_batches(seed: int = MESH_SEED):
+    """Phase 26's global batches: MESH_MICRO seeded b16@640 (images,
+    targets) pairs."""
+    spec = zoo.get_spec(TRAIN_MODEL)
+    rng = np.random.default_rng(seed)
+    grids = [(MESH_TRAIN_SIZE // s,) * 2 for s in spec.strides]
+    out = []
+    for _ in range(MESH_MICRO):
+        images, labels = face_batch(rng, MESH_TRAIN_BATCH, MESH_TRAIN_SIZE)
+        out.append((images, build_targets_batched(
+            labels, MESH_TRAIN_BATCH, spec, grids,
+            anchor_t=HYP_SCRATCH_P6["anchor_t"])))
+    return out
+
+
+def mesh_train(mesh, batches, dtype=torch.float32, trace=False,
+               seed: int = MESH_SEED):
+    """Phase 26's step: yolov7-face from `seed`'s weights, MESH_MICRO
+    micro-steps of make_accum_steps (under `mesh` on this rank's rows)
+    and one apply, in `dtype` (float32 with TF32 off; float64 is the
+    exact step). The first micro-step (with the process's warm-up for
+    the shapes) is timed alone, then the others and the apply (the
+    gradient all-reduce under a mesh), with `trace` in a torch.profiler
+    window (one a process: a later one in the same process ran several
+    times slower on the card). Returns (losses, components, the model's
+    state dict on the host, times: first micro-step ms, ms of each later
+    micro-step, apply ms, the window's ms and, traced, its device busy
+    ms)."""
+    model = init_weights(YoloFace(zoo.get_spec(TRAIN_MODEL)),
+                         torch.Generator().manual_seed(seed)).to(
+                             "cuda", dtype)
+    state = TR.create_train_state(model)
+    cfg = TR.TrainConfig(epochs=300, steps_per_epoch=10, warmup_epochs=0.0,
+                         min_warmup_steps=1, batch_size=MESH_TRAIN_BATCH)
+    grad_fn, apply_fn = TR.make_accum_steps(model, cfg, HYP_SCRATCH_P6,
+                                            MESH_TRAIN_SIZE, mesh=mesh)
+    acc, losses, comps = TR.zero_grads_like(state.params), [], []
+
+    def micro(batch):
+        nonlocal acc, state
+        images, targets = (batch if mesh is None
+                           else PMESH.shard_batch(mesh, batch))
+        state, acc, loss, c = grad_fn(state, images, targets, acc)
+        losses.append(float(loss))
+        comps.append(c.cpu().numpy())
+
+    times = {"first_ms": timed(lambda: micro(batches[0]))[1]}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="chip_smoke_mesh_"
+                                     ) as tmp, (PROF.trace(tmp) if trace
+                                                else contextlib.nullcontext()
+                                                ) as prof:
+        t0 = time.perf_counter()
+        times["micro_ms"] = [timed(lambda: micro(b))[1] for b in batches[1:]]
+        times["apply_ms"] = timed(lambda: apply_fn(state, acc,
+                                                   MESH_MICRO - 1))[1]
+        times["window_ms"] = (time.perf_counter() - t0) * 1e3
+    if trace:
+        times["busy_ms"] = PROF.device_busy_ms(prof)
+    host = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return losses, comps, host, times
+
+
+def mesh_rank(frames: np.ndarray, gate: float, tmp: str) -> dict:
+    """Phases 25b and 26 in one of MESH_RANKS processes that share the
+    card in a gloo group: (25b) the w6 mesh detector on phase 4's frames,
+    BATCH / MESH_RANKS a rank, its Detections and the gathered rows; (26)
+    rank 0 alone runs the one-process step and the exact float64 step
+    (the references, in a process as fresh as the ranks'), then every
+    rank the sharded step; then cli/train.train_run for one epoch over
+    the ranks. Returns what the parent checks."""
+    mesh = PMESH.make_data_mesh()
+    out = {"rank": mesh.rank, "backend": mesh.backend}
+    det = FaceDetector("yolov7-w6-face", img_sizes=(SIZE,), conf_thres=gate,
+                       iou_thres=0.5, max_candidates=MAX_CANDIDATES, seed=0,
+                       mesh=mesh, device="cuda")
+    det.run_network(frames)  # warm-up
+    zero_counters()
+    dets, out["serve_ms"] = timed(lambda: det.run_network(frames))
+    out["serve_launches"] = counts_since_zero()
+    local = det.forward_rows(frames[mesh.rows(len(frames))])
+    rows = PMESH.gather_rows(mesh, local, len(frames))
+    out["dets"] = [t.cpu().numpy() for t in dets]
+    out["rows"] = rows.cpu().numpy()
+    if mesh.rank == 0:
+        out["post_equal"] = same_detections(dets, det.postprocess(rows.cpu()))
+    del det, local, rows, dets
+    torch.cuda.empty_cache()
+
+    batches = mesh_batches()
+    if mesh.rank == 0:
+        one = mesh_train(None, batches)
+        torch.cuda.empty_cache()
+        exact = mesh_train(None, batches, torch.float64)
+        torch.cuda.empty_cache()
+    dist.barrier()
+    f32 = mesh_train(mesh, batches, trace=True)
+    torch.cuda.empty_cache()
+    f64 = mesh_train(mesh, batches, torch.float64)
+    torch.cuda.empty_cache()
+    out["train"] = {"times": f32[3], "times64": f64[3],
+                    "digest": digest(f32[2]), "digest64": digest(f64[2])}
+    if mesh.rank == 0:
+        out["train"].update(
+            f32=step_ratios(f32, one, exact), f64=step_ratios(f64, exact),
+            losses=f32[0], one_losses=one[0], one_times=one[3],
+            exact_times=exact[3])
+        del one, exact
+    del f32, f64
+    torch.cuda.empty_cache()
+
+    spec = zoo.get_spec(TRAIN_MODEL)
+    rng = np.random.default_rng(61)
+    sets = (memory_faces(rng, EPOCH_TRAIN, EPOCH_SIZE, spec.max_stride),
+            memory_faces(rng, EPOCH_VAL, EPOCH_SIZE, spec.max_stride))
+    args = TRAIN_CLI.parse_args([
+        "--model", TRAIN_MODEL, "--data", "in-memory", "--img-size",
+        str(EPOCH_SIZE), "--batch-size", "2", "--nominal-batch", "4",
+        "--epochs", "1", "--val-batch-size", str(EPOCH_VAL_BATCH),
+        "--min-warmup-steps", "1", "--project", tmp, "--name", "mesh",
+        "--noautoanchor", "--no-tensorboard", "--workers", "1",
+        "--device", "cuda"])
+    zero_counters()
+    (_, out["epoch_ms"]) = timed(lambda: TRAIN_CLI.train_run(
+        args, quiet=True, datasets=sets))
+    out["epoch_launches"] = counts_since_zero()
+    state = TRAIN_CLI.train_run.last["state"]
+    out["epoch_steps"] = (state.step, state.ema_updates)
+    out["epoch_digest"] = digest(state.model.state_dict())
+    return out
+
+
+def digest(tensors: dict) -> str:
+    """A hash of the tensors' bytes in key order (equal hashes: the same
+    bits)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def drive_mesh(smi: str, frames: np.ndarray, gate: float) -> dict:
+    """Phases 25-26: the data-parallel mesh on the one card. Returns the
+    launches by tag and the numbers for the kernels line."""
+    t0 = time.perf_counter()
+    routes = drive_mesh_world_of_one(smi, frames[:MESH_REQUESTS], gate)
+    t25a = time.perf_counter() - t0
+
+    # 25b's reference: w6's b8 rows in one process
+    ref_det = FaceDetector("yolov7-w6-face", img_sizes=(SIZE,),
+                           conf_thres=gate, iou_thres=0.5,
+                           max_candidates=MAX_CANDIDATES, seed=0,
+                           device="cuda")
+    rows_b8 = ref_det.forward_rows(frames[0]).cpu()
+    del ref_det
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="chip_smoke_mesh_"
+                                     ) as tmp:
+        res = PMESH.run_ranks(mesh_rank, MESH_RANKS,
+                              (frames[0], gate, tmp), device="cuda",
+                              backend="gloo", timeout=MESH_TIMEOUT)
+        lines = (Path(tmp) / "mesh" / "results.txt").read_text().splitlines()
+        weights = sorted(p.name for p in (Path(tmp) / "mesh" / "weights")
+                         .iterdir())
+    t_ranks = time.perf_counter() - t1
+
+    # 25b: two ranks sharing the card
+    tag = f"yolov7-w6-face float32 mesh of {MESH_RANKS} (gloo, one card)"
+    check([r["backend"] for r in res] == ["gloo"] * MESH_RANKS,
+          f"{tag}: backends {[r['backend'] for r in res]}")
+    for r in res[1:]:
+        check(all(np.array_equal(a, b) for a, b in zip(r["dets"],
+                                                       res[0]["dets"]))
+              and np.array_equal(r["rows"], res[0]["rows"]),
+              f"{tag}: rank {r['rank']}'s fields differ from rank 0's")
+    rows_within(torch.from_numpy(res[0]["rows"]), rows_b8,
+                f"{tag}: gathered rows vs the one-process b{BATCH} forward")
+    check(res[0]["post_equal"], f"{tag}: Detections differ from the CPU "
+                                f"postprocess of the gathered rows")
+    serve = [r["serve_launches"] for r in res]
+    check(all(c == {"seq": 1, "fixpoint": 0, "fused": 0, "qconv": 0}
+              for c in serve), f"{tag}: launches a rank {serve}")
+    MESH_LAUNCHES[tag] = add_counts({}, serve[0])
+    for c in serve[1:]:
+        add_counts(MESH_LAUNCHES[tag], c)
+    print(f"{tag} b{BATCH}@{SIZE} ({BATCH // MESH_RANKS} a rank) on {smi}: "
+          f"both ranks' fields equal, gathered rows within {ROW_TOL} of the "
+          f"b{BATCH} forward, Detections == the CPU postprocess of the "
+          f"gathered rows; launches a rank {serve}; ms/batch a rank "
+          f"{[round(r['serve_ms'], 3) for r in res]}")
+
+    # 26: the sharded train step against the one-process step
+    tag = (f"{TRAIN_MODEL} train mesh of {MESH_RANKS} b{MESH_TRAIN_BATCH}@"
+           f"{MESH_TRAIN_SIZE}")
+    check(len({r["train"]["digest"] for r in res}) == 1
+          and len({r["train"]["digest64"] for r in res}) == 1,
+          f"{tag}: the ranks' parameters differ")
+    got = res[0]["train"]
+    r32, r64 = got["f32"], got["f64"]
+    print(f"{tag} ({MESH_MICRO} micro-steps, {MESH_TRAIN_BATCH // MESH_RANKS}"
+          f" rows a rank, an apply) on {smi}: float32 (TF32 off) losses "
+          f"{got['losses']} against one process {got['one_losses']}; "
+          f"tolerance ratios (loss rtol {MESH_LOSS_RTOL}, params "
+          f"{MESH_PARAM_TOL}, BN {MESH_BN_TOL}) against the one-process "
+          f"step: float32 {r32}, float64 {r64}; parameters bit-identical "
+          f"across ranks in both; ms (first micro-step; traced: micro-steps, "
+          f"apply, window, busy) a rank float32 "
+          f"{[r['train']['times'] for r in res]}, float64 "
+          f"{[r['train']['times64'] for r in res]}; one process "
+          f"{got['one_times']} (float64 {got['exact_times']})")
+    check(max(r64[k] for k in ("loss", "components", "param", "bn")) <= 1.0,
+          f"{tag}: the float64 step beyond the sharded-step tolerances of "
+          f"the one-process float64 step: {r64}")
+    check(max(r32[k] for k in ("loss", "components", "bn")) <= 1.0,
+          f"{tag}: float32 losses or BN statistics beyond the sharded-step "
+          f"tolerances: {r32}")
+    # a random model's float32 step is ill-conditioned (the first convs'
+    # weight gradients cancel over the maps; train_step_parity): the
+    # one-process float32 step is itself beyond the tolerance of the
+    # exact one there. A parameter tensor beyond the tolerance of the
+    # one-process step must be as near the exact step, in L2, as the
+    # one-process step is, within a factor 2
+    check(r32["param"] <= 1.0 or r32["noise_ratio"] <= 2.0,
+          f"{tag}: float32 parameters {r32['param']} tolerance units from "
+          f"the one-process step, {r32['noise_ratio']} times its L2 "
+          f"distance from the exact step on {r32['noisy']}")
+    ratios = r32
+
+    # 26b: train_run over the two ranks
+    tag = f"{TRAIN_MODEL} train_run mesh of {MESH_RANKS}"
+    batches = EPOCH_VAL // EPOCH_VAL_BATCH
+    launches = [r["epoch_launches"] for r in res]
+    check(launches[0] == {"seq": batches, "fixpoint": 0, "fused": 0,
+                          "qconv": 0}
+          and all(c == {"seq": 0, "fixpoint": 0, "fused": 0, "qconv": 0}
+                  for c in launches[1:]),
+          f"{tag}: launches a rank {launches}, want {batches} nms_keep on "
+          f"rank 0's validate and none elsewhere")
+    check(len({r["epoch_digest"] for r in res}) == 1
+          and all(r["epoch_steps"] == (1, 1) for r in res),
+          f"{tag}: the ranks end apart: {[r['epoch_steps'] for r in res]}")
+    check(len(lines) == 1 and {"last.pt", "best.pt", "best_inference.npz"}
+          <= set(weights), f"{tag}: rank 0's files {lines} {weights}")
+    MESH_LAUNCHES[tag] = launches[0]
+    print(f"{tag} on {smi}: 1 epoch of {EPOCH_TRAIN // 2} micro-steps "
+          f"b2@{EPOCH_SIZE} (1 row a rank, 1 apply), rank 0's validate "
+          f"launches {launches[0]['seq']} nms_keep, ranks equal, rank 0 "
+          f"alone wrote results.txt and {weights}; train_run ms a rank "
+          f"{[round(r['epoch_ms'], 1) for r in res]}")
+    total = time.perf_counter() - t0
+    stamp(f"phases 25-26 (the mesh) took {total:.1f} s (25a {t25a:.1f} s, "
+          f"the ranks {t_ranks:.1f} s with their start)")
+    return {"routes": routes, "seconds": total, "ranks_seconds": t_ranks,
+            "train_ratios": ratios, "train_ratios_float64": r64,
+            "rank_times": [r["train"]["times"] for r in res],
+            "rank_times_float64": [r["train"]["times64"] for r in res],
+            "one_process_times": got["one_times"],
+            "float64_times": got["exact_times"],
+            "busy_share": [r["train"]["times"]["busy_ms"]
+                           / r["train"]["times"]["window_ms"] for r in res]}
+
+
+def mesh_noise_rank(seeds) -> list:
+    """`--mesh-noise`'s work in one of MESH_RANKS processes sharing the
+    card in a gloo group: for each seed, phase 26's float32 step over the
+    ranks from the seed's weights and batches, and on rank 0 the
+    one-process float32 step and the exact float64 one; rank 0's
+    step_ratios of each seed."""
+    mesh = PMESH.make_data_mesh()
+    out = []
+    for seed in seeds:
+        batches = mesh_batches(seed)
+        if mesh.rank == 0:
+            one = mesh_train(None, batches, seed=seed)
+            torch.cuda.empty_cache()
+            exact = mesh_train(None, batches, torch.float64, seed=seed)
+            torch.cuda.empty_cache()
+        dist.barrier()
+        f32 = mesh_train(mesh, batches, seed=seed)
+        torch.cuda.empty_cache()
+        if mesh.rank == 0:
+            out.append({"seed": seed, **step_ratios(f32, one, exact)})
+            del one, exact
+        del f32
+    return out
+
+
+def mesh_noise(seeds) -> None:
+    """python3 chip_smoke.py --mesh-noise 8,9,10: phase 26's float32
+    comparison alone, one seed after another, one JSON line of ratios a
+    seed (step_ratios: the tolerance units of the sharded step from the
+    one-process step, the parameter tensors beyond the tolerance, and
+    their L2 distance from the exact float64 step over the one-process
+    step's)."""
+    check(torch.cuda.is_available(), "no CUDA device")
+    smi = smi_line()
+    print(smi)
+    t0 = time.perf_counter()
+    res = PMESH.run_ranks(mesh_noise_rank, MESH_RANKS, (seeds,),
+                          device="cuda", backend="gloo",
+                          timeout=MESH_TIMEOUT)
+    for r in res[0]:
+        print(json.dumps({"card": smi, **r}))
+    stamp(f"--mesh-noise over {len(seeds)} seeds took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def group_entry(s):
     """The time fields of a kernels-line entry from check_groups' sums."""
     return {"ms": s["ms"], "plain_ms": s["plain_ms"],
@@ -3628,10 +4035,7 @@ def group_entry(s):
 
 def main() -> None:
     check(torch.cuda.is_available(), "no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     kind = torch.cuda.get_device_name(0)
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
@@ -3746,6 +4150,15 @@ def main() -> None:
 
     # phase 24: the extra blocks, served, alone and in a train step
     extra_fields = drive_phase24(smi)
+
+    # phases 25-26: the data-parallel mesh (one process a card)
+    mesh_fields = drive_mesh(smi, frames[w6], w6_gate)
+    mesh_routes = mesh_fields.pop("routes")
+    mesh_tag = "yolov7-w6-face int8 mesh of 1 (nccl)"
+    qconv_entry["launches"] += mesh_routes["qconv"]
+    for key in ("depthwise", "wgmma", "split"):
+        qconv_entry[f"{key}_launches"] += mesh_routes[key]
+    qconv_entry["launches_by_path"][mesh_tag] = mesh_routes
     qconv_entry["eval_launches"] = qconv_eval
     qconv_entry["launches"] += qconv_eval["qconv"]
     for key in ("depthwise", "wgmma", "split"):
@@ -3764,6 +4177,8 @@ def main() -> None:
     fused_by_path = {d: {tag: c["fused"] for tag, c in PATH_LAUNCHES.items()
                          if c["fused"] and ("bf16" in tag) == (d == bf16)}
                      for d in (torch.float32, bf16)}
+    fused_by_path[torch.float32].update(
+        {tag: c["fused"] for tag, c in MESH_LAUNCHES.items() if c["fused"]})
 
     # the keep-mask kernels at the w6 path's own inputs
     keep = K.nms_keep(boxes, valid, thr)
@@ -3775,7 +4190,8 @@ def main() -> None:
             ("seq", "nms_keep", 94,
              total["seq"] + tta_launches + tiled_launches + api_seq
              + sum(EVAL_LAUNCHES.values()) + sum(TRAIN_LAUNCHES.values())
-             + sum(EXPORT_LAUNCHES.values()), 20),
+             + sum(EXPORT_LAUNCHES.values())
+             + sum(c["seq"] for c in MESH_LAUNCHES.values()), 20),
             ("fixpoint", "nms_keep_fixpoint", 35, fixpoint_launches, 20)):
         got = K.nms_keep(boxes, valid, thr, kernel_version=version)
         err = int((got.int() - want.int()).abs().max())
@@ -3833,6 +4249,12 @@ def main() -> None:
                       # phase 24: the extra cfg (its paths' launches are
                       # in launches_by_path)
                       extra=extra_fields,
+                      # phases 25-26: the mesh calls (every rank's), and
+                      # the phases' seconds, train tolerance ratios and
+                      # the ranks' busy shares
+                      mesh_launches={tag: c["seq"] for tag, c in
+                                     MESH_LAUNCHES.items()},
+                      mesh=mesh_fields,
                       train_timed={
                           d: {k: v for k, v in t.items()
                               if not k.endswith("_all")}
@@ -3896,4 +4318,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-noise"]:
+        mesh_noise([int(v) for v in sys.argv[2].split(",")])
+    else:
+        main()

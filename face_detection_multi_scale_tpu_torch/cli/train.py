@@ -1,7 +1,10 @@
-"""Training CLI on one card (or the CPU with --device cpu).
+"""Training CLI on one card (or the CPU with --device cpu), or on several
+cards, one process a card.
 
     python -m face_detection_multi_scale_tpu_torch.cli.train \
         --data data.yaml --model yolov7-face [--device cpu]
+    torchrun --nproc-per-node N \
+        -m face_detection_multi_scale_tpu_torch.cli.train --data ...
 
 The JAX package's cli/train.py (the reference train.py:582-619 argparse;
 defaults: cfg yolov7-face, hyp scratch.p6, img 960, kpt-label 5) with
@@ -23,21 +26,44 @@ epoch-end validate runs the bf16 model on the EMA parameters. The
 reference's amp.autocast (train.py:364,425), with no GradScaler: bf16
 has float32's exponent range.
 
-Not ported here: data parallel training over several processes; it
-raises.
+Over several processes (torchrun's environment, or a process group the
+caller made; parallel/mesh.py) the step is the JAX CLI's step over its
+mesh: the largest number of ranks that divides --batch-size trains, as a
+subgroup of the first ranks (the others print why and return), each
+rank on card LOCAL_RANK with NCCL. Every rank runs the same seeded
+loader, so it loads the one-process run's global batch at the same
+--batch-size and --seed, and steps on its rows of it
+(parallel/mesh.shard_batch): BatchNorm over the global batch, the loss
+over the global counts, gradients summed over the ranks, so the ranks'
+parameters stay identical. The loader's shuffle is seeded; its
+augmentation draws are seeded per batch with --loader-mode process (the
+same rows on every rank) and otherwise come from each process's own
+random streams, as in a one-process run. --multi-scale draws its sizes
+from a random.Random seeded with --seed, the same on every rank. Rank 0
+alone plots, logs, validates at each epoch end (on its card, the keep
+mask one `nms_keep` launch a batch), writes results.txt and
+checkpoints, and strips the final weights; its per-class mAPs are
+broadcast for --image-weights.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import random
 import sys
 import time
 from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from face_detection_multi_scale_tpu_torch.parallel.mesh import (
+    DataMesh, broadcast_object, initialize_distributed, make_data_mesh,
+    replicated, shard_batch)
 
 
 def load_data_config(path: str) -> dict:
@@ -128,23 +154,51 @@ def main(argv=None):
     args = parse_args(argv)
     if args.evolve:
         return run_evolve(args)
-    return train_run(args)
+    # torchrun's environment: one process a card (a no-op for one process)
+    own_group = not dist.is_initialized()
+    if own_group:
+        initialize_distributed(device=torch.device(args.device).type)
+    try:
+        return train_run(args)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _device(args) -> torch.device:
-    """The one device of the run; raises for what the port cannot do."""
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "training over several processes (DDP with SyncBN semantics, "
-            "ROADMAP queue 1, module 8) is not ported yet; it waits for "
-            "the data-parallel run_network (module 7)")
+    """This process's device: --device, and under torchrun for "cuda" the
+    card LOCAL_RANK; raises where the card is asked for and missing."""
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass --device cpu "
-                           "to run on the CPU")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass --device "
+                               "cpu to run on the CPU")
+        if device.index is None and "LOCAL_RANK" in os.environ:
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     return device
+
+
+def train_mesh(batch_size: int) -> Tuple[bool, Optional[DataMesh]]:
+    """(whether this process trains, the run's data mesh): the mesh over
+    the largest number of the process group's first ranks that divides
+    `batch_size` (the JAX CLI's device rule, its cli/train.py:270-279),
+    None without a process group. A rank left out prints why and gets
+    (False, None)."""
+    if not dist.is_initialized():
+        return True, None
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n_use = world
+    while batch_size % n_use:
+        n_use -= 1
+    if n_use < world and rank == 0:
+        print(f"batch {batch_size} not divisible by {world} ranks; using "
+              f"ranks 0..{n_use - 1}")
+    mesh = make_data_mesh(range(n_use))
+    if mesh is None:
+        print(f"rank {rank}: batch {batch_size} splits over {n_use} of the "
+              f"{world} ranks; this rank sits the steps out")
+        return False, None
+    return True, mesh
 
 
 def train_run(args, hyp_override=None, quiet=False, datasets=None):
@@ -166,8 +220,6 @@ def train_run(args, hyp_override=None, quiet=False, datasets=None):
     from face_detection_multi_scale_tpu_torch.train.autoanchor import (
         check_anchors)
     from face_detection_multi_scale_tpu_torch.train.hyp import get_hyp
-    from face_detection_multi_scale_tpu_torch.train.targets import (
-        build_targets_batched)
     from face_detection_multi_scale_tpu_torch.train.trainer import (
         TrainConfig, create_train_state, ema_model, freeze_summary,
         make_accum_steps, make_train_step, zero_grads_like)
@@ -177,9 +229,20 @@ def train_run(args, hyp_override=None, quiet=False, datasets=None):
         MetricsLogger)
 
     device = _device(args)
-    save_dir = increment_path(Path(args.project) / args.name, args.exist_ok)
+    trains, mesh = train_mesh(args.batch_size)
+    if not trains:
+        return 0
+    rank0 = mesh is None or mesh.rank == 0
+
+    def shared(obj):
+        """Rank 0's `obj` on every rank of the mesh."""
+        return obj if mesh is None else broadcast_object(mesh, obj)
+
+    save_dir = shared(increment_path(Path(args.project) / args.name,
+                                     args.exist_ok) if rank0 else None)
     ckpt_dir = save_dir / "weights"
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    if rank0:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
     ckpt_writer = (CKPT.AsyncCheckpointWriter()
                    if args.async_checkpoint else None)
     save_ckpt = ckpt_writer.save if ckpt_writer else CKPT.save_checkpoint
@@ -194,20 +257,23 @@ def train_run(args, hyp_override=None, quiet=False, datasets=None):
         spec.nc = int(data.get("nc", 1))
     nc = spec.nc
 
-    # resuming reattaches to the original tracker run via the id stored
-    # in the checkpoint metadata (check_wandb_resume, wandb_utils.py:42-53)
-    resume_run_id = (CKPT.peek_meta(str(ckpt_dir), "last").get("wandb_id")
-                     if args.resume else None)
-    logger = MetricsLogger(str(save_dir),
-                           use_tensorboard=not args.no_tensorboard,
-                           use_wandb=args.wandb, config=vars(args),
-                           run_id=resume_run_id)
+    logger = None
+    if rank0:
+        # resuming reattaches to the original tracker run via the id
+        # stored in the checkpoint metadata (check_wandb_resume,
+        # wandb_utils.py:42-53)
+        resume_run_id = (CKPT.peek_meta(str(ckpt_dir), "last")
+                         .get("wandb_id") if args.resume else None)
+        logger = MetricsLogger(str(save_dir),
+                               use_tensorboard=not args.no_tensorboard,
+                               use_wandb=args.wandb, config=vars(args),
+                               run_id=resume_run_id)
 
-    # snapshot run config (train.py:54-57)
-    with open(save_dir / "opt.json", "w") as f:
-        json.dump(vars(args), f, indent=2, default=str)
-    with open(save_dir / "hyp.json", "w") as f:
-        json.dump(hyp, f, indent=2)
+        # snapshot run config (train.py:54-57)
+        with open(save_dir / "opt.json", "w") as f:
+            json.dump(vars(args), f, indent=2, default=str)
+        with open(save_dir / "hyp.json", "w") as f:
+            json.dump(hyp, f, indent=2)
 
     if datasets is not None:
         train_ds, val_ds = datasets
@@ -228,19 +294,22 @@ def train_run(args, hyp_override=None, quiet=False, datasets=None):
                                  stride=spec.max_stride,
                                  single_cls=args.single_cls)
 
-    try:
-        from face_detection_multi_scale_tpu_torch.utils.train_plots import (
-            plot_labels)
-        plot_labels(train_ds.labels, str(save_dir))
-    except Exception as e:  # noqa: BLE001 — plots are optional
-        print(f"plot_labels skipped: {e}")
+    if rank0:
+        try:
+            from face_detection_multi_scale_tpu_torch.utils.train_plots \
+                import plot_labels
+            plot_labels(train_ds.labels, str(save_dir))
+        except Exception as e:  # noqa: BLE001 — plots are optional
+            print(f"plot_labels skipped: {e}")
 
     if not args.noautoanchor:
-        anchors, bpr = check_anchors(train_ds.labels, train_ds.shapes,
-                                     spec, thr=hyp["anchor_t"],
-                                     imgsz=args.img_size)
-        spec.anchors = tuple(tuple(float(v) for v in a.reshape(-1))
-                             for a in anchors)
+        if rank0:
+            anchors, bpr = check_anchors(train_ds.labels, train_ds.shapes,
+                                         spec, thr=hyp["anchor_t"],
+                                         imgsz=args.img_size)
+            spec.anchors = tuple(tuple(float(v) for v in a.reshape(-1))
+                                 for a in anchors)
+        spec.anchors = shared(spec.anchors)
 
     # the model after autoanchor, so its spec holds the anchors; seeded
     # like the JAX init_model (its own draws: the same seed gives other
@@ -255,11 +324,17 @@ def train_run(args, hyp_override=None, quiet=False, datasets=None):
             load_reference_state_dict(
                 model, load_torch_checkpoint(args.weights))
     model.to(device).train()
+    if mesh is not None:
+        # every rank starts from rank 0's weights (the JAX CLI replicates
+        # its state over the mesh)
+        replicated(mesh, list(model.state_dict().values()))
 
+    # every rank loads the same global batches and steps on its rows
     loader = DataLoader(train_ds, args.batch_size, shuffle=True,
                         seed=args.seed, workers=args.workers,
                         mode=args.loader_mode)
     steps_per_epoch = max(len(loader), 1)
+    sizes = random.Random(args.seed)  # --multi-scale's, alike on every rank
 
     # gradient accumulation to the nominal batch (train.py:157,437)
     accumulate = max(round(args.nominal_batch / args.batch_size), 1)
@@ -277,7 +352,7 @@ def train_run(args, hyp_override=None, quiet=False, datasets=None):
         batch_size=args.batch_size, linear_lr=args.linear_lr,
         freeze_until=args.freeze_until,
         optimizer="adam" if args.adam else "sgd")
-    if args.freeze_until is not None:
+    if args.freeze_until is not None and rank0:
         nfrz, ntrn, frz_layers = freeze_summary(model, args.freeze_until)
         total = nfrz + ntrn
         print(f"Freezing layers 0..{args.freeze_until}: "
@@ -292,13 +367,16 @@ def train_run(args, hyp_override=None, quiet=False, datasets=None):
         state, meta = CKPT.load_checkpoint(str(ckpt_dir), "last", state)
         start_epoch = int(meta.get("epoch", -1)) + 1
         best_fitness = float(meta.get("best_fitness", -1.0))
-        print(f"resumed from epoch {start_epoch}")
+        if rank0:
+            print(f"resumed from epoch {start_epoch}")
 
     if accumulate > 1:
-        grad_fn, apply_fn = make_accum_steps(model, cfg, hyp, args.img_size)
-        print(f"accumulating gradients over {accumulate} micro-batches")
+        grad_fn, apply_fn = make_accum_steps(model, cfg, hyp, args.img_size,
+                                             mesh=mesh)
+        if rank0:
+            print(f"accumulating gradients over {accumulate} micro-batches")
     else:
-        step_fn = make_train_step(model, cfg, hyp, args.img_size)
+        step_fn = make_train_step(model, cfg, hyp, args.img_size, mesh=mesh)
 
     results_path = save_dir / "results.txt"
     grads_acc = None
@@ -313,7 +391,9 @@ def train_run(args, hyp_override=None, quiet=False, datasets=None):
     for epoch in range(start_epoch, args.epochs):
         if args.image_weights:
             # weighted image resampling (train.py:374-385): class rarity
-            # x (1 - per-class mAP)^2, drawn with an epoch-seeded RNG
+            # x (1 - per-class mAP)^2, drawn with an epoch-seeded RNG from
+            # rank 0's mAPs (its validate's), so every rank draws alike
+            maps = shared(maps)
             from face_detection_multi_scale_tpu_torch.utils.general import (
                 labels_to_class_weights, labels_to_image_weights)
             if class_weights is None:
@@ -324,11 +404,11 @@ def train_run(args, hyp_override=None, quiet=False, datasets=None):
             rng = random.Random(args.seed + epoch)
             train_ds.indices = rng.choices(range(train_ds.n), weights=iw,
                                            k=train_ds.n)
-        loader.set_epoch(epoch)
         t0 = time.time()
         mloss = torch.zeros(6, device=device)
         nb = 0
         t_wait = 0.0  # time blocked on the input pipeline
+        loader.set_epoch(epoch)
         batch_iter = iter(loader)
         while True:
             tw = time.time()
@@ -336,35 +416,12 @@ def train_run(args, hyp_override=None, quiet=False, datasets=None):
             t_wait += time.time() - tw
             if item is None:
                 break
-            images, labels, paths, shapes = item
-            if args.multi_scale:
-                # random size in [0.5, 1.5] x img_size rounded to the
-                # stride grid; labels are normalized so only the target
-                # grids change
-                gs = spec.max_stride
-                sz = random.randrange(args.img_size // 2,
-                                      args.img_size * 3 // 2 + gs, gs)
-                if sz != images.shape[1]:
-                    import cv2
-
-                    images = np.stack([
-                        cv2.resize(im, (sz, sz),
-                                   interpolation=cv2.INTER_LINEAR)
-                        for im in images])
-            batch_grids = [(images.shape[1] // st, images.shape[2] // st)
-                           for st in spec.strides]
-            if epoch == start_epoch and nb < 3:
-                try:
-                    from face_detection_multi_scale_tpu_torch.utils.\
-train_plots import plot_images
-                    plot_images(images, labels, paths,
-                                str(save_dir / f"train_batch{nb}.jpg"),
-                                nkpt=args.kpt_label)
-                except Exception:  # noqa: BLE001 — plots are optional
-                    pass
-            targets = build_targets_batched(
-                labels, len(images), spec, batch_grids,
-                anchor_t=hyp["anchor_t"])
+            images, targets = _global_batch(
+                args, spec, hyp, item, sizes,
+                save_dir / f"train_batch{nb}.jpg"
+                if rank0 and epoch == start_epoch and nb < 3 else None)
+            if mesh is not None:
+                images, targets = shard_batch(mesh, (images, targets))
             if accumulate > 1:
                 # global iteration counter: the optimizer applies every
                 # `accumulate` micro-batches ACROSS epochs
@@ -382,7 +439,7 @@ train_plots import plot_images
                 state, loss, comps = step_fn(state, images, targets)
             mloss += comps
             nb += 1
-            if nb % args.log_interval == 0:
+            if nb % args.log_interval == 0 and rank0:
                 c = (mloss / nb).cpu().numpy()
                 gstep = epoch * steps_per_epoch + nb
                 logger.log(gstep, {
@@ -397,6 +454,8 @@ train_plots import plot_images
                           f"total {c[5]:.4f}")
         c = (mloss / max(nb, 1)).cpu().numpy()
         dt = time.time() - t0
+        if not rank0:
+            continue
         if nb:
             # input-pipeline health: fraction of the epoch blocked on the
             # loader; >30% means raise --workers / --cache-images
@@ -448,26 +507,65 @@ train_plots import plot_images
         # an in-flight async save must be durable before finalize
         ckpt_writer.close()
     loader.close()
-    # results.png from the metrics JSONL (plot_results, train.py:540-544)
-    try:
-        from face_detection_multi_scale_tpu_torch.utils.train_plots import (
-            plot_results)
-        plot_results(str(save_dir / "metrics.jsonl"),
-                     str(save_dir / "results.png"))
-    except Exception as e:  # noqa: BLE001 — plots are optional
-        print(f"plot_results skipped: {e}")
-    final_path = ckpt_dir / "best_inference.npz"
-    CKPT.save_inference_weights(str(final_path),
-                                CKPT.strip_to_inference(state))
-    # version the stripped weights as a tracker artifact when a run is
-    # active (log_model, wandb_utils.py:201-215)
-    logger.log_artifact(final_path, f"run_{logger.run_id}_model",
-                        type="model", metadata={"fitness": best_fitness})
-    logger.close()
-    print(f"training complete -> {save_dir}")
+    if rank0:
+        # results.png from the metrics JSONL (plot_results,
+        # train.py:540-544)
+        try:
+            from face_detection_multi_scale_tpu_torch.utils.train_plots \
+                import plot_results
+            plot_results(str(save_dir / "metrics.jsonl"),
+                         str(save_dir / "results.png"))
+        except Exception as e:  # noqa: BLE001 — plots are optional
+            print(f"plot_results skipped: {e}")
+        final_path = ckpt_dir / "best_inference.npz"
+        CKPT.save_inference_weights(str(final_path),
+                                    CKPT.strip_to_inference(state))
+        # version the stripped weights as a tracker artifact when a run
+        # is active (log_model, wandb_utils.py:201-215)
+        logger.log_artifact(final_path, f"run_{logger.run_id}_model",
+                            type="model", metadata={"fitness": best_fitness})
+        logger.close()
+        print(f"training complete -> {save_dir}")
     train_run.last = {"fitness": best_fitness, "save_dir": str(save_dir),
                       "state": state}
     return 0
+
+
+def _global_batch(args, spec, hyp, item, sizes: random.Random,
+                  plot_path: Optional[Path]):
+    """One loaded batch -> (uint8 images, targets) of the global batch:
+    the --multi-scale resize (its size drawn from `sizes`), the plot of
+    the batch to `plot_path` (the first batches') and the target
+    assignment."""
+    from face_detection_multi_scale_tpu_torch.train.targets import (
+        build_targets_batched)
+
+    images, labels, paths, shapes = item
+    if args.multi_scale:
+        # random size in [0.5, 1.5] x img_size rounded to the stride
+        # grid; labels are normalized so only the target grids change
+        gs = spec.max_stride
+        sz = sizes.randrange(args.img_size // 2,
+                             args.img_size * 3 // 2 + gs, gs)
+        if sz != images.shape[1]:
+            import cv2
+
+            images = np.stack([
+                cv2.resize(im, (sz, sz), interpolation=cv2.INTER_LINEAR)
+                for im in images])
+    batch_grids = [(images.shape[1] // st, images.shape[2] // st)
+                   for st in spec.strides]
+    if plot_path is not None:
+        try:
+            from face_detection_multi_scale_tpu_torch.utils.train_plots \
+                import plot_images
+            plot_images(images, labels, paths, str(plot_path),
+                        nkpt=args.kpt_label)
+        except Exception:  # noqa: BLE001 — plots are optional
+            pass
+    targets = build_targets_batched(labels, len(images), spec, batch_grids,
+                                    anchor_t=hyp["anchor_t"])
+    return images, targets
 
 
 def run_evolve(args):

@@ -8,8 +8,11 @@ uint8 NHWC batch -> /255 -> YoloFace forward with BN folded (or, with
 `quantize="int8"`, the W8A8 executor of models/quant.py, as the JAX
 `_forward` at detector.py:270-285) -> grid decode -> fixed-capacity NMS
 (the keep mask through the CUDA kernel on the card) -> Detections, then
-the host-side inverse letterbox. The TTA pyramid (`detect_multi_scale`)
-runs every scale and merges them with the scale-weighted NMS, whose keep
+the host-side inverse letterbox. With a data mesh (parallel/mesh.py, one
+process a card) `run_network` takes the JAX `run_network`'s mesh branch:
+every rank is called with the global batch, runs its rows on its card
+and returns the Detections of the whole batch. The TTA pyramid
+(`detect_multi_scale`) runs every scale and merges them with the scale-weighted NMS, whose keep
 mask goes through the same kernel. A giant scale can run as one batch of
 halo'd tiles (`tile_top_scale`, infer/tiling.py), and a large batch as a
 loop over chunks (`micro_batch`). `predict` (also `__call__`) is the hub
@@ -52,6 +55,8 @@ from face_detection_multi_scale_tpu_torch.models.model import (
     YoloFace, cast_model, compute_strides, full_fp32, init_weights)
 from face_detection_multi_scale_tpu_torch.models.spec import ModelSpec
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
+from face_detection_multi_scale_tpu_torch.parallel.mesh import (
+    active_mesh, gather_rows, replicated)
 from face_detection_multi_scale_tpu_torch.utils.general import (
     check_img_size, make_divisible)
 
@@ -92,8 +97,17 @@ class FaceDetector:
 
     Args mirror the JAX FaceDetector, in its order (then `device`), so a
     positional call builds the same serving mode in both packages.
-    `mesh` must be None: the data-parallel branch over cards is not
-    ported and a mesh raises NotImplementedError. `variables` is either
+    `mesh` is a parallel.mesh.DataMesh (`make_data_mesh()`, one process a
+    card; every rank builds the detector and makes every call): the
+    serving weights (and the int8 qparams, once calibrated) are rank 0's
+    on every rank, and `run_network` pads the batch with zero frames to a
+    multiple of the mesh size, runs this rank's rows on `device` (one
+    `nms_keep` launch a call on the card) and gathers every row's
+    Detections to every rank, the padding dropped. The paths that
+    preprocess on the device run whole on every rank, as in the JAX
+    package, and `micro_batch` is inert under a mesh (warned once). A
+    world of one without a process group serves as without a mesh.
+    `variables` is either
     a JAX-layout variables tree of numpy arrays (carried over by the
     weight bridge, models/convert.py) or a torch state dict with
     reference key names;
@@ -151,10 +165,6 @@ class FaceDetector:
                  tile_halo: int = 256, tile_min_size: int = 2048,
                  quantize: Optional[str] = None, calib_images=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FaceDetector: mesh= (data parallel over cards) is not "
-                "ported yet (ROADMAP queue 1, module 7)")
         if dtype not in DTYPES.values():
             raise NotImplementedError(
                 f"FaceDetector: dtype {dtype} is not ported (float32 and "
@@ -167,6 +177,9 @@ class FaceDetector:
                              "exclusive serving modes")
         self.dtype = dtype
         self.device = _device(device)
+        # the mesh that splits batches (None for a world of one without a
+        # process group, which serves as without a mesh)
+        self._mesh = active_mesh(mesh)
         if isinstance(model, str):
             spec = zoo.get_spec(model)  # pinned strides
         else:
@@ -216,6 +229,11 @@ class FaceDetector:
                                  else copy.deepcopy(net)).eval().to(
                                      self.device)
         self.model = cast_model(net.eval().to(self.device), dtype)
+        if self._mesh is not None:
+            replicated(self._mesh, [*self.model.state_dict().values(), *(
+                t for ws in self._elan_weights.values() for t in ws), *(
+                self._float_model.state_dict().values()
+                if self._float_model is not None else ())])
         if quantize:
             # the op set is checked now (NotImplementedError outside the
             # int8 executor) by the compute-free structural walk
@@ -233,6 +251,7 @@ class FaceDetector:
         self.max_candidates = max_candidates
         self.micro_batch = micro_batch
         self._warned_mb_divide = False
+        self._warned_mb_mesh = False
         self.tile_grid = 2 if tile_top_scale is True else \
             int(tile_top_scale or 0)
         if self.tile_grid == 1:
@@ -292,7 +311,15 @@ class FaceDetector:
                             else np.asarray(x)).to(self.device)
         if x.dtype == torch.uint8:
             x = x.float() / 255.0
-        self._qparams = quant.quantize_model(self.spec, self._float_model, x)
+        qparams = quant.quantize_model(self.spec, self._float_model, x)
+        if self._mesh is not None:  # rank 0's scales on every rank
+            with torch.inference_mode():  # inference tensors, in place
+                replicated(self._mesh, [
+                    t for conv in qparams["convs"].values()
+                    for t in conv.values()]
+                    + list(qparams["adds"].values())
+                    + [qparams["head_scales"]])
+        self._qparams = qparams
 
     def _ensure_calibrated(self, images_u8) -> None:
         if self._quantize and self._qparams is None:
@@ -358,8 +385,19 @@ class FaceDetector:
         one call per `micro_batch` frames, the chunks' Detections
         concatenated in batch order, when micro-batching is on and the
         chunk divides the batch; else one call on the whole batch (with a
-        warning, once, when the chunk does not divide it)."""
+        warning, once, when the chunk does not divide it). Under a mesh
+        the engine runs on the whole batch (warned once when micro_batch
+        is set), as in the JAX package."""
         mb, n = self.micro_batch, batch.shape[0]
+        if mb and self._mesh is not None:
+            if not self._warned_mb_mesh:
+                self._warned_mb_mesh = True
+                warnings.warn(
+                    f"micro_batch={mb} is inert under a mesh (the batch "
+                    "dim carries the data sharding; per-card chunking is "
+                    "not implemented) — running whole-batch",
+                    RuntimeWarning, stacklevel=3)
+            return engine(batch)
         if not mb or n <= mb or n % mb:
             if mb and n > mb and not self._warned_mb_divide:
                 self._warned_mb_divide = True
@@ -378,14 +416,33 @@ class FaceDetector:
         detector's device. _record=False leaves the truncation telemetry
         to the caller (the tiled paths record one entry per image, not
         per tile). A quantized detector that is not calibrated yet
-        calibrates on this batch first."""
+        calibrates on this batch first (the whole batch, before a mesh
+        splits it)."""
         self._ensure_calibrated(images_u8)
-        dets = self._microbatched(
-            lambda chunk: self.postprocess(self.forward_rows(chunk)),
-            images_u8)
+        engine = lambda chunk: self.postprocess(self.forward_rows(chunk))
+        if self._mesh is None:
+            dets = self._microbatched(engine, images_u8)
+        else:
+            dets = self._run_mesh(engine, images_u8)
         if _record:
             self._record_truncation(dets)
         return dets
+
+    def _run_mesh(self, engine, images_u8) -> NMS.Detections:
+        """The mesh branch of run_network (the JAX one at detector.py:
+        417-433): the batch padded with zero frames to a multiple of the
+        mesh size, this rank's rows through `engine`, and every row's
+        Detections gathered to every rank, bit for bit, the padded tail
+        dropped."""
+        mesh = self._mesh
+        x = torch.as_tensor(images_u8)
+        bs = x.shape[0]
+        n = bs + (-bs) % mesh.size
+        if n > bs:
+            x = torch.cat([x, x.new_zeros((n - bs, *x.shape[1:]))])
+        dets = self._microbatched(engine, x[mesh.rows(n)])
+        return NMS.Detections(*(None if t is None else
+                                gather_rows(mesh, t, n)[:bs] for t in dets))
 
     @torch.inference_mode()
     def device_input(self, raw_u8: torch.Tensor, img_size: int,
@@ -638,7 +695,7 @@ class FaceDetector:
         shapes = [im.shape for im in loaded]
         plan = self._tile_plan(img_size)
         if (plan is None and self.use_device_preprocess
-                and len(set(shapes)) == 1):
+                and self._mesh is None and len(set(shapes)) == 1):
             dets, _ = self.run_network_raw(self.upload(np.stack(loaded)),
                                            img_size, auto=False)
             rows_list = NMS.detections_to_numpy(dets)

@@ -117,11 +117,27 @@ class BatchNorm(nn.BatchNorm2d):
     bfloat16)` does it: float32 batch statistics (flax's
     `force_float32_reductions`), float32 running statistics, and a bf16
     output (F.batch_norm with a bf16 input and float32 parameters
-    normalises in float32 and rounds once)."""
+    normalises in float32 and rounds once).
+
+    Under a data mesh (`set_batchnorm_mesh`) the training forward takes
+    the statistics of the global batch, SyncBN's semantics and what XLA
+    computes for the JAX package over its mesh (`_GlobalBatchNorm`: one
+    collective forward, one backward); the running statistics take the
+    biased variance, as without a mesh (nn.SyncBatchNorm's would take
+    the unbiased one). The variance is computed from each rank's centred
+    sums, not as flax's float32 E[x^2] - E[x]^2, whose cancellation
+    moves a random model's float32 gradients further from the exact ones
+    than the one-process step's."""
+
+    # a parallel.mesh.DataMesh with a process group: global batch
+    # statistics; None: this process's batch
+    mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.mesh is not None:
+            return self._forward_mesh(x)
         stat = torch.promote_types(self.running_mean.dtype, torch.float32)
         mean = torch.zeros(self.num_features, dtype=stat, device=x.device)
         var = torch.ones(self.num_features, dtype=stat, device=x.device)
@@ -136,6 +152,74 @@ class BatchNorm(nn.BatchNorm2d):
                 var, alpha=self.momentum * (n - 1) / n)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _forward_mesh(self, x: torch.Tensor) -> torch.Tensor:
+        stat = torch.promote_types(self.running_mean.dtype, torch.float32)
+        y, mean, var = _GlobalBatchNorm.apply(
+            x.to(stat), self.weight, self.bias, self.mesh, self.eps)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Batch norm over a data mesh's global batch, SyncBN's algorithm in
+    plain torch: the forward combines each rank's mean and centred sum of
+    squares (Chan et al.; one collective of every rank's pair) into the
+    global mean and biased variance; the backward is batch norm's own
+    gradient, dx = w / sigma (dy - mean(dy) - x_hat mean(dy x_hat)) with
+    the two means over the global batch (one collective). The weight and
+    bias gradients are this rank's sums, which the trainer sums over the
+    mesh with every other gradient. Every rank holds as many rows."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mesh, eps):
+        c = x.shape[1]
+        shape = (1, c, 1, 1)
+        n = x.numel() // c
+        mean_r = x.mean((0, 2, 3))
+        local = torch.stack([mean_r, (x - mean_r.reshape(shape)).square()
+                             .sum((0, 2, 3))])
+        every = mesh.all_reduce(torch.stack([
+            local if r == mesh.rank else torch.zeros_like(local)
+            for r in range(mesh.size)]))
+        means = every[:, 0]
+        mean = means.mean(0)
+        var = (every[:, 1].sum(0) + n * (means - mean).square().sum(0)) / (
+            n * mesh.size)
+        invstd = torch.rsqrt(var + eps)
+        x_hat = (x - mean.reshape(shape)) * invstd.reshape(shape)
+        ctx.save_for_backward(x_hat, weight, invstd)
+        ctx.mesh, ctx.count = mesh, n * mesh.size
+        ctx.mark_non_differentiable(mean, var)
+        return (x_hat * weight.reshape(shape) + bias.reshape(shape), mean,
+                var)
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x_hat, weight, invstd = ctx.saved_tensors
+        c = x_hat.shape[1]
+        shape = (1, c, 1, 1)
+        sum_dy = dy.sum((0, 2, 3))
+        sum_dy_xhat = (dy * x_hat).sum((0, 2, 3))
+        total = ctx.mesh.all_reduce(torch.cat([sum_dy, sum_dy_xhat]))
+        dx = (dy - (total[:c] / ctx.count).reshape(shape)
+              - x_hat * (total[c:] / ctx.count).reshape(shape)) * (
+                  invstd * weight).reshape(shape)
+        return dx, sum_dy_xhat, sum_dy, None, None
+
+
+def set_batchnorm_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Give every BatchNorm of `model` the data mesh `mesh` (one with a
+    process group, parallel.mesh.active_mesh; None: back to this
+    process's batch statistics); returns `model`."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
+    return model
 
 
 def batch_norm(c: int) -> BatchNorm:

@@ -19,6 +19,11 @@ next epoch trains, the swap running at completion.
 function of that name ("params/model_0/conv/kernel", HWIO kernels,
 "batch_stats/.../mean"), so both packages' loaders read what the port
 trains (`models/convert.load_inference_weights` here).
+
+Under a process group only rank 0 writes (the JAX package's gate on
+process 0, the reference's `if rank in [-1, 0]`, train.py:509): the
+ranks hold identical states, so one writer is complete, and callers need
+not gate.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import torch
 
 from face_detection_multi_scale_tpu_torch.models.convert import (
     load_inference_weights, state_dict_to_jax)
+from face_detection_multi_scale_tpu_torch.parallel.mesh import (
+    is_main_process)
 from face_detection_multi_scale_tpu_torch.train.trainer import TrainState
 
 __all__ = ["save_checkpoint", "load_checkpoint", "peek_meta",
@@ -64,7 +71,9 @@ def _payload(state: TrainState) -> Dict[str, Any]:
 def save_checkpoint(ckpt_dir: str, tag: str, state: TrainState,
                     meta: Dict[str, Any]) -> None:
     """Save a TrainState under ckpt_dir/<tag>.pt (last/best) + meta json,
-    crash-safe (the module docstring)."""
+    crash-safe (the module docstring); rank 0 of a process group only."""
+    if not is_main_process():
+        return
     path, meta_path = _paths(ckpt_dir, tag)
     _pre_save(path)
     torch.save(_payload(state), path + ".tmp")
@@ -121,6 +130,9 @@ class AsyncCheckpointWriter:
 
     def save(self, ckpt_dir: str, tag: str, state: TrainState,
              meta: Dict[str, Any]) -> None:
+        """Start writing `state` (rank 0 of a process group only)."""
+        if not is_main_process():
+            return
         self.wait()
         path, meta_path = _paths(ckpt_dir, tag)
         _pre_save(path)

@@ -100,16 +100,20 @@ def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _level_terms(pi, ps, index, mask, tbox, anchors, tkpt, tcls, hyp,
-                 nc, nkpt, gr, balance):
+                 nc, nkpt, gr, balance, den=None):
     """One level's (lbox, lobj, lcls, lkpt, lkptv) from its raw map `pi`,
     the gathered rows `ps` (..., no), the gather's index tuple into
-    pi.shape[:4] and the level's targets; shared by both loss layouts."""
+    pi.shape[:4] and the level's targets; shared by both loss layouts.
+    `den` is None, or the global batch's (target rows, visible landmark
+    coordinates, objectness cells) of this level under a data mesh: the
+    means then divide this rank's sums by the global counts."""
     cp, cn = smooth_bce(hyp.get("label_smoothing", 0.0))
     fl_gamma = hyp.get("fl_gamma", 0.0)
     cls_pw = hyp.get("cls_pw", 1.0)
     obj_pw = hyp.get("obj_pw", 1.0)
     zero = pi.new_zeros(())
-    denom = mask.sum().clamp(min=1.0)
+    n_rows = mask.sum() if den is None else den[0]
+    denom = n_rows.clamp(min=1.0)
 
     pxy = torch.sigmoid(ps[..., 0:2]) * 2.0 - 0.5
     pwh = (torch.sigmoid(ps[..., 2:4]) * 2.0) ** 2 * anchors
@@ -125,8 +129,8 @@ def _level_terms(pi, ps, index, mask, tbox, anchors, tkpt, tcls, hyp,
         vis = (tkpt[..., 0::2] != 0).float()
         kpt_mask = vis * mask[..., None]
         v = bce_with_logits(pkpt_score, vis, cls_pw) * mask[..., None]
-        lkptv = v.sum() / (mask.sum() * pkpt_score.shape[-1]).clamp(min=1.0)
-        ksum = kpt_mask.sum().clamp(min=1e-9)
+        lkptv = v.sum() / (n_rows * pkpt_score.shape[-1]).clamp(min=1.0)
+        ksum = (kpt_mask.sum() if den is None else den[1]).clamp(min=1e-9)
         lx = wing((pkpt_x - tkpt[..., 0::2]) * kpt_mask).sum() / ksum
         ly = wing((pkpt_y - tkpt[..., 1::2]) * kpt_mask).sum() / ksum
         lkpt = (lx + ly) / 2.0
@@ -136,7 +140,8 @@ def _level_terms(pi, ps, index, mask, tbox, anchors, tkpt, tcls, hyp,
     obj_bce = bce_with_logits(pi[..., 4], tobj, obj_pw)
     if fl_gamma > 0:
         obj_bce = obj_bce * focal_scale(pi[..., 4], tobj, fl_gamma)
-    lobj = obj_bce.mean() * balance
+    lobj = (obj_bce.mean() if den is None
+            else obj_bce.sum() / den[2]) * balance
 
     lcls = zero
     if nc > 1:
@@ -182,17 +187,46 @@ def compute_loss(raw_preds: Sequence[torch.Tensor],
     return _total(sums, hyp, raw_preds[0].shape[0])
 
 
+def _global_counts(raw_preds, targets, nkpt: int, mesh):
+    """Each level's (target rows, visible landmark coordinates,
+    objectness cells) over the mesh's global batch: the two sums in one
+    collective; the cells from the equal row counts of the ranks."""
+    local = []
+    for i in range(len(raw_preds)):
+        mask = targets["mask"][i]
+        local.append(mask.sum())
+        local.append(((targets["tkpt"][i][..., 0::2] != 0).float()
+                      * mask[..., None]).sum() if nkpt
+                     else mask.new_zeros(()))
+    sums = mesh.all_reduce(torch.stack(local).float())
+    return [(sums[2 * i], sums[2 * i + 1],
+             pi[..., 4].numel() * mesh.size)
+            for i, pi in enumerate(raw_preds)]
+
+
 def compute_loss_batched(raw_preds: Sequence[torch.Tensor],
                          targets: Dict[str, tuple],
                          hyp: Dict[str, float], *, nc: int, nkpt: int,
-                         gr: float = 1.0
+                         gr: float = 1.0, mesh=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The loss on the (B, cap, ...) targets of `build_targets_batched`:
     each image gathers its own rows. Numerically the same as
-    `compute_loss` (the same reference semantics)."""
+    `compute_loss` (the same reference semantics).
+
+    Under a data mesh (a parallel.mesh.DataMesh, as active_mesh gives it;
+    `raw_preds` and `targets` are this rank's rows) only the counts cross
+    the ranks, as the JAX package's sharded loss reduces only its final
+    scalars: every mean divides this rank's sum by the global count, and
+    the total is scaled by the global batch, so the ranks' losses and
+    components sum to those of the global batch, and the sum of the
+    ranks' gradients is the global batch's gradient."""
     nl = len(raw_preds)
     balance = BALANCE_3 if nl == 3 else BALANCE_P6
-    bs = raw_preds[0].shape[0]
+    bs = global_bs = raw_preds[0].shape[0]
+    dens = [None] * nl
+    if mesh is not None:
+        dens = _global_counts(raw_preds, targets, nkpt, mesh)
+        global_bs *= mesh.size
     sums = [raw_preds[0].new_zeros((), dtype=torch.float32)] * 5
     for i, pi in enumerate(raw_preds):
         pi = _at_least_f32(pi)
@@ -202,6 +236,6 @@ def compute_loss_batched(raw_preds: Sequence[torch.Tensor],
         terms = _level_terms(
             pi, pi[index], index, targets["mask"][i],
             targets["tbox"][i], targets["anchors"][i], targets["tkpt"][i],
-            targets["tcls"][i], hyp, nc, nkpt, gr, balance[i])
+            targets["tcls"][i], hyp, nc, nkpt, gr, balance[i], dens[i])
         sums = [s + t for s, t in zip(sums, terms)]
-    return _total(sums, hyp, bs)
+    return _total(sums, hyp, global_bs)

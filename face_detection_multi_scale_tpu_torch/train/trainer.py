@@ -32,6 +32,15 @@ running variance with the biased batch variance (models/layers.BatchNorm,
 flax's rule). A frozen parameter (`freeze_until`) has requires_grad
 False: it gets no gradient and no update, while its BN statistics still
 update in train mode.
+
+Under a data mesh (parallel/mesh.py, one process a card; `mesh=` of
+`make_train_step` and `make_accum_steps`) each rank steps on its rows of
+the global batch: BatchNorm takes the global batch's statistics, the
+loss divides by the global counts, the gradients are summed over the
+ranks before the apply, and every rank applies the same update, so the
+parameters stay identical across ranks and equal (to float32 rounding)
+those of one process stepping on the global batch, as the JAX package's
+step over its mesh does.
 """
 
 from __future__ import annotations
@@ -43,8 +52,12 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from face_detection_multi_scale_tpu_torch.models.layers import (
+    set_batchnorm_mesh)
 from face_detection_multi_scale_tpu_torch.models.model import (
     YoloFace, full_fp32)
+from face_detection_multi_scale_tpu_torch.parallel.mesh import (
+    active_mesh, all_reduce_tensors)
 from face_detection_multi_scale_tpu_torch.train.loss import (
     compute_loss_batched, targets_to_device)
 
@@ -311,10 +324,13 @@ def _images(images, param: torch.Tensor) -> torch.Tensor:
     return x.to(param.dtype)
 
 
-def _grad_fn(model: YoloFace, h: Dict[str, float]):
+def _grad_fn(model: YoloFace, h: Dict[str, float], mesh=None):
     """(images, targets) -> (loss, components, grads of the trainable
     parameters) of `model` in train mode (its BN statistics update), in
-    its compute dtype; TF32 off for whatever computes in float32."""
+    its compute dtype; TF32 off for whatever computes in float32. Under a
+    mesh, the images and targets are this rank's rows, the loss and
+    components are the global batch's, and the gradients this rank's
+    share of the global gradient (the step sums them over the ranks)."""
     spec = model.spec
 
     def run(images, targets):
@@ -327,12 +343,29 @@ def _grad_fn(model: YoloFace, h: Dict[str, float]):
         with full_fp32():
             raws = model(x)
             loss, components = compute_loss_batched(
-                raws, targets, h, nc=spec.nc, nkpt=spec.nkpt, gr=1.0)
+                raws, targets, h, nc=spec.nc, nkpt=spec.nkpt, gr=1.0,
+                mesh=mesh)
             grads = torch.autograd.grad(loss, [p for _, p in named])
-        return (loss.detach(), components.detach(),
-                {n: g for (n, _), g in zip(named, grads)})
+        loss, components = loss.detach(), components.detach()
+        if mesh is not None:
+            both = torch.cat([loss.reshape(1), components])
+            all_reduce_tensors(mesh, [both])
+            loss, components = both[0], both[1:]
+        return loss, components, {n: g for (n, _), g in zip(named, grads)}
 
     return run
+
+
+def _attach(model: YoloFace, cfg: TrainConfig, mesh):
+    """The step's hold on the model: `cfg.freeze_until` on its
+    requires_grad flags and, under a mesh, the mesh on its BatchNorms.
+    Returns the mesh the step runs over: None for no mesh or a world of
+    one without a process group."""
+    freeze_tree(model, cfg.freeze_until)
+    mesh = active_mesh(mesh)
+    if mesh is not None:
+        set_batchnorm_mesh(model, mesh)
+    return mesh
 
 
 def _optimize(cfg: TrainConfig, state: TrainState, grads: Tensors,
@@ -345,19 +378,28 @@ def _optimize(cfg: TrainConfig, state: TrainState, grads: Tensors,
 
 
 def make_train_step(model: YoloFace, cfg: TrainConfig,
-                    hyp: Dict[str, float], img_size: int) -> Callable:
+                    hyp: Dict[str, float], img_size: int,
+                    mesh=None) -> Callable:
     """The train step `step(state, images, targets) -> (state, loss,
     components)`: forward, loss, backward, one optimizer apply and one EMA
     update, in place on `state` (whose model is `model`). `images` are a
     uint8 or float NHWC batch, `targets` the arrays of
     `build_targets_batched`; both move to the model's device. Applies
-    `cfg.freeze_until` to the model's requires_grad flags."""
+    `cfg.freeze_until` to the model's requires_grad flags.
+
+    With `mesh` (a parallel.mesh.DataMesh) every rank calls the step with
+    its rows of the global batch (`parallel.mesh.shard_batch`); the
+    model's BatchNorms take the mesh, the gradients are summed over it in
+    one collective a dtype before the apply, and the loss and components
+    returned are the global batch's."""
     h = scale_loss_gains(hyp, model.spec.nl, model.spec.nc, img_size)
-    freeze_tree(model, cfg.freeze_until)
-    run = _grad_fn(model, h)
+    mesh = _attach(model, cfg, mesh)
+    run = _grad_fn(model, h, mesh)
 
     def step_fn(state: TrainState, images, targets):
         loss, components, grads = run(images, targets)
+        if mesh is not None:
+            all_reduce_tensors(mesh, grads)
         _optimize(cfg, state, grads, state.step)
         return state, loss, components
 
@@ -365,7 +407,7 @@ def make_train_step(model: YoloFace, cfg: TrainConfig,
 
 
 def make_accum_steps(model: YoloFace, cfg: TrainConfig,
-                     hyp: Dict[str, float], img_size: int):
+                     hyp: Dict[str, float], img_size: int, mesh=None):
     """Gradient-accumulation pair: `grad_fn(state, images, targets,
     grads_acc)` adds one micro-batch's gradients into `grads_acc` (the
     loss.backward() accumulation semantics, train.py:409,437-442) and
@@ -373,10 +415,17 @@ def make_accum_steps(model: YoloFace, cfg: TrainConfig,
     step with the lr/momentum schedule evaluated at the global
     micro-iteration `sched_step` (the reference's `ni`): warmup and the
     per-epoch cosine schedule count micro-batches, not applies, so with
-    accumulation the schedule is not driven off state.step."""
+    accumulation the schedule is not driven off state.step.
+
+    With `mesh`, as `make_train_step`: `grad_fn` takes this rank's rows
+    and returns the global loss and components, and `grads_acc` holds
+    this rank's share; `apply_fn` sums the accumulated gradients over the
+    mesh once, in place, before the optimizer (the reference's DDP
+    no_sync accumulation; the JAX package sums global gradients at each
+    micro-step, the same sum up to rounding)."""
     h = scale_loss_gains(hyp, model.spec.nl, model.spec.nc, img_size)
-    freeze_tree(model, cfg.freeze_until)
-    run = _grad_fn(model, h)
+    mesh = _attach(model, cfg, mesh)
+    run = _grad_fn(model, h, mesh)
 
     def grad_fn(state: TrainState, images, targets, grads_acc: Tensors):
         loss, components, grads = run(images, targets)
@@ -386,6 +435,8 @@ def make_accum_steps(model: YoloFace, cfg: TrainConfig,
         return state, grads_acc, loss, components
 
     def apply_fn(state: TrainState, grads: Tensors, sched_step):
+        if mesh is not None:
+            all_reduce_tensors(mesh, grads)
         _optimize(cfg, state, grads, sched_step)
         return state
 

@@ -456,9 +456,10 @@ def test_dataset_augment_raises_naming_module_8(corpora):
     """The augmenting FaceDataset, once module 8's NotImplementedError, is
     ported: on the mixed-aspect corpus with mosaic, mixup, a warp and the
     flips, each sample equals the JAX package's under the same seeds
-    (images bit for bit, labels within 1e-6). What module 8 still lacks,
-    training over several processes, raises naming it; bf16 training,
-    ported since, does not."""
+    (images bit for bit, labels within 1e-6). bf16 training and training
+    over several processes, ported since (the latter in
+    tests/test_torch_mesh.py), raise nothing. The name is kept from when
+    both raised."""
     import argparse
     import random
 
@@ -486,5 +487,4 @@ def test_dataset_augment_raises_naming_module_8(corpora):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.distributed, "is_initialized", lambda: True)
         mp.setattr(torch.distributed, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="module 8"):
-            train._device(args)
+        assert train._device(args) == torch.device("cpu")

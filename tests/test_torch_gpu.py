@@ -1320,3 +1320,138 @@ def test_extra_cfg_on_card(cuda_device, dtype, fuse_elan):
     for g, w in zip(got, want_raws):
         share = float((g.float() - w).abs().max() / w.abs().max())
         assert share < 5e-2, share
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A world of one process over NCCL in this process (a data mesh with
+    a process group), destroyed after the test."""
+    import torch.distributed as dist
+
+    from face_detection_multi_scale_tpu_torch.parallel import mesh as PMESH
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{PMESH._free_port()}",
+        world_size=1, rank=0)
+    try:
+        mesh = PMESH.make_data_mesh()
+        assert (mesh.backend, mesh.size, mesh.rank) == ("nccl", 1, 0)
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode", ["float32", "bf16", "fused", "int8"])
+def test_world_of_one_mesh_serves_as_without_on_card(nccl_mesh, mode):
+    """A narrowed tiny detector with the NCCL world-of-one mesh: its
+    Detections equal the mesh-less detector's bit for bit, with the same
+    launches of every kernel (one nms_keep a call); 5 frames pad to none.
+    The int8 mesh detector calibrates on its first batch and the
+    mesh-less one serves the same qparams."""
+    kw = {"float32": {}, "bf16": {"dtype": torch.bfloat16},
+          "fused": {"fuse_elan": True}, "int8": {"quantize": "int8"}}[mode]
+    common = dict(img_sizes=(128,), conf_thres=0.01, max_candidates=512,
+                  seed=5, device="cuda", **kw)
+    meshed = FaceDetector(narrow_tiny(), mesh=nccl_mesh, **common)
+    plain = FaceDetector(narrow_tiny(), **common)
+    frames = np.random.default_rng(6).integers(0, 256, (5, 128, 128, 3),
+                                               dtype=np.uint8)
+
+    def counts():
+        return (K.nms_keep.launches, E.fused_elan.launches,
+                E.fused_elan.bf16_launches, QK.qconv.launches)
+
+    before = counts()
+    got = meshed.run_network(frames)
+    torch.cuda.synchronize()
+    mid = counts()
+    if mode == "int8":
+        plain._qparams = meshed._qparams
+    want = plain.run_network(frames)
+    torch.cuda.synchronize()
+    after = counts()
+    assert mid[0] == before[0] + 1
+    assert [m - b for m, b in zip(mid, before)] == \
+        [a - m for a, m in zip(after, mid)]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got.valid.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int32, torch.int64,
+                                   torch.bool, torch.uint8])
+def test_gather_rows_bit_exact_on_card(nccl_mesh, dtype):
+    """gather_rows over NCCL carries every value bit for bit (signed
+    zeros and NaNs of the float types too)."""
+    from face_detection_multi_scale_tpu_torch.parallel import mesh as PMESH
+
+    g = torch.Generator().manual_seed(1)
+    t = torch.randn(6, 3, 5, generator=g) * 100
+    if dtype.is_floating_point:
+        t[0, 0, :3] = torch.tensor([-0.0, float("nan"), float("inf")])
+        t = t.to(dtype)
+    else:
+        t = t.to(torch.int64).to(dtype) if dtype != torch.bool else t > 0
+    t = t.cuda()
+    got = PMESH.gather_rows(nccl_mesh, t, 6)
+    assert got.dtype == dtype and got.device == t.device
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    bits = width[t.element_size()]
+    assert torch.equal(got.view(bits) if dtype != torch.bool else got,
+                       t.view(bits) if dtype != torch.bool else t)
+
+
+def test_mesh_train_step_world_of_one_on_card(nccl_mesh):
+    """Narrowed tiny at b4@128 on the card, two make_accum_steps
+    micro-steps and an apply with the NCCL world-of-one mesh (BatchNorm's
+    mesh path) and without one, checked as chip_smoke phase 26 checks the
+    sharded step
+    (torch_shared.step_ratios): in float64 losses, components, parameters
+    and BN statistics within the sharded-step tolerances (torch_shared
+    MESH_*) of the step without a mesh; in float32 the losses,
+    components and BN statistics too, and each parameter tensor within
+    them or as near the exact float64 step in L2 as the step without a
+    mesh is, within a factor 2."""
+    import chip_smoke
+    import torch_shared
+
+    from face_detection_multi_scale_tpu_torch.models.model import (
+        YoloFace, init_weights)
+    from face_detection_multi_scale_tpu_torch.train import trainer as TR
+    from face_detection_multi_scale_tpu_torch.train.hyp import (
+        HYP_SCRATCH_P6)
+
+    spec = narrow_tiny().resolve()
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(2):
+        images, labels = chip_smoke.face_batch(rng, 4, 128)
+        batches.append((images, chip_smoke.build_targets_batched(
+            labels, 4, spec, [(128 // s,) * 2 for s in spec.strides])))
+    cfg = TR.TrainConfig(epochs=300, steps_per_epoch=10, warmup_epochs=0.0,
+                         min_warmup_steps=1, batch_size=4)
+
+    def run(mesh, dtype):
+        net = init_weights(YoloFace(narrow_tiny()),
+                           torch.Generator().manual_seed(2)).to(
+                               "cuda", dtype)
+        state = TR.create_train_state(net)
+        grad_fn, apply_fn = TR.make_accum_steps(net, cfg, HYP_SCRATCH_P6,
+                                                128, mesh=mesh)
+        acc, losses, comps = TR.zero_grads_like(state.params), [], []
+        for b in batches:
+            state, acc, loss, c = grad_fn(state, *b, acc)
+            losses.append(float(loss))
+            comps.append(c.cpu().numpy())
+        apply_fn(state, acc, len(batches) - 1)
+        return losses, comps, {k: v.detach().cpu()
+                               for k, v in net.state_dict().items()}
+
+    one64 = run(None, torch.float64)
+    r64 = torch_shared.step_ratios(run(nccl_mesh, torch.float64), one64)
+    assert max(r64.values()) <= 1.0, r64
+    r32 = torch_shared.step_ratios(run(nccl_mesh, torch.float32),
+                                   run(None, torch.float32), one64)
+    assert max(r32[k] for k in ("loss", "components", "bn")) <= 1.0, r32
+    assert r32["param"] <= 1.0 or r32["noise_ratio"] <= 2.0, r32

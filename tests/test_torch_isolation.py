@@ -131,6 +131,13 @@ def test_export_modules_are_scanned():
             "cli/export.py"} <= scanned
 
 
+def test_parallel_modules_are_scanned():
+    """The data-parallel mesh's modules (parallel/) are scanned."""
+    scanned = {str(p.relative_to(PORT)) for p in port_files()
+               if PORT in p.parents}
+    assert {"parallel/__init__.py", "parallel/mesh.py"} <= scanned
+
+
 def test_cli_export_defaults_to_the_card(monkeypatch, tmp_path):
     """cli.export without --device asks for the card and raises where
     there is none, before it builds anything; it does not move to the

@@ -36,6 +36,8 @@ from face_detection_multi_scale_tpu_torch.infer.detector import (
 from face_detection_multi_scale_tpu_torch.infer.results import (
     Detections as TDetections)
 from face_detection_multi_scale_tpu_torch.models import zoo as TZ
+from face_detection_multi_scale_tpu_torch.parallel.mesh import (
+    make_data_mesh)
 
 from test_torch_detector import (
     assert_rows_match, settings_for_rows, shared_variables)
@@ -311,7 +313,8 @@ def test_constructor_parameters_follow_jax():
     """The port's FaceDetector takes every parameter of the JAX
     FaceDetector in its order, through calib_images (then `device`), with
     the JAX defaults, so a positional call builds the same serving mode; a
-    mesh is not ported and raises."""
+    mesh (ported: tests/test_torch_mesh.py) of one process without a
+    process group serves as no mesh."""
     jsig = inspect.signature(JFaceDetector.__init__).parameters
     tsig = inspect.signature(TFaceDetector.__init__).parameters
     jnames, tnames = list(jsig), list(tsig)
@@ -321,8 +324,8 @@ def test_constructor_parameters_follow_jax():
                  "fuse_elan", "micro_batch", "mesh"):
         assert tsig[name].default == jsig[name].default, name
     spec = narrowed(TZ, NAME)
-    with pytest.raises(NotImplementedError, match="module 7"):
-        TFaceDetector(spec, mesh=object(), device="cpu")
+    meshed = TFaceDetector(spec, mesh=make_data_mesh(), device="cpu")
+    assert meshed._mesh is None
     # ROADMAP's fault: index 12 is `fuse`, so BN is folded and ELAN is not
     # fused
     det = TFaceDetector(spec, None, None, (64,), 0.5, 0.5, False,
