@@ -318,7 +318,26 @@ Phases, each fatal on failure (nothing is caught to carry on):
      launches nms_keep once a validation batch, rank 1 launches nothing,
      both ranks end bit-identical, and rank 0 alone wrote results.txt and
      the weights
- 27. one JSON line with every kernel's launches, error, times and bound;
+ 27. the spatial mesh (parallel/mesh.spatial_infer, parallel/spatial.py):
+     phase 4's w6 (seed 0, BN folded) on noise frames at b1@3840^2 and
+     b1@2176x3840, phase 4's gate, K = 4096. (a) A world of one over
+     NCCL in this process, a 1x1 grid: in float32 (TF32 off) and bf16,
+     rows bit-equal to the one-process forward and decode, no exchange,
+     and with the NMS as the postprocess one nms_keep launch and the
+     one-process Detections. (b) Four spawned processes sharing the card
+     in a gloo group as a (2, 2) grid (rank 0 computes the one-process
+     references first): float32 rows within rtol 1e-4 / atol 1e-4 of
+     the one-process card rows (else, by how much, and held to phase 4's
+     row tolerance), bf16 rows within 5e-2 of the largest value of each
+     field of the one-process bf16 rows (the share printed); with the NMS
+     as the postprocess, Detections equal across ranks and to the CPU
+     postprocess of the gathered rows, one nms_keep a rank a call. (c)
+     The same processes as a (4, 1) grid over 2176 x 3840 (544-px rows,
+     not a multiple of 64), float32. Per grid: a rank's call ms (host
+     clock; four processes sharing one card, not a multi-card speed),
+     its busy share (its own device time inside the call, torch.profiler)
+     and its exchanges and halo bytes a call
+ 28. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
      of 16 blocks; fused_elan_bf16 beside fused_elan; `launches` sums
@@ -336,8 +355,10 @@ Phases, each fatal on failure (nothing is caught to carry on):
      phase 24's numbers, its `mesh_launches` phases 25-26's calls (every
      rank's; they are in every kernel's `launches` and
      `launches_by_path`) and `mesh` their seconds, train tolerance
-     ratios and the ranks' busy shares
- 28. the last line: {"ok": true, "device": {...}}
+     ratios and the ranks' busy shares; its `spatial_launches` phase
+     27's calls with the NMS (every rank's; in its `launches`) and
+     `spatial` each grid's numbers
+ 29. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
@@ -355,6 +376,7 @@ import concurrent.futures
 import contextlib
 import copy
 import json
+import multiprocessing as mp
 import os
 import subprocess
 import sys
@@ -388,7 +410,7 @@ from face_detection_multi_scale_tpu_torch.models import layers_extra as LX
 from face_detection_multi_scale_tpu_torch.models import quant as QUANT
 from face_detection_multi_scale_tpu_torch.models import zoo
 from face_detection_multi_scale_tpu_torch.models.model import (
-    YoloFace, init_weights)
+    YoloFace, cast_model, init_weights)
 from face_detection_multi_scale_tpu_torch.models.head import (
     decode, reshape_level)
 from face_detection_multi_scale_tpu_torch.models.spec import (
@@ -546,6 +568,8 @@ def zero_counters() -> None:
     E.fused_elan.launches = E.fused_elan.bf16_launches = 0
     QK.qconv.launches = QK.qconv.depthwise_launches = 0
     QK.qconv.wgmma_launches = QK.qconv.split_launches = 0
+    PMESH.spatial_infer.calls = PMESH.spatial_infer.exchanges = 0
+    PMESH.spatial_infer.halo_bytes = 0
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -4016,6 +4040,355 @@ def mesh_noise(seeds) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the spatial mesh (parallel/mesh.spatial_infer, parallel/spatial.py)
+# ---------------------------------------------------------------------------
+
+SPATIAL_SIZE = 3840           # the reference pyramid's top scale
+SPATIAL_RECT = (2176, 3840)   # 27c: 544-px rows over 4, not a multiple of 64
+SPATIAL_RANKS = 4             # 27b-c: processes sharing the card over gloo
+SPATIAL_ROW_TOL = dict(rtol=1e-4, atol=1e-4)   # __graft_entry__.py:230
+# every counted spatial call: {tag: nms_keep launches}
+SPATIAL_LAUNCHES = {}
+
+
+def spatial_frames():
+    """Phase 27's noise frames: b1@3840^2 and b1@2176x3840 (uint8 NHWC)."""
+    rng = np.random.default_rng(27)
+    return (rng.integers(0, 256, (1, SPATIAL_SIZE, SPATIAL_SIZE, 3),
+                         dtype=np.uint8),
+            rng.integers(0, 256, (1, *SPATIAL_RECT, 3), dtype=np.uint8))
+
+
+def spatial_weights() -> dict:
+    """Phase 4's w6 weights (seed 0's init), made once for phase 27."""
+    return init_weights(YoloFace(zoo.get_spec("yolov7-w6-face")),
+                        torch.Generator().manual_seed(0)).state_dict()
+
+
+def spatial_models(gate: float, weights: dict):
+    """Phase 4's w6 detector (`weights`, BN folded) on the card with phase
+    4's gate and K = MAX_CANDIDATES, whose `postprocess` is the NMS, and
+    the models spatial_infer runs: {float32: its model, bf16: a copy cast
+    as FaceDetector(dtype=bfloat16) casts it}."""
+    det = FaceDetector("yolov7-w6-face", variables=weights, img_sizes=(SIZE,),
+                       conf_thres=gate, iou_thres=0.5,
+                       max_candidates=MAX_CANDIDATES, device="cuda")
+    return det, {torch.float32: det.model, torch.bfloat16: cast_model(
+        copy.deepcopy(det.model), torch.bfloat16)}
+
+
+def one_process_rows(model, frame: np.ndarray, dtype):
+    """The one-process forward and decode of the uint8 `frame` (uploaded,
+    cast to `dtype`, then / 255, as spatial_infer does), and its host
+    ms."""
+    x = torch.as_tensor(frame)
+
+    def run():
+        with torch.inference_mode(), full_fp32():
+            return decode(model(x.cuda().to(dtype) / 255.0), model.spec)
+
+    return timed(run)
+
+
+@contextlib.contextmanager
+def card_profile():
+    """A torch.profiler window over the host and the card, kept in memory
+    (no Chrome trace written: phase 27 reads only its events)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        yield prof
+
+
+def column_share(got, want) -> float:
+    """The largest, over the row fields, of max |got - want| / max |want|
+    (bf16: PERF.md §2's share of the largest value)."""
+    got, want = got.double().flatten(0, -2), want.double().flatten(0, -2)
+    return float(((got - want).abs().amax(0)
+                  / want.abs().amax(0).clamp_min(1e-30)).max())
+
+
+def busy_in(prof, tag: str) -> float:
+    """The device-busy milliseconds inside the host range of the
+    record_function `tag` of a trace (the union of the card's kernel,
+    copy and set intervals clipped to it; the range's own annotations on
+    the card's streams are not work)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rng = [e.time_range for e in prof.events()
+           if e.name == tag and e.device_type != cuda]
+    check(len(rng) == 1, f"trace: {len(rng)} host ranges named {tag}")
+    lo, hi = rng[0].start, rng[0].end
+    spans = sorted((max(lo, e.time_range.start), min(hi, e.time_range.end))
+                   for e in prof.events()
+                   if e.device_type == cuda and e.name != tag
+                   and e.time_range.end > lo and e.time_range.start < hi)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def spatial_call(model, frame, mesh, dtype, tag=None, post=None):
+    """One counted spatial_infer call (counters zeroed before, read after):
+    (its output, {ms, exchanges, halo_bytes, launches})."""
+    zero_counters()
+    ctx = (torch.profiler.record_function(tag) if tag
+           else contextlib.nullcontext())
+    with ctx:
+        out, ms = timed(lambda: PMESH.spatial_infer(
+            model, frame, mesh, dtype=dtype, postprocess=post))
+    return out, {"ms": ms, "calls": PMESH.spatial_infer.calls,
+                 "exchanges": PMESH.spatial_infer.exchanges,
+                 "halo_bytes": PMESH.spatial_infer.halo_bytes,
+                 "launches": counts_since_zero()}
+
+
+def drive_spatial_world_of_one(smi: str, frame: np.ndarray, gate: float,
+                               weights: dict) -> dict:
+    """Phase 27a: a world of one over NCCL, in this process, as a 1x1 grid:
+    w6 b1@3840^2 through spatial_infer in float32 and bf16, bit-equal to
+    the one-process forward and decode, and with the NMS as the
+    postprocess (one nms_keep launch) to its Detections."""
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{PMESH._free_port()}",
+        world_size=1, rank=0)
+    out = {}
+    try:
+        mesh = PMESH.make_spatial_mesh()
+        check(mesh.backend == "nccl" and mesh.shape == (1, 1)
+              and mesh.group is not None, f"phase 27a mesh {mesh}")
+        det, models = spatial_models(gate, weights)
+        for name, dtype in (("float32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            tag = f"yolov7-w6-face {name} spatial 1x1 (nccl)"
+            model = models[dtype]
+            spatial_call(model, frame, mesh, dtype)  # warm-up
+            want, one_ms = one_process_rows(model, frame, dtype)
+            got, call = spatial_call(model, frame, mesh, dtype)
+            with card_profile() as prof:
+                _, traced = spatial_call(model, frame, mesh, dtype, tag=tag)
+            call["busy_share"] = busy_in(prof, tag) / traced["ms"]
+            check(torch.equal(got, want), f"{tag}: rows differ from the "
+                                          f"one-process forward and decode")
+            dets, post = spatial_call(model, frame, mesh, dtype,
+                                      post=det.postprocess)
+            check(same_detections(dets, det.postprocess(want)),
+                  f"{tag}: Detections differ from the one-process "
+                  f"postprocess")
+            check(post["launches"] == {"seq": 1, "fixpoint": 0, "fused": 0,
+                                       "qconv": 0}
+                  and call["exchanges"] == 0 == call["halo_bytes"],
+                  f"{tag}: launches {post['launches']}, exchanges "
+                  f"{call['exchanges']}")
+            SPATIAL_LAUNCHES[tag] = post["launches"]["seq"]
+            out[name] = {"ms": call["ms"], "busy_share": call["busy_share"],
+                         "nms_ms": post["ms"], "one_process_ms": one_ms}
+            print(f"{tag} b1@{SPATIAL_SIZE}^2 on {smi}: rows "
+                  f"{tuple(got.shape)} and Detections bit-equal to one "
+                  f"process; ms a call "
+                  f"{call['ms']:.3f} (busy share {call['busy_share']:.4f} "
+                  f"in a traced call of {traced['ms']:.3f} ms; with the NMS "
+                  f"{post['ms']:.3f}; "
+                  f"the one-process forward+decode {one_ms:.3f}); exchanges "
+                  f"0, halo bytes 0")
+            del want, got, dets
+        del det, models, model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def spatial_rank(gate: float, weights_path: str, go) -> dict:
+    """Phases 27b-c in one of SPATIAL_RANKS processes sharing the card in a
+    gloo group. Each makes the frames (`spatial_frames`: arguments larger
+    than a pipe's buffer would hold each spawned rank's start until the
+    one before it had imported this script) and its models, then waits
+    for the event `go` (set once phase 27a has left the card). Rank 0 first computes the
+    one-process references (in a process as fresh as the ranks'); then
+    every rank: (27b) the (2, 2)
+    grid on the 3840^2 frame in float32 and bf16, a warm-up call, a timed
+    call and a call with the NMS; (27c) the (4, 1) grid on the 2176 x
+    3840 frame in float32. The timed calls run untraced, then once more
+    in one profiler window for the busy shares.
+    Every rank returns its counts, times and the digests of its rows and
+    Detections; rank 0 also holds its rows to the references."""
+    clock = {"start": time.perf_counter()}
+    grid22, grid41 = PMESH.make_spatial_mesh(), PMESH.make_spatial_mesh(
+        rows=SPATIAL_RANKS)
+    rank = grid22.rank
+    out = {"rank": rank, "backend": grid22.backend,
+           "grids": (grid22.shape, grid41.shape)}
+    f32, bf16 = torch.float32, torch.bfloat16
+    frame, rect = spatial_frames()
+    det, models = spatial_models(gate, torch.load(weights_path))
+    cases = (("2x2 float32", f32, frame, grid22),
+             ("2x2 bf16", bf16, frame, grid22),
+             ("4x1 float32", f32, rect, grid41))
+    clock["built"] = time.perf_counter()
+    go.wait()
+    clock["waited"] = time.perf_counter()
+    ref = {}
+    if rank == 0:
+        for case, dtype, x, _ in cases:
+            one_process_rows(models[dtype], x, dtype)  # warm-up
+            rows, ms = one_process_rows(models[dtype], x, dtype)
+            ref[case] = (rows.cpu(), ms)
+            del rows
+            torch.cuda.empty_cache()
+    dist.barrier()
+    clock["references"] = time.perf_counter()
+    for case, dtype, x, grid in cases:
+        spatial_call(models[dtype], x, grid, dtype)  # warm-up: record, plans
+    clock["warm-up"] = time.perf_counter()
+    res, rows, traced = {}, {}, {}
+    for case, dtype, x, grid in cases:
+        got, res[case] = spatial_call(models[dtype], x, grid, dtype)
+        rows[case] = got.cpu()
+        res[case]["digest"] = digest({"rows": rows[case]})
+    clock["timed"] = time.perf_counter()
+    with card_profile() as prof:
+        for case, dtype, x, grid in cases:
+            traced[case] = spatial_call(models[dtype], x, grid, dtype,
+                                        tag=case)[1]["ms"]
+    for case in res:
+        res[case]["busy_share"] = busy_in(prof, case) / traced[case]
+        res[case]["traced_ms"] = traced[case]
+    clock["traced"] = time.perf_counter()
+    for case, dtype, x, grid in cases[:2]:
+        got, post = spatial_call(models[dtype], x, grid, dtype,
+                                 post=det.postprocess)
+        res[case].update(nms_ms=post["ms"], nms_launches=post["launches"],
+                         dets_digest=digest({str(i): t for i, t in
+                                             enumerate(got)}))
+        if rank == 0:
+            res[case]["post_equal"] = same_detections(
+                got, det.postprocess(rows[case]))
+    clock["nms"] = time.perf_counter()
+    if rank == 0:
+        for case, (want, ms) in ref.items():
+            got = rows[case]
+            res[case].update(one_process_ms=ms, shape=tuple(got.shape),
+                             want_shape=tuple(want.shape),
+                             finite=bool(torch.isfinite(got).all()))
+            if got.shape == want.shape and "bf16" in case:
+                res[case]["share"] = column_share(got, want)
+            elif got.shape == want.shape:
+                res[case]["units"] = tolerance_ratio(got, want,
+                                                     **SPATIAL_ROW_TOL)
+                res[case]["gate_units"] = tolerance_ratio(got, want,
+                                                          **ROW_TOL)
+    out["cases"] = res
+    names = list(clock)
+    out["seconds"] = {b: round(clock[b] - clock[a], 2)
+                      for a, b in zip(names, names[1:])}
+    return out
+
+
+def drive_spatial(smi: str, gate: float) -> dict:
+    """Phase 27: the spatial mesh on the one card. Returns the numbers for
+    the kernels line."""
+    t0 = time.perf_counter()
+    frame, _ = spatial_frames()
+    weights = spatial_weights()
+    torch.cuda.empty_cache()
+    # the ranks start and build their models while 27a runs, and wait for
+    # `go` before they use the card
+    go = mp.get_context("spawn").Event()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="chip_smoke_spatial_"
+                                     ) as tmp:
+        path = os.path.join(tmp, "w6.pt")
+        torch.save(weights, path)
+        ranks = pool.submit(PMESH.run_ranks, spatial_rank, SPATIAL_RANKS,
+                            (gate, path, go), device="cuda",
+                            backend="gloo", timeout=MESH_TIMEOUT)
+        try:
+            one = drive_spatial_world_of_one(smi, frame, gate, weights)
+        finally:
+            go.set()
+            pool.shutdown(wait=False)
+        t27a = time.perf_counter() - t0
+        stamp("phase 27a (spatial 1x1 over NCCL, float32 and bf16) done")
+        res = ranks.result()
+    t_ranks = time.perf_counter() - t0
+    print(f"phase 27b-c: seconds a rank by part {[r['seconds'] for r in res]}")
+    check([r["backend"] for r in res] == ["gloo"] * SPATIAL_RANKS
+          and all(r["grids"] == ((2, 2), (4, 1)) for r in res),
+          f"phase 27b: backends and grids "
+          f"{[(r['backend'], r['grids']) for r in res]}")
+    fields = {}
+    for case in res[0]["cases"]:
+        tag = f"yolov7-w6-face {case} spatial (gloo, one card)"
+        got = [r["cases"][case] for r in res]
+        first = got[0]
+        check(len({g["digest"] for g in got}) == 1,
+              f"{tag}: the ranks' rows differ")
+        check(first["shape"] == first["want_shape"] and first["finite"],
+              f"{tag}: rows {first['shape']} against the one-process "
+              f"{first['want_shape']}, finite {first['finite']}")
+        if "bf16" in case:
+            share = first["share"]
+            print(f"{tag}: rows off the one-process bf16 rows by {share:.4g}"
+                  f" of the largest value of a field (bound "
+                  f"{BF16_RAW_SHARE})")
+            check(share < BF16_RAW_SHARE, f"{tag}: beyond {BF16_RAW_SHARE}")
+            gate_units = share / BF16_RAW_SHARE
+        else:
+            units, gate_units = first["units"], first["gate_units"]
+            print(f"{tag}: rows {units:.4g} units of rtol 1e-4 / atol 1e-4 "
+                  f"from the one-process card rows"
+                  + ("" if units <= 1 else
+                     f" (missed by {units:.4g}x; held to {ROW_TOL}: "
+                     f"{gate_units:.4g} units)"))
+            check(units <= 1 or gate_units <= 1,
+                  f"{tag}: rows beyond {ROW_TOL} of one process")
+        if "nms_launches" in first:
+            check(all(g["nms_launches"] == {"seq": 1, "fixpoint": 0,
+                                            "fused": 0, "qconv": 0}
+                      for g in got),
+                  f"{tag}: launches a rank {[g['nms_launches'] for g in got]}")
+            check(len({g["dets_digest"] for g in got}) == 1,
+                  f"{tag}: the ranks' Detections differ")
+            check(first["post_equal"], f"{tag}: Detections differ from the "
+                                       f"CPU postprocess of the gathered "
+                                       f"rows")
+            SPATIAL_LAUNCHES[tag] = sum(g["nms_launches"]["seq"] for g in got)
+        check(all(g["launches"]["seq"] == 0 for g in got),
+              f"{tag}: nms_keep launched without a postprocess")
+        per = {k: [g[k] for g in got] for k in ("ms", "exchanges",
+                                                 "halo_bytes", "busy_share",
+                                                 "traced_ms")}
+        busy = per["busy_share"]
+        one_ms = first["one_process_ms"]
+        fields[case] = {"ms": per["ms"], "busy_share": busy,
+                        "traced_ms": per["traced_ms"],
+                        "exchanges": per["exchanges"],
+                        "halo_bytes": per["halo_bytes"],
+                        "one_process_ms": one_ms, "gate_units": gate_units,
+                        "nms_ms": [g.get("nms_ms") for g in got]}
+        print(f"{tag} on {smi}: a rank's call ms (host clock, {SPATIAL_RANKS}"
+              f" processes sharing the card) "
+              f"{[round(m, 3) for m in per['ms']]}, busy share "
+              f"{[round(b, 4) for b in busy]} (in traced calls of "
+              f"{[round(m, 3) for m in per['traced_ms']]} ms), exchanges "
+              f"{per['exchanges']}, halo bytes {per['halo_bytes']}; the "
+              f"one-process forward+decode {one_ms:.3f} ms"
+              + (f"; with the NMS {[round(g['nms_ms'], 3) for g in got]} ms,"
+                 f" Detections equal across ranks and to the CPU "
+                 f"postprocess of the gathered rows, one nms_keep a rank"
+                 if "nms_ms" in first else ""))
+    total = time.perf_counter() - t0
+    stamp(f"phase 27 (the spatial mesh) took {total:.1f} s (27a {t27a:.1f} "
+          f"s; the ranks {t_ranks:.1f} s from their start beside 27a)")
+    return {"seconds": total, "ranks_seconds": t_ranks, "world_of_one": one,
+            "grids": fields}
+
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -4154,6 +4527,9 @@ def main() -> None:
     # phases 25-26: the data-parallel mesh (one process a card)
     mesh_fields = drive_mesh(smi, frames[w6], w6_gate)
     mesh_routes = mesh_fields.pop("routes")
+
+    # phase 27: the spatial mesh (one image's plane over a grid of ranks)
+    spatial_fields = drive_spatial(smi, w6_gate)
     mesh_tag = "yolov7-w6-face int8 mesh of 1 (nccl)"
     qconv_entry["launches"] += mesh_routes["qconv"]
     for key in ("depthwise", "wgmma", "split"):
@@ -4191,7 +4567,8 @@ def main() -> None:
              total["seq"] + tta_launches + tiled_launches + api_seq
              + sum(EVAL_LAUNCHES.values()) + sum(TRAIN_LAUNCHES.values())
              + sum(EXPORT_LAUNCHES.values())
-             + sum(c["seq"] for c in MESH_LAUNCHES.values()), 20),
+             + sum(c["seq"] for c in MESH_LAUNCHES.values())
+             + sum(SPATIAL_LAUNCHES.values()), 20),
             ("fixpoint", "nms_keep_fixpoint", 35, fixpoint_launches, 20)):
         got = K.nms_keep(boxes, valid, thr, kernel_version=version)
         err = int((got.int() - want.int()).abs().max())
@@ -4255,6 +4632,10 @@ def main() -> None:
                       mesh_launches={tag: c["seq"] for tag, c in
                                      MESH_LAUNCHES.items()},
                       mesh=mesh_fields,
+                      # phase 27: the spatial calls with the NMS (every
+                      # rank's), and each grid's numbers
+                      spatial_launches=dict(SPATIAL_LAUNCHES),
+                      spatial=spatial_fields,
                       train_timed={
                           d: {k: v for k, v in t.items()
                               if not k.endswith("_all")}

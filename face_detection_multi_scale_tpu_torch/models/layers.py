@@ -37,6 +37,13 @@ from torch import nn
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
 
+# the spatial forward's hook (parallel/spatial.py sets it for the length of
+# a forward over one rank's block of the plane, and clears it): the
+# geometric ops below (Conv2d, max_pool, upsample2x_nearest, reorg, Focus's
+# space to depth, zero_pad, and layers_extra's contract, expand and global
+# ops) hand it their input. None: the one-process ops.
+SPATIAL = None
+
 
 def autopad(k: int, p=None) -> int:
     """Same-padding helper (reference models/common.py:22-26)."""
@@ -61,19 +68,32 @@ def max_pool(x: torch.Tensor, k: int, s: int, p: int = 0,
              ceil_mode: bool = False) -> torch.Tensor:
     """NCHW max pool with torch.nn.MaxPool2d(k, s, p, ceil_mode)
     semantics (padding counts as -inf), the JAX package's `max_pool`."""
+    if SPATIAL is not None:
+        return SPATIAL.max_pool(x, k, s, p, ceil_mode)
     return F.max_pool2d(x, k, s, p, ceil_mode=ceil_mode)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2x upsample (nn.Upsample(scale_factor=2))."""
+    if SPATIAL is not None:
+        return SPATIAL.unfold(x, 2, upsample2x_nearest, x.shape[1])
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 
 def reorg(x: torch.Tensor) -> torch.Tensor:
     """Space-to-depth 2x2 with the reference ReOrg channel order
     [(0,0), (1,0), (0,1), (1,1)] over (h, w) offsets."""
+    if SPATIAL is not None:
+        return SPATIAL.fold(x, 2, reorg)
     return torch.cat([x[:, :, 0::2, 0::2], x[:, :, 1::2, 0::2],
                       x[:, :, 0::2, 1::2], x[:, :, 1::2, 1::2]], dim=1)
+
+
+def zero_pad(x: torch.Tensor, pads) -> torch.Tensor:
+    """nn.ZeroPad2d: `pads` in torch order (left, right, top, bottom)."""
+    if SPATIAL is not None:
+        return SPATIAL.zero_pad(x, pads)
+    return F.pad(x, tuple(pads))
 
 
 def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
@@ -96,6 +116,8 @@ class Conv2d(nn.Conv2d):
     compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if SPATIAL is not None:
+            return SPATIAL.conv2d(self, x)
         dt = self.compute_dtype or self.weight.dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
@@ -503,9 +525,17 @@ class Focus(nn.Module):
         self.conv = ConvBN(4 * c1, c2, k, s, act=act)
 
     def forward(self, x):
-        b, c, h, w = x.shape
-        y = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
-        return self.conv(y.reshape(b, 4 * c, h // 2, w // 2))
+        return self.conv(focus_fold(x))
+
+
+def focus_fold(x: torch.Tensor) -> torch.Tensor:
+    """Focus's space to depth: channel (2 sh + sw) C + c takes the pixel
+    at offset (sh, sw) of each 2 x 2 cell."""
+    if SPATIAL is not None:
+        return SPATIAL.fold(x, 2, focus_fold)
+    b, c, h, w = x.shape
+    y = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    return y.reshape(b, 4 * c, h // 2, w // 2)
 
 
 class ImplicitA(nn.Module):

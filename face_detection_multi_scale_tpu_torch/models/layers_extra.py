@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from face_detection_multi_scale_tpu_torch.models import layers as L
 from face_detection_multi_scale_tpu_torch.models.layers import (
     Bottleneck, Conv2d, ConvBN, DWConvBN, autopad, batch_norm, max_pool)
 
@@ -243,6 +244,8 @@ class TransformerBlock(nn.Module):
         self.c2 = c2
 
     def forward(self, x):
+        if L.SPATIAL is not None:  # attention reads the whole plane
+            return L.SPATIAL.global_op(self, x)
         if self.conv is not None:
             x = self.conv(x)
         b, _, h, w = x.shape
@@ -352,6 +355,8 @@ def contract(x: torch.Tensor, gain: int = 2) -> torch.Tensor:
     """Space to channels (reference models/common.py:384-395): output
     channel (sh gain + sw) C + c takes the pixel at offset (sh, sw) of
     each gain x gain cell."""
+    if L.SPATIAL is not None:
+        return L.SPATIAL.fold(x, gain, lambda t: contract(t, gain))
     b, c, h, w = x.shape
     s = gain
     y = x.reshape(b, c, h // s, s, w // s, s).permute(0, 3, 5, 1, 2, 4)
@@ -361,6 +366,9 @@ def contract(x: torch.Tensor, gain: int = 2) -> torch.Tensor:
 def expand(x: torch.Tensor, gain: int = 2) -> torch.Tensor:
     """Channels to space (reference models/common.py:398-409), the inverse
     of `contract`."""
+    if L.SPATIAL is not None:
+        return L.SPATIAL.unfold(x, gain, lambda t: expand(t, gain),
+                                x.shape[1] // gain ** 2)
     b, c, h, w = x.shape
     s = gain
     y = x.reshape(b, s, s, c // s ** 2, h, w).permute(0, 3, 4, 1, 5, 2)
@@ -377,6 +385,8 @@ class Classify(nn.Module):
         self.conv = Conv2d(c1, c2, k, s, autopad(k))
 
     def forward(self, x):
+        if L.SPATIAL is not None:  # the pools read the whole plane
+            return L.SPATIAL.global_op(self, x)
         xs = x if isinstance(x, (list, tuple)) else [x]
         z = torch.cat([v.mean(dim=(2, 3), keepdim=True) for v in xs], dim=1)
         return self.conv(z).flatten(1)
@@ -453,6 +463,8 @@ class MetaAconC(nn.Module):
         self.fc2 = Conv2d(c2, c1, 1, 1)
 
     def forward(self, x):
+        if L.SPATIAL is not None:  # the mean reads the whole plane
+            return L.SPATIAL.global_op(self, x)
         y = x.mean(dim=(2, 3), keepdim=True)
         beta = torch.sigmoid(self.fc2(self.fc1(y)))
         return _acon(x, self.p1, self.p2, beta)

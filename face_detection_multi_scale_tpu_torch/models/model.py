@@ -21,7 +21,6 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from face_detection_multi_scale_tpu_torch.models import layers as L
@@ -156,7 +155,7 @@ def apply_stateless_op(op: str, args, inp):
         return L.upsample2x_nearest(inp)
     if op == "ZeroPad2d":
         # torch padding order (left, right, top, bottom)
-        return F.pad(inp, tuple(int(v) for v in args[0]))
+        return L.zero_pad(inp, tuple(int(v) for v in args[0]))
     if op == "MaxPool2d":
         k = int(args[0])
         s = int(args[1]) if len(args) > 1 else k

@@ -17,19 +17,26 @@ host copies, so a gloo group of processes that share one card stages each
 collective through host memory. A failed collective raises; nothing falls
 back to a one-process result. Without a process group, `make_data_mesh()`
 is a world of one, whose collectives return their input.
+
+The spatial half (`make_spatial_mesh`, `spatial_input_sharding`,
+`spatial_infer`) splits one image's height and width over a (sp_h, sp_w)
+grid of the same processes: each rank computes its block of every
+activation, parallel/spatial.py exchanges the halos each conv and pool
+needs, and the head's raw maps are gathered once, exactly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import multiprocessing as mp
 import os
 import queue
 import socket
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -230,20 +237,44 @@ def _values(tensors) -> List[torch.Tensor]:
 def gather_rows(mesh: DataMesh, local: torch.Tensor, n: int
                 ) -> torch.Tensor:
     """The global (n, ...) tensor on every rank from each rank's rows
-    `mesh.rows(n)`, bit for bit: each rank writes its rows into a zero
-    buffer and the buffers are summed as integers (each element's bits as
-    a signed integer, widened to at least 32 bits, which NCCL and gloo
-    both sum), so the sum with zeros is exact for every value."""
+    `mesh.rows(n)`, bit for bit (`gather_blocks`)."""
+    return gather_blocks(mesh, [local], [(n, *local.shape[1:])],
+                         [mesh.rows(n)])[0]
+
+
+def gather_blocks(mesh: DataMesh, blocks: Sequence[torch.Tensor],
+                  shapes: Sequence[Sequence[int]], indices: Sequence
+                  ) -> List[torch.Tensor]:
+    """Each global tensor of `shapes` on every rank, from each rank's
+    `blocks[k]` at `indices[k]` (an index of the global tensor; the
+    ranks' blocks do not overlap), bit for bit: each rank writes its
+    blocks into zero buffers and the buffers are summed as integers (each
+    element's bits as a signed integer, widened to at least 32 bits,
+    which NCCL and gloo both sum), so the sum with zeros is exact for
+    every value. One all-reduce for each integer width."""
     if mesh.group is None:
-        return local
-    bits = (local.view(_INTS[local.element_size()])
-            if local.is_floating_point() or local.dtype == torch.bool
-            else local)
-    wide = bits.to(torch.int32) if bits.element_size() < 4 else bits
-    out = wide.new_zeros((n, *local.shape[1:]))
-    out[mesh.rows(n)] = wide
-    mesh.all_reduce(out)
-    return out.to(bits.dtype).view(local.dtype)
+        return list(blocks)
+    wide, bits_dtypes = [], []
+    for b in blocks:
+        bits = (b.view(_INTS[b.element_size()])
+                if b.is_floating_point() or b.dtype == torch.bool else b)
+        bits_dtypes.append(bits.dtype)
+        wide.append(bits.to(torch.int32) if bits.element_size() < 4
+                    else bits)
+    out: List[Optional[torch.Tensor]] = [None] * len(blocks)
+    # in the blocks' order, so that the ranks' collectives match
+    for dt in dict.fromkeys(w.dtype for w in wide):
+        ks = [k for k, w in enumerate(wide) if w.dtype == dt]
+        sizes = [math.prod(shapes[k]) for k in ks]
+        flat = wide[ks[0]].new_zeros(sum(sizes))
+        views = [v.view(tuple(shapes[k])) for k, v in
+                 zip(ks, flat.split(sizes))]
+        for k, v in zip(ks, views):
+            v[indices[k]] = wide[k]
+        mesh.all_reduce(flat)
+        for k, v in zip(ks, views):
+            out[k] = v.to(bits_dtypes[k]).view(blocks[k].dtype)
+    return out
 
 
 def broadcast_object(mesh: DataMesh, obj):
@@ -260,6 +291,161 @@ def is_main_process() -> bool:
     """Rank-0 gating (reference utils/torch_utils.py:27-36): True without
     a process group."""
     return not _initialized() or dist.get_rank() == 0
+
+
+# ---------------------------------------------------------------------------
+# the spatial mesh: one image's plane over a grid of ranks
+# ---------------------------------------------------------------------------
+
+SPATIAL_AXES = ("sp_h", "sp_w")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SpatialMesh(DataMesh):
+    """A (sp_h, sp_w) grid of the ranks of a process group, row-major:
+    `ranks[r * cols + c]` is the global rank at grid row r, column c, and
+    `rank` (this process's place in `ranks`) is at `coords`. Its
+    collectives are DataMesh's, on the same comm device. A 1x1 grid
+    (size 1, with or without a group) computes as one process."""
+    ranks: Tuple[int, ...] = (0,)
+    shape: Tuple[int, int] = (1, 1)
+
+    @property
+    def coords(self) -> Tuple[int, int]:
+        """This rank's (row, column) in the grid."""
+        return divmod(self.rank, self.shape[1])
+
+    def at(self, row: int, col: int) -> int:
+        """The global rank at grid row `row`, column `col`."""
+        return self.ranks[row * self.shape[1] + col]
+
+    @property
+    def neighbours(self) -> Dict[str, Optional[int]]:
+        """The global ranks above, below, left and right of this one
+        (None at the grid's edge)."""
+        (r, c), (rows, cols) = self.coords, self.shape
+        return {"up": self.at(r - 1, c) if r > 0 else None,
+                "down": self.at(r + 1, c) if r + 1 < rows else None,
+                "left": self.at(r, c - 1) if c > 0 else None,
+                "right": self.at(r, c + 1) if c + 1 < cols else None}
+
+
+def make_spatial_mesh(devices: Optional[Sequence[int]] = None,
+                      rows: Optional[int] = None
+                      ) -> Optional[SpatialMesh]:
+    """A (sp_h, sp_w) grid over every process of the group, or over the
+    global ranks `devices` (a subgroup; every process makes the same call
+    and a process outside `devices` gets None): `rows` rows of n // rows
+    ranks, row-major. Without `rows`, the JAX rule: int(sqrt(n)),
+    lowered until it divides n (8 ranks: 2 x 4; 4: 2 x 2). Without a
+    process group, a 1x1 grid. The port's answer to the reference
+    pyramid's 3840 x 3840 scale (multi_scale_face_detector.py:33), run
+    on one GPU there: one image's height and width split over the
+    ranks."""
+    if not _initialized():
+        if devices is not None and list(devices) != [0]:
+            raise ValueError(f"ranks {list(devices)} without a process "
+                             f"group")
+        if rows not in (None, 1):
+            raise ValueError(f"{rows} rows without a process group")
+        return SpatialMesh(None, 0, 1)
+    world = dist.get_world_size()
+    ranks = list(range(world)) if devices is None else [int(r)
+                                                        for r in devices]
+    n = len(ranks)
+    if rows is None:
+        rows = math.isqrt(n)
+        while n % rows:
+            rows -= 1
+    elif rows < 1 or n % rows:
+        raise ValueError(f"{rows} rows do not divide {n} ranks")
+    group = (dist.group.WORLD if ranks == list(range(world))
+             else dist.new_group(ranks))
+    me = dist.get_rank()
+    if me not in ranks:
+        return None
+    return SpatialMesh(group, ranks.index(me), n, dist.get_backend(group),
+                       ranks=tuple(ranks), shape=(rows, n // rows))
+
+
+def split_extent(extent: int, parts: int, k: int) -> Tuple[int, int]:
+    """[lo, hi) of part k when an extent is split over `parts` ranks:
+    floor(k E / n) to floor((k + 1) E / n), so a part is empty where the
+    ranks outnumber the extent."""
+    return k * extent // parts, (k + 1) * extent // parts
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialSharding:
+    """This rank's block of an NHWC plane on a spatial mesh (the JAX
+    `NamedSharding(mesh, P(None, "sp_h", "sp_w", None))`): H split over
+    the grid's rows, W over its columns, batch and channels whole."""
+    mesh: SpatialMesh
+
+    def slices(self, h: int, w: int) -> Tuple[slice, slice]:
+        """This rank's rows and columns of an (h, w) plane."""
+        (r, c), (rows, cols) = self.mesh.coords, self.mesh.shape
+        return (slice(*split_extent(h, rows, r)),
+                slice(*split_extent(w, cols, c)))
+
+    def shard(self, x):
+        """This rank's block of the NHWC array or tensor `x`."""
+        hs, ws = self.slices(x.shape[1], x.shape[2])
+        return x[:, hs, ws]
+
+
+def spatial_input_sharding(mesh: SpatialMesh) -> SpatialSharding:
+    """NHWC batch with H and W split over the spatial mesh's axes; batch
+    and channels whole."""
+    return SpatialSharding(mesh)
+
+
+def spatial_infer(model, images_u8, mesh: SpatialMesh, postprocess=None,
+                  dtype=None):
+    """One (small-batch, huge-resolution) forward with the image plane
+    split over the grid: every rank passes the whole uint8 NHWC batch,
+    computes its block of every activation (parallel/spatial.py: the
+    halo each conv and pool needs comes from the ranks that own it), the
+    head's raw maps are gathered once, exactly, and every rank decodes
+    them whole. Returns the decoded (bs, N, no) rows in the one-process
+    order, or `postprocess(rows)`, on every rank. `model` is the
+    YoloFace, in eval mode, with its weights on this rank's device (the
+    JAX function's `variables` are inside it); the input is cast to
+    `dtype` (float32 by default) and divided by 255, as the JAX function
+    does. A 1x1 grid computes the one-process forward and decode, bit for
+    bit, with no exchange. Convolutions in full float32 (TF32 off).
+
+    Counts `spatial_infer.calls`, and this rank's `exchanges` (blocks
+    received from other ranks) and `halo_bytes` (their bytes)."""
+    from face_detection_multi_scale_tpu_torch.models.head import (
+        decode, reshape_level)
+    from face_detection_multi_scale_tpu_torch.models.model import full_fp32
+    from face_detection_multi_scale_tpu_torch.parallel import spatial
+
+    if model.training:
+        raise ValueError("spatial_infer runs the model in eval mode "
+                         "(call model.eval())")
+    device = next(model.parameters()).device
+    x = torch.as_tensor(images_u8)
+    with torch.inference_mode(), full_fp32():
+        if mesh.size == 1:
+            raws = model(x.to(device).to(dtype or torch.float32) / 255.0)
+        else:
+            block = spatial_input_sharding(mesh).shard(x).to(device)
+            maps, run = spatial.forward_blocks(
+                model, block.to(dtype or torch.float32) / 255.0,
+                tuple(x.shape), mesh)
+            spatial_infer.exchanges += run.exchanges
+            spatial_infer.halo_bytes += run.halo_bytes
+            spec = model.spec
+            raws = [reshape_level(m, spec.na, spec.no) for m in maps]
+        preds = decode(raws, model.spec)
+        out = postprocess(preds) if postprocess is not None else preds
+    spatial_infer.calls += 1
+    return out
+
+
+spatial_infer.calls = spatial_infer.exchanges = spatial_infer.halo_bytes = 0
 
 
 # ---------------------------------------------------------------------------

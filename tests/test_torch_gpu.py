@@ -1402,6 +1402,35 @@ def test_gather_rows_bit_exact_on_card(nccl_mesh, dtype):
                        t.view(bits) if dtype != torch.bool else t)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatial_world_of_one_on_card(nccl_mesh, dtype):
+    """A 1x1 spatial grid over the NCCL world of one: spatial_infer of a
+    narrowed tiny detector's model on the card equals its forward and
+    decode bit for bit, exchanges nothing, and with the NMS as the
+    postprocess launches nms_keep once and gives its Detections."""
+    from face_detection_multi_scale_tpu_torch.parallel import mesh as PMESH
+
+    mesh = PMESH.make_spatial_mesh()
+    assert (mesh.shape, mesh.backend) == ((1, 1), "nccl")
+    det = FaceDetector(narrow_tiny(), img_sizes=(256,), conf_thres=0.01,
+                       max_candidates=512, seed=5, dtype=dtype,
+                       device="cuda")
+    frame = np.random.default_rng(7).integers(0, 256, (1, 256, 256, 3),
+                                              dtype=np.uint8)
+    exchanges = PMESH.spatial_infer.exchanges
+    got = PMESH.spatial_infer(det.model, frame, mesh, dtype=dtype)
+    want = det.forward_input(torch.as_tensor(frame).cuda().to(dtype) / 255.0)
+    assert torch.equal(got, want)
+    assert PMESH.spatial_infer.exchanges == exchanges
+    before = K.nms_keep.launches
+    dets = PMESH.spatial_infer(det.model, frame, mesh, dtype=dtype,
+                               postprocess=det.postprocess)
+    torch.cuda.synchronize()
+    assert K.nms_keep.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(dets,
+                                                 det.postprocess(want)))
+
+
 def test_mesh_train_step_world_of_one_on_card(nccl_mesh):
     """Narrowed tiny at b4@128 on the card, two make_accum_steps
     micro-steps and an apply with the NCCL world-of-one mesh (BatchNorm's
