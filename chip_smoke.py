@@ -292,10 +292,12 @@ Phases, each fatal on failure (nothing is caught to carry on):
      each request's Detections equal bit for bit to the same detector's
      without a mesh, the same launches of every kernel, one nms_keep a
      call; (b) two spawned processes sharing the card in a gloo group
-     (NCCL refuses two ranks on one device), 4 frames a rank: both ranks'
-     Detections and gathered rows equal, the gathered rows within phase
-     4's tolerance of the one-process b8 forward, the Detections equal to
-     the CPU postprocess of the gathered rows, one nms_keep a rank
+     (NCCL refuses two ranks on one device), 4 frames a rank (each rank
+     makes phase 4's frames from its seed; their digest is checked
+     against phase 4's): both ranks' Detections and gathered rows equal,
+     the gathered rows within phase 4's tolerance of the one-process b8
+     forward, the Detections equal to the CPU postprocess of the gathered
+     rows, one nms_keep a rank
  26. in the same two processes: yolov7-face (full width, scratch.p6)
      trains at global b16@640 (8 rows a rank), 2 micro-steps of
      make_accum_steps(mesh=) and an apply, in float32 with TF32 off and
@@ -337,7 +339,27 @@ Phases, each fatal on failure (nothing is caught to carry on):
      clock; four processes sharing one card, not a multi-card speed),
      its busy share (its own device time inside the call, torch.profiler)
      and its exchanges and halo bytes a call
- 28. one JSON line with every kernel's launches, error, times and bound;
+ 28. the examples (examples/*_torch.py) and the weights fetch: each
+     example's `run(device="cuda")` counted and timed (host clock; the
+     demo and detect_simple after a warm-up call, the exported program
+     after the settings' forward at its shapes), then the same `run` on
+     the CPU with the same
+     seeded frames (640x640 for tiny, 256x256 for lite-t: the host
+     letterbox then needs no OpenCV), noisy seeded weights saved as .pt
+     and thresholds from `decisive_settings` over every network input of
+     the example (at most 32 gated rows): (a) demo_torch, tiny at
+     (640, 1280) with the API chain on the device, single-scale and
+     multi-scale rows within atol 5e-3 / rtol 1e-3 of the CPU run's, one
+     nms_keep an engine call and one for the merge; (b)
+     detect_simple_torch, tiny at 640, one nms_keep; (c)
+     exported_inference_torch, lite-t's .pt2 at 256 exported on the card,
+     loaded and called once (one nms_keep), its rows against the CPU
+     run's, and the ONNX consumer on the host runner keeping what the CPU
+     run's keeps; (d) FaceDetector(torch_weights=<missing>.pt) fetching
+     the file from a local release through `download_url` on a file://
+     URL, its Detections equal to those of a detector loaded from the
+     local file
+ 29. one JSON line with every kernel's launches, error, times and bound;
      for nms_keep_fixpoint also its sweeps at the w6 path's inputs and
      its two launches timed apart, with the sweeps in clusters of 8 and
      of 16 blocks; fused_elan_bf16 beside fused_elan; `launches` sums
@@ -357,8 +379,10 @@ Phases, each fatal on failure (nothing is caught to carry on):
      `launches_by_path`) and `mesh` their seconds, train tolerance
      ratios and the ranks' busy shares; its `spatial_launches` phase
      27's calls with the NMS (every rank's; in its `launches`) and
-     `spatial` each grid's numbers
- 29. the last line: {"ok": true, "device": {...}}
+     `spatial` each grid's numbers; its `example_launches` phase 28's
+     counted calls (in its `launches`) and `examples` their host-clock
+     ms
+ 30. the last line: {"ok": true, "device": {...}}
 
 Kernel times are CUDA-event averages after warm-up. bound_ms is the larger
 of bytes / 3.35 TB/s and operations / the peak of the arithmetic the kernel
@@ -900,6 +924,15 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
     PATH_LAUNCHES[tag] = counts
     return (counts, (nms_boxes.float().contiguous(), valid, det.iou_thres),
             (rows_card, rows_cpu), det, raws)
+
+
+def seeded_frames(seed: int, shape=None) -> np.ndarray:
+    """Phase 4's noise frames of a path's seed: (REQUESTS, BATCH, SIZE,
+    SIZE, 3) uint8 unless `shape` says otherwise. A spawned rank makes its
+    own from the seed (phases 25b-26)."""
+    shape = (REQUESTS, BATCH, SIZE, SIZE, 3) if shape is None else shape
+    return np.random.default_rng(seed).integers(0, 256, shape,
+                                                dtype=np.uint8)
 
 
 def tta_frames() -> np.ndarray:
@@ -3791,16 +3824,21 @@ def mesh_train(mesh, batches, dtype=torch.float32, trace=False,
     return losses, comps, host, times
 
 
-def mesh_rank(frames: np.ndarray, gate: float, tmp: str) -> dict:
+def mesh_rank(seed: int, shape, gate: float, tmp: str) -> dict:
     """Phases 25b and 26 in one of MESH_RANKS processes that share the
-    card in a gloo group: (25b) the w6 mesh detector on phase 4's frames,
-    BATCH / MESH_RANKS a rank, its Detections and the gathered rows; (26)
+    card in a gloo group: (25b) the w6 mesh detector on phase 4's first
+    request (`seeded_frames(seed, shape)[0]`, made here: frames in the
+    spawn arguments would pass through a pipe and start the ranks one
+    after another), BATCH / MESH_RANKS a rank, its Detections and the
+    gathered rows; (26)
     rank 0 alone runs the one-process step and the exact float64 step
     (the references, in a process as fresh as the ranks'), then every
     rank the sharded step; then cli/train.train_run for one epoch over
     the ranks. Returns what the parent checks."""
     mesh = PMESH.make_data_mesh()
     out = {"rank": mesh.rank, "backend": mesh.backend}
+    frames = seeded_frames(seed, shape)[0]
+    out["frames"] = digest({"frames": torch.from_numpy(frames)})
     det = FaceDetector("yolov7-w6-face", img_sizes=(SIZE,), conf_thres=gate,
                        iou_thres=0.5, max_candidates=MAX_CANDIDATES, seed=0,
                        mesh=mesh, device="cuda")
@@ -3873,8 +3911,10 @@ def digest(tensors: dict) -> str:
     return h.hexdigest()
 
 
-def drive_mesh(smi: str, frames: np.ndarray, gate: float) -> dict:
-    """Phases 25-26: the data-parallel mesh on the one card. Returns the
+def drive_mesh(smi: str, frames: np.ndarray, gate: float, seed: int = 0
+               ) -> dict:
+    """Phases 25-26: the data-parallel mesh on the one card; `frames` are
+    `seeded_frames(seed)`, which the ranks make again. Returns the
     launches by tag and the numbers for the kernels line."""
     t0 = time.perf_counter()
     routes = drive_mesh_world_of_one(smi, frames[:MESH_REQUESTS], gate)
@@ -3892,7 +3932,7 @@ def drive_mesh(smi: str, frames: np.ndarray, gate: float) -> dict:
     with tempfile.TemporaryDirectory(dir=ROOT, prefix="chip_smoke_mesh_"
                                      ) as tmp:
         res = PMESH.run_ranks(mesh_rank, MESH_RANKS,
-                              (frames[0], gate, tmp), device="cuda",
+                              (seed, frames.shape, gate, tmp), device="cuda",
                               backend="gloo", timeout=MESH_TIMEOUT)
         lines = (Path(tmp) / "mesh" / "results.txt").read_text().splitlines()
         weights = sorted(p.name for p in (Path(tmp) / "mesh" / "weights")
@@ -3903,6 +3943,9 @@ def drive_mesh(smi: str, frames: np.ndarray, gate: float) -> dict:
     tag = f"yolov7-w6-face float32 mesh of {MESH_RANKS} (gloo, one card)"
     check([r["backend"] for r in res] == ["gloo"] * MESH_RANKS,
           f"{tag}: backends {[r['backend'] for r in res]}")
+    want = digest({"frames": torch.from_numpy(frames[0])})
+    check(all(r["frames"] == want for r in res),
+          f"{tag}: a rank's seeded frames differ from phase 4's")
     for r in res[1:]:
         check(all(np.array_equal(a, b) for a, b in zip(r["dets"],
                                                        res[0]["dets"]))
@@ -4389,6 +4432,279 @@ def drive_spatial(smi: str, gate: float) -> dict:
             "grids": fields}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the examples (examples/*_torch.py) and the weights fetch
+# ---------------------------------------------------------------------------
+
+EXAMPLE_SEED = 28
+DEMO_SIZES = (640, 1280)  # examples/demo_torch.py's pyramid
+PROGRAM_SIZE = 256        # examples/exported_inference_torch.py's size
+EXAMPLE_ROWS = 32  # rows gated at most over an example's network inputs
+# every counted example call: {tag: counts_since_zero() of the call}
+EXAMPLE_LAUNCHES = {}
+
+
+def example(name: str):
+    """The module examples/<name>.py, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@torch.no_grad()
+def noisy_state_dict(name: str, seed: int) -> dict:
+    """A state dict of zoo model `name` drawn from `seed` as the CPU
+    tests' numpy-seeded variables are (tests/test_torch_model.
+    random_variables: fan-in-scaled kernels, BN statistics and affine
+    away from identity, biases N(0, 0.1), implicit priors near 0 and 1),
+    loaded as a user's checkpoint. The seeded init's confidences all lie
+    within ulps of 0.25; these spread over about 0.2-0.3 (tiny at 640),
+    still with ties, so the examples' thresholds come from
+    `example_settings`."""
+    from face_detection_multi_scale_tpu_torch.models import layers as LAY
+
+    net = YoloFace(zoo.get_spec(name).resolve())
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(t, std, mean=0.0):
+        t.copy_(torch.randn(t.shape, generator=gen) * std + mean)
+
+    def uniform(t, lo, hi):
+        t.copy_(lo + (hi - lo) * torch.rand(t.shape, generator=gen))
+
+    for mod in net.modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            normal(mod.weight, mod.weight[0].numel() ** -0.5)
+            if mod.bias is not None:
+                normal(mod.bias, 0.1)
+        elif isinstance(mod, torch.nn.BatchNorm2d):
+            uniform(mod.weight, 0.8, 1.2)
+            normal(mod.bias, 0.1)
+            normal(mod.running_mean, 0.1)
+            uniform(mod.running_var, 0.5, 1.5)
+        elif isinstance(mod, (LAY.ImplicitA, LAY.ImplicitM)):
+            normal(mod.implicit, 0.02, float(isinstance(mod, LAY.ImplicitM)))
+    return net.state_dict()
+
+
+def example_settings(rows_fn):
+    """(conf_thres, iou_thres) at which an example's card and CPU runs
+    decide alike: `decisive_settings` over `rows_fn(device)`, the decoded
+    rows (1, N, no) of every network input the example gives the engine,
+    side by side, gating at most EXAMPLE_ROWS of them in all, so no top-K
+    or max_det cut decides either. Random weights put many confidences
+    within ulps of one another; the examples' 0.25 default sits among
+    them."""
+    return decisive_settings(rows_fn("cuda"), rows_fn("cpu"), EXAMPLE_ROWS)
+
+
+def check_example_launches(tag: str, seq: int) -> None:
+    got = EXAMPLE_LAUNCHES[tag]
+    check(got == {"seq": seq, "fixpoint": 0, "fused": 0, "qconv": 0},
+          f"{tag}: launches {got}, want {seq} nms_keep and nothing else")
+
+
+def counted_example(tag: str, fn, warmup: bool = True):
+    """fn() (after one warm-up call with `warmup`) with every launch
+    counter zeroed just before and read just after, into
+    EXAMPLE_LAUNCHES[tag]. Returns (fn(), its host-clock ms)."""
+    if warmup:
+        fn()
+    zero_counters()
+    out, ms = timed(fn)
+    EXAMPLE_LAUNCHES[tag] = counts_since_zero()
+    return out, ms
+
+
+def drive_phase28(smi: str) -> dict:
+    """Phase 28: each example's `run` on the card against the same `run`
+    on the CPU with the same seed, frames and weights (noisy tiny and
+    lite-t state dicts saved as .pt, `weights=`), rows within ROW_TOL;
+    then FaceDetector(torch_weights=<missing>.pt) fetching the file from a
+    local release through the real `download_url` on a file:// URL.
+    Returns the host-clock ms of each counted call and the seconds of
+    each part."""
+    from face_detection_multi_scale_tpu_torch.utils import downloads as DL
+    from torch_shared import release_redirect
+
+    t0 = time.perf_counter()
+    demo, simple, exported = (example(n) for n in (
+        "demo_torch", "detect_simple_torch", "exported_inference_torch"))
+    rng = np.random.default_rng(EXAMPLE_SEED)
+    # frames at the first scale and at the program's size: the host
+    # letterbox then neither resizes nor pads, which needs OpenCV
+    frame = rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
+    small = rng.integers(0, 256, (PROGRAM_SIZE, PROGRAM_SIZE, 3),
+                         dtype=np.uint8)
+    ms, seconds = {}, {}
+    clock = time.perf_counter()
+
+    def lap(part):
+        nonlocal clock
+        now = time.perf_counter()
+        seconds[part], clock = now - clock, now
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="chip_smoke_examples_"
+                                     ) as tmp:
+        release = Path(tmp) / "release"
+        release.mkdir()
+        tiny_pt, lite_pt = release / "tiny.pt", release / "lite-t.pt"
+        torch.save(noisy_state_dict("yolov7-tiny-face", EXAMPLE_SEED),
+                   tiny_pt)
+        torch.save(noisy_state_dict("yolov7-lite-t", EXAMPLE_SEED + 1),
+                   lite_pt)
+        # the settings' detectors, one a device, switched between the
+        # demo's API chain on the device and detect_simple's letterbox
+        tiny = {dev: FaceDetector("yolov7-tiny-face",
+                                  torch_weights=str(tiny_pt),
+                                  img_sizes=DEMO_SIZES,
+                                  use_api_preprocess=True,
+                                  use_device_preprocess=True, device=dev)
+                for dev in ("cuda", "cpu")}
+        lap("weights")
+
+        # (28a) the demo: single-scale, then the (640, 1280) pyramid; the
+        # API chain on the device (the host one resizes with OpenCV)
+        tag = f"demo_torch.run yolov7-tiny-face {DEMO_SIZES}"
+
+        def demo_rows(device):
+            det = tiny[device]
+            raw = det.upload(frame[None])
+            return torch.cat([det.forward_input(det.device_input(
+                raw, size, auto=True)[0]) for size in DEMO_SIZES], 1)
+
+        conf, iou = example_settings(demo_rows)
+        kw = dict(weights=str(tiny_pt), conf_thres=conf, iou_thres=iou,
+                  use_device_preprocess=True)
+        card, ms["demo"] = counted_example(tag, lambda: demo.run(
+            frame, device="cuda", **kw))
+        cpu = demo.run(frame, device="cpu", **kw)
+        sizes = card["det"].img_sizes
+        check(sizes == list(DEMO_SIZES), f"{tag}: sizes {sizes}")
+        # one engine call for detect_single_scale and one a scale for
+        # detect_multi_scale, and one merge when a scale kept a row
+        # (ops/nms.weighted_nms_merge returns early on none)
+        check_example_launches(tag, 1 + len(sizes) + int(len(card["final"])
+                                                         > 0))
+        check(len(card["rows"]) > 0 and len(card["final"]) > 0,
+              f"{tag}: no rows ({len(card['rows'])}, {len(card['final'])})")
+        match_rows(card["rows"], cpu["rows"], ROW_TOL,
+                   f"{tag}: single-scale rows against the CPU run's")
+        match_rows(card["final"], cpu["final"], ROW_TOL,
+                   f"{tag}: multi-scale rows against the CPU run's")
+        print(f"{tag} on {smi}: conf {conf:.9g}, iou {iou:.6g}: "
+              f"{len(card['rows'])} single-scale rows, "
+              f"{len(card['final'])} after the merge, within {ROW_TOL} of "
+              f"the CPU run's; launches {EXAMPLE_LAUNCHES[tag]}")
+        del card, cpu
+        lap("28a")
+
+        # (28b) detect_simple: one detect_batch([img], 640, kpt=True)
+        tag = f"detect_simple_torch.run yolov7-tiny-face {SIZE}"
+        x = LB.preprocess_standard(frame, SIZE, tiny["cpu"].stride)[None]
+        conf, iou = example_settings(lambda dev: tiny[dev].forward_rows(x))
+        kw = dict(conf_thres=conf, iou_thres=iou)
+        (card, _), ms["detect_simple"] = counted_example(
+            tag, lambda: simple.run(frame, str(tiny_pt), device="cuda", **kw))
+        cpu, _ = simple.run(frame, str(tiny_pt), device="cpu", **kw)
+        check_example_launches(tag, 1)
+        check(len(card) > 0 and card.shape[1] == 6 + 15,
+              f"{tag}: rows {card.shape}")
+        match_rows(card, cpu, ROW_TOL, f"{tag}: rows against the CPU run's")
+        print(f"{tag} on {smi}: conf {conf:.9g}, iou {iou:.6g}: "
+              f"{len(card)} rows with landmarks within {ROW_TOL} of the "
+              f"CPU run's; launches {EXAMPLE_LAUNCHES[tag]}")
+        lap("28b")
+
+        # (28d) attempt_download: a detector fetches a missing .pt from
+        # the release, here a local directory behind a file:// URL, and
+        # serves (28b)'s input at (28b)'s thresholds as the card detector
+        # loaded from the local file does
+        tag = "FaceDetector(torch_weights=<missing>.pt) fetched"
+        calls, real = [], DL.download_url
+        DL.download_url = release_redirect(DL, release.as_uri(), calls)
+        try:
+            missing = Path(tmp) / "missing" / "tiny.pt"
+            fetched = FaceDetector("yolov7-tiny-face",
+                                   torch_weights=str(missing),
+                                   img_sizes=(SIZE,), device="cuda", **kw)
+        finally:
+            DL.download_url = real
+        local = tiny["cuda"]
+        local.conf_thres, local.iou_thres = conf, iou
+        check(calls == [f"{DL.DEFAULT_RELEASE}/tiny.pt"]
+              and missing.read_bytes() == tiny_pt.read_bytes(),
+              f"{tag}: fetched {calls}")
+        zero_counters()
+        got, want = fetched.run_network(x), local.run_network(x)
+        EXAMPLE_LAUNCHES[tag] = counts_since_zero()
+        check_example_launches(tag, 2)
+        check(same_detections(got, want) and int(got.valid.sum()) > 0,
+              f"{tag}: Detections differ from the local file's detector's")
+        print(f"{tag} on {smi}: requested {calls}, the file's bytes, "
+              f"Detections equal to the local file's detector's "
+              f"({int(got.valid.sum())} kept); launches "
+              f"{EXAMPLE_LAUNCHES[tag]}")
+        del fetched, local, tiny
+        lap("28d")
+
+        # (28c) the exported program on the card (export, load, one call),
+        # then the ONNX consumer on the host runner. The settings' forward
+        # at the program's shapes warms the card's convolutions (and in
+        # the whole script phase 23 warms torch.export): no full warm-up
+        # run, whose export and ONNX parts would cost ~7 s of host time
+        tag = f"exported_inference_torch.run yolov7-lite-t {PROGRAM_SIZE}"
+        lb, _, _ = LB.letterbox(small, PROGRAM_SIZE, auto=False,
+                                scaleup=False)
+        x = np.ascontiguousarray(lb[None, ..., ::-1])
+
+        def program_rows(device):
+            return FaceDetector("yolov7-lite-t", torch_weights=str(lite_pt),
+                                img_sizes=(PROGRAM_SIZE,),
+                                device=device).forward_rows(x)
+
+        conf, iou = example_settings(program_rows)
+        kw = dict(weights=str(lite_pt), conf_thres=conf, iou_thres=iou)
+        card, ms["exported"] = counted_example(tag, lambda: exported.run(
+            small, device="cuda", **kw), warmup=False)
+        cpu = exported.run(small, device="cpu", **kw)
+        check_example_launches(tag, 1)  # the loaded program's one call
+        check(len(card["rows"]) > 0, f"{tag}: no rows")
+        match_rows(card["rows"], cpu["rows"], ROW_TOL,
+                   f"{tag}: the program's rows against the CPU run's")
+        check(np.array_equal(card["onnx_keep"], cpu["onnx_keep"])
+              and len(card["onnx_keep"]) > 0,
+              f"{tag}: the ONNX consumer kept {len(card['onnx_keep'])} "
+              f"against {len(cpu['onnx_keep'])} on the CPU run")
+        ms["exported_parts"] = {k: v * 1e3
+                                for k, v in card["seconds"].items()}
+        print(f"{tag} on {smi}: conf {conf:.9g}, iou {iou:.6g}: "
+              f"{len(card['rows'])} program rows within {ROW_TOL} of the "
+              f"CPU run's; the ONNX consumer kept "
+              f"{len(card['onnx_keep'])}, as on the CPU; .pt2 "
+              f"{card['pt2_bytes']} bytes; launches "
+              f"{EXAMPLE_LAUNCHES[tag]}")
+        del card, cpu
+        lap("28c")
+    torch.cuda.empty_cache()
+    ms["seconds"] = time.perf_counter() - t0
+    ms["part_seconds"] = seconds
+    print(f"phase 28 host-clock ms of a call on {smi} (demo and "
+          f"detect_simple after a warm-up call): demo {ms['demo']:.1f}, "
+          f"detect_simple {ms['detect_simple']:.1f}, exported "
+          f"{ms['exported']:.1f} (parts "
+          f"{ {k: round(v, 1) for k, v in ms['exported_parts'].items()} })"
+          f"; seconds by part "
+          f"{ {k: round(v, 1) for k, v in seconds.items()} }")
+    stamp(f"phase 28 (the examples, the weights fetch) took "
+          f"{ms['seconds']:.1f} s")
+    return ms
+
+
 def smi_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -4424,9 +4740,8 @@ def main() -> None:
     probe_entries = check_probe(smi)
     stamp("probe_mm done")
 
-    frames = {name: np.random.default_rng(seed).integers(
-        0, 256, (REQUESTS, BATCH, SIZE, SIZE, 3), dtype=np.uint8)
-        for name, seed in (("yolov7-w6-face", 0), ("yolov7-tiny-face", 1))}
+    frames = {name: seeded_frames(seed) for name, seed in (
+        ("yolov7-w6-face", 0), ("yolov7-tiny-face", 1))}
     w6, tiny = "yolov7-w6-face", "yolov7-tiny-face"
     counts_w6, (boxes, valid, thr), ref_w6, det_w6, raws_w6 = drive_path(
         w6, smi, 0, frames[w6])
@@ -4525,11 +4840,14 @@ def main() -> None:
     extra_fields = drive_phase24(smi)
 
     # phases 25-26: the data-parallel mesh (one process a card)
-    mesh_fields = drive_mesh(smi, frames[w6], w6_gate)
+    mesh_fields = drive_mesh(smi, frames[w6], w6_gate, seed=0)
     mesh_routes = mesh_fields.pop("routes")
 
     # phase 27: the spatial mesh (one image's plane over a grid of ranks)
     spatial_fields = drive_spatial(smi, w6_gate)
+
+    # phase 28: the examples and the weights fetch
+    example_fields = drive_phase28(smi)
     mesh_tag = "yolov7-w6-face int8 mesh of 1 (nccl)"
     qconv_entry["launches"] += mesh_routes["qconv"]
     for key in ("depthwise", "wgmma", "split"):
@@ -4568,7 +4886,8 @@ def main() -> None:
              + sum(EVAL_LAUNCHES.values()) + sum(TRAIN_LAUNCHES.values())
              + sum(EXPORT_LAUNCHES.values())
              + sum(c["seq"] for c in MESH_LAUNCHES.values())
-             + sum(SPATIAL_LAUNCHES.values()), 20),
+             + sum(SPATIAL_LAUNCHES.values())
+             + sum(c["seq"] for c in EXAMPLE_LAUNCHES.values()), 20),
             ("fixpoint", "nms_keep_fixpoint", 35, fixpoint_launches, 20)):
         got = K.nms_keep(boxes, valid, thr, kernel_version=version)
         err = int((got.int() - want.int()).abs().max())
@@ -4636,6 +4955,11 @@ def main() -> None:
                       # rank's), and each grid's numbers
                       spatial_launches=dict(SPATIAL_LAUNCHES),
                       spatial=spatial_fields,
+                      # phase 28: the examples' counted calls and their
+                      # host-clock ms
+                      example_launches={tag: c["seq"] for tag, c in
+                                        EXAMPLE_LAUNCHES.items()},
+                      examples=example_fields,
                       train_timed={
                           d: {k: v for k, v in t.items()
                               if not k.endswith("_all")}

@@ -3,9 +3,10 @@
 Counterpart of the JAX package's hub.py (reference hubconf.py:21-87
 `create` / `custom`): a member of the model family by name, or a
 reference-format cfg yaml, with optional local weights, as a ready
-FaceDetector. Weights are local files only: a missing path raises
-FileNotFoundError, and nothing is downloaded. `device` defaults to the
-card, as FaceDetector's does.
+FaceDetector. A missing weights file is fetched from the release first
+(utils/downloads.attempt_download, as the JAX detector fetches it), and a
+failed fetch raises FileNotFoundError. `device` defaults to the card, as
+FaceDetector's does.
 """
 
 from __future__ import annotations

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import os
 import time
 import warnings
 from pathlib import Path
@@ -57,6 +56,8 @@ from face_detection_multi_scale_tpu_torch.models.spec import ModelSpec
 from face_detection_multi_scale_tpu_torch.ops import nms as NMS
 from face_detection_multi_scale_tpu_torch.parallel.mesh import (
     active_mesh, gather_rows, replicated)
+from face_detection_multi_scale_tpu_torch.utils.downloads import (
+    attempt_download)
 from face_detection_multi_scale_tpu_torch.utils.general import (
     check_img_size, make_divisible)
 
@@ -111,11 +112,13 @@ class FaceDetector:
     a JAX-layout variables tree of numpy arrays (carried over by the
     weight bridge, models/convert.py) or a torch state dict with
     reference key names;
-    `torch_weights` is the path of a local checkpoint that replaces
+    `torch_weights` is the path of a checkpoint that replaces
     `variables`: a reference `.pt` (EMA preferred) or the JAX package's
-    flat inference `.npz`. With neither, weights are the seeded init
-    (`seed`). `fuse` folds BN into the convs for serving. `device`
-    defaults to the card and raises when there is none.
+    flat inference `.npz`; a missing one is fetched from the release
+    first (utils/downloads.attempt_download), as in JAX. With neither,
+    weights are the seeded init (`seed`). `fuse` folds BN into the convs
+    for serving. `device` defaults to the card and raises when there is
+    none.
 
     `micro_batch` runs a larger batch as a loop of engine calls over
     chunks of that many images (peak activation memory is the chunk's),
@@ -191,9 +194,8 @@ class FaceDetector:
         self.spec = spec.resolve()
         net = YoloFace(self.spec)
         if torch_weights is not None:
-            path = str(torch_weights)
-            if not os.path.exists(path):  # local files only: no download
-                raise FileNotFoundError(f"weights file not found: {path}")
+            # a missing weights file is fetched first, as in JAX
+            path = attempt_download(str(torch_weights))
             variables = (load_inference_weights(path)
                          if path.endswith(".npz")
                          else load_torch_checkpoint(path))

@@ -38,10 +38,12 @@ from face_detection_multi_scale_tpu_torch.models import zoo as TZ
 from face_detection_multi_scale_tpu_torch.models.convert import (
     jax_to_state_dict)
 from face_detection_multi_scale_tpu_torch.ops import nms as TN
+from face_detection_multi_scale_tpu_torch.utils import downloads as TD
 
 from test_torch_detector import (
     assert_rows_match, safe_settings, shared_variables)
 from test_torch_model import narrowed
+from torch_shared import release_redirect
 
 NAME = "yolov7-tiny-face"
 SIZE = 128
@@ -239,7 +241,15 @@ def test_torch_weights_matches_jax(tmp_path, kind):
 
 
 @pytest.mark.parametrize("name", ["nope.pt", "nope.npz"])
-def test_torch_weights_missing_path_raises(tmp_path, name):
+def test_torch_weights_missing_path_raises(tmp_path, monkeypatch, name):
+    """A missing weights file is fetched from the release first, as in
+    JAX; the release here is an empty local directory, so the fetch fails
+    and the detector raises FileNotFoundError naming the file."""
     path = tmp_path / name
+    calls = []
+    monkeypatch.setattr(TD, "download_url", release_redirect(
+        TD, (tmp_path / "release").as_uri(), calls))
     with pytest.raises(FileNotFoundError, match=name):
         TFaceDetector(narrowed(TZ, NAME), torch_weights=path, device="cpu")
+    assert calls == [f"{TD.DEFAULT_RELEASE}/{name}"]
+    assert not path.exists() and not (tmp_path / (name + ".part")).exists()

@@ -10,7 +10,9 @@ raw maps atol 2e-4 / rtol 1e-3 (two frameworks' f32 convolutions sum in
 different orders), detections as in tests/test_torch_detector.py."""
 
 import dataclasses
+import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +35,18 @@ from test_torch_model import (RAW_TOL, images, narrowed, port_model,
                               random_variables)
 
 GROUP_TOL = dict(atol=2e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU work on one thread for this module: beside the
+    other test workers, torch's thread pool oversubscribes the cores
+    (tests/test_torch_quant.py's port-only cases ran 20x slower beside
+    one other test process)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def to_port_weight(w):
@@ -315,11 +329,17 @@ def test_apply_variant_matches_jax():
         TF.apply_variant(TE.ElanShape(**base), "flat+nomask")
 
 
+@functools.lru_cache(maxsize=None)
+def w6_variables(seed):
+    """Numpy-seeded variables of the narrowed w6, made once a seed."""
+    return random_variables(narrowed(JZ, "yolov7-w6-face"), seed=seed)
+
+
 @pytest.mark.parametrize("fold", [False, True])
 def test_pack_elan_weights_matches_jax(fold):
     spec_j, spec_t = narrowed(JZ, "yolov7-w6-face"), narrowed(
         TZ, "yolov7-w6-face")
-    variables = random_variables(spec_j, seed=6)
+    variables = w6_variables(6)
     jvars = j_fold_bn(variables) if fold else variables
     net = port_model(spec_t, variables, fuse=fold)
     for blk_j, blk_t in zip(JF.find_elan_blocks(spec_j, absorb_pre=True),
@@ -344,6 +364,21 @@ def test_no_blocks_is_the_model(name):
         assert torch.equal(g, w)
 
 
+@functools.lru_cache(maxsize=None)
+def fused_apply_case(name):
+    """(variables, their BN fold, input, raws of the jitted JAX
+    YoloFace.apply) of `name` narrowed at 64 px, shared by the
+    absorb_pre cases of test_fused_apply_matches_jax (the eager apply
+    took 6-15 s a case, the jitted one 2-4 s once)."""
+    spec_j = narrowed(JZ, name)
+    variables = random_variables(spec_j, seed=9)
+    x = images(1, 64, seed=10)
+    jvars = j_fold_bn(variables)
+    want_model = jax.jit(functools.partial(
+        JM.YoloFace(spec=spec_j).apply, train=False))(jvars, jnp.asarray(x))
+    return variables, jvars, x, want_model
+
+
 @pytest.mark.parametrize("name,absorb_pre", [
     ("yolov7-w6-face", False), ("yolov7-w6-face", True),
     ("yolov7-tiny-face", False), ("yolov7-tiny-face", True)])
@@ -351,14 +386,13 @@ def test_fused_apply_matches_jax(name, absorb_pre):
     """The fused executor's raws vs JAX fused_apply (Pallas interpret)
     and JAX YoloFace.apply, folded weights, width 0.25 at 64 px."""
     spec_j, spec_t = narrowed(JZ, name), narrowed(TZ, name)
-    variables = random_variables(spec_j, seed=9)
-    x = images(1, 64, seed=10)
-    jvars = j_fold_bn(variables)
-    want_fused = JF.fused_apply(spec_j, jvars, jnp.asarray(x),
-                                blocks=JF.find_elan_blocks(spec_j, absorb_pre),
-                                interpret=True)
-    want_model = JM.YoloFace(spec=spec_j).apply(jvars, jnp.asarray(x),
-                                                train=False)
+    variables, jvars, x, want_model = fused_apply_case(name)
+    blocks_j = JF.find_elan_blocks(spec_j, absorb_pre)
+    # jitted: the interpret-mode kernels' grid loops run compiled, not op
+    # by op (about half the eager time on w6)
+    want_fused = jax.jit(lambda v, xx: JF.fused_apply(
+        spec_j, v, xx, blocks=blocks_j, interpret=True))(jvars,
+                                                         jnp.asarray(x))
     net = port_model(spec_t, variables, fuse=True)
     blocks = TF.find_elan_blocks(spec_t, absorb_pre=absorb_pre)
     with torch.no_grad():

@@ -1,9 +1,11 @@
-"""The port stands alone: no module of face_detection_multi_scale_tpu_torch
-and not chip_smoke.py imports JAX, Flax or the JAX package (an AST scan of
-every import statement), and its entry points run on the card unless told
-otherwise."""
+"""The port stands alone: no module of face_detection_multi_scale_tpu_torch,
+no torch example (examples/*_torch.py and the code cells of
+examples/demo_torch.ipynb) and not chip_smoke.py imports JAX, Flax or the
+JAX package (an AST scan of every import statement), and its entry points
+run on the card unless told otherwise."""
 
 import ast
+import json
 from pathlib import Path
 
 import pytest
@@ -14,11 +16,20 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "face_detection_multi_scale_tpu")
 
 
 def port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
-def imported_modules(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+def notebook_cells(path):
+    """The code cells' sources of a notebook."""
+    nb = json.loads(path.read_text())
+    return ["".join(c["source"]) for c in nb["cells"]
+            if c["cell_type"] == "code"]
+
+
+def imported_modules(path, source=None):
+    tree = ast.parse(path.read_text() if source is None else source,
+                     filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
@@ -40,6 +51,16 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             top = mod.split(".")[0]
             if top in FORBIDDEN:
                 bad.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert not bad, bad
+
+
+def test_torch_notebook_imports_nothing_of_jax_or_the_jax_package():
+    path = ROOT / "examples" / "demo_torch.ipynb"
+    cells = notebook_cells(path)
+    mods = [m for src in cells for m in imported_modules(path, src)]
+    assert len(cells) > 5 and "face_detection_multi_scale_tpu_torch" in {
+        m.split(".")[0] for m in mods}
+    bad = [m for m in mods if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
 
@@ -65,11 +86,11 @@ def test_detector_defaults_to_the_card(monkeypatch):
 
 
 # the port's CLIs that run no model: the WIDER scoring of written txts, a
-# file diff, a relauncher (the runs it relaunches keep their --device) and
-# the blur and WIDER-annotation data tools
+# file diff, a relauncher (the runs it relaunches keep their --device),
+# the blur and WIDER-annotation data tools and the WIDER downloader
 HOST_ONLY_CLIS = {"evaluate_widerface.py", "compare_json_shapes.py",
                   "resume_runs.py", "blur_dataset.py",
-                  "visualize_widerface.py"}
+                  "visualize_widerface.py", "download_widerface.py"}
 
 
 @pytest.mark.parametrize("name", sorted(
@@ -151,3 +172,29 @@ def test_cli_export_defaults_to_the_card(monkeypatch, tmp_path):
         CLI.main(["--model", "yolov7-lite-t", "--img-size", "64",
                   "--output", str(out)])
     assert not out.exists()
+
+
+def test_downloads_and_examples_are_scanned():
+    """The download helpers, the WIDER downloader and the torch examples
+    are scanned, and the examples and the two modules import with neither
+    OpenCV nor PIL loaded (the examples import cv2 only in `main`, to
+    read and write image files; the card's machine has no OpenCV)."""
+    import subprocess
+    import sys
+
+    scanned = set(port_files())
+    examples = [ROOT / "examples" / f"{n}_torch.py" for n in
+                ("demo", "detect_simple", "exported_inference")]
+    assert {PORT / "utils" / "downloads.py",
+            PORT / "cli" / "download_widerface.py", *examples} <= scanned
+    code = ("import importlib, sys\n"
+            "sys.path.insert(0, 'examples')\n"
+            "for m in ('face_detection_multi_scale_tpu_torch.utils.downloads',"
+            " 'face_detection_multi_scale_tpu_torch.cli.download_widerface',"
+            " 'demo_torch', 'detect_simple_torch',"
+            " 'exported_inference_torch'):\n"
+            "    importlib.import_module(m)\n"
+            "print(sorted(k for k in ('cv2', 'PIL') if k in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip() == "[]"

@@ -38,6 +38,7 @@ from face_detection_multi_scale_tpu_torch.infer.detector import (
     FaceDetector as TFaceDetector)
 from face_detection_multi_scale_tpu_torch.models import zoo as TZ
 from face_detection_multi_scale_tpu_torch.ops import nms as TN
+from face_detection_multi_scale_tpu_torch.ops.boxes import box_iou
 
 from test_torch_detector import (
     ROW_TOL, assert_rows_match, jax_apply, shared_variables, widest_gap)
@@ -45,6 +46,18 @@ from test_torch_model import narrowed
 
 SHAPES = [(480, 640), (1080, 1920), (500, 375), (640, 640), (123, 457)]
 MERGE_NS = [0, 1, 127, 128, 129, 600]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU work on one thread for this module: beside the
+    other test workers, torch's thread pool oversubscribes the cores
+    (tests/test_torch_quant.py's port-only cases ran 20x slower beside
+    one other test process)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def rand_img(h, w, seed):
@@ -273,6 +286,15 @@ def folded(name):
 
 
 @functools.lru_cache(maxsize=None)
+def jax_rows(name):
+    """The JAX forward and decode of the narrowed model as one jitted
+    function, compiled once per input shape (the decode run eagerly
+    dispatched its ops one by one for every input)."""
+    spec = narrowed(JZ, name)
+    return jax.jit(lambda v, x: j_decode(jax_apply(name)(v, x), spec))
+
+
+@functools.lru_cache(maxsize=None)
 def shared_detectors(name, modes):
     """(JAX, port) FaceDetectors over the narrowed model with the same
     variables, at SCALES[name], with conf and IoU thresholds in the widest
@@ -281,8 +303,7 @@ def shared_detectors(name, modes):
     switch one pair between modes, so the JAX side compiles each engine
     shape once."""
     spec = narrowed(JZ, name)
-    rows = [np.asarray(j_decode(jax_apply(name)(folded(name), x[None]),
-                                spec))[0]
+    rows = [np.asarray(jax_rows(name)(folded(name), x[None]))[0]
             for api, dev in modes for x in jax_inputs(name, api, dev)]
     every = np.concatenate(rows)
     obj, conf = every[:, 4], every[:, 5] * every[:, 4]
@@ -292,8 +313,10 @@ def shared_detectors(name, modes):
     for r in rows:
         gated = r[(r[:, 4] > conf_thres) & (r[:, 5] * r[:, 4] > conf_thres)]
         xy, wh = gated[:, :2], gated[:, 2:4] / 2
-        boxes = np.concatenate([xy - wh, xy + wh], 1)
-        ious.append(np.asarray(JN.box_iou(boxes, boxes)).ravel())
+        boxes = torch.from_numpy(np.concatenate([xy - wh, xy + wh], 1))
+        # the IoUs of the JAX boxes, by the port's function: JAX's would
+        # compile once for every count of gated rows
+        ious.append(box_iou(boxes, boxes).numpy().ravel())
     iou_thres = widest_gap(np.concatenate(ious), 0.4, 0.6)
     kw = dict(img_sizes=SCALES[name], conf_thres=conf_thres,
               iou_thres=iou_thres, max_candidates=max(len(r) for r in rows),

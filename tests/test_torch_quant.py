@@ -59,6 +59,18 @@ HALF_TOL = 1e-4
 RAW_SHARE = 2e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU work on one thread for this module: beside the
+    other test workers, torch's thread pool oversubscribes the cores
+    (tests/test_torch_quant.py's port-only cases ran 20x slower beside
+    one other test process)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def near_half(v: np.ndarray) -> np.ndarray:
     return np.abs(v - np.floor(v) - 0.5) < HALF_TOL
 

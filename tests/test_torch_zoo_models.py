@@ -42,9 +42,11 @@ from face_detection_multi_scale_tpu_torch.models.convert import (
 from face_detection_multi_scale_tpu_torch.models.fuse import fold_bn
 from face_detection_multi_scale_tpu_torch.models.head import decode
 from face_detection_multi_scale_tpu_torch.ops import nms as TN
+from face_detection_multi_scale_tpu_torch.utils import downloads as TD
 
 from test_torch_detector import assert_rows_match, widest_gap
 from test_torch_model import RAW_TOL, ROW_TOL, images
+from torch_shared import release_redirect
 
 RAW_REL = 2e-2
 NEW_MODELS = ["yolov7-face", "yolov7s-face", "yolov7-lite-t",
@@ -494,11 +496,12 @@ def assert_same_detections(jdet, tdet, frames):
         assert_rows_match(g, np.asarray(w))
 
 
-def test_hub_create_matches_jax(monkeypatch):
+def test_hub_create_matches_jax(monkeypatch, tmp_path):
     """hub.create of the full-width lite-s on the CPU against the JAX
     hub's detector with the same variables, on the same frames; the list
-    of models is the JAX hub's; a missing weights file raises
-    FileNotFoundError; without device= and without a card it raises."""
+    of models is the JAX hub's; a missing weights file whose fetch fails
+    raises FileNotFoundError; without device= and without a card it
+    raises."""
     assert TH.available_models() == JH.available_models()
     name = "yolov7-lite-s"
     variables = model_variables(JZ.get_spec(name), seed=10)
@@ -509,6 +512,10 @@ def test_hub_create_matches_jax(monkeypatch):
             TH.create, name), TZ.get_spec(name), variables, frames)
     assert tdet.spec.name == name and tdet.img_sizes == [96]
     assert_same_detections(jdet, tdet, frames)
+    # the fetch of the missing file goes to an empty local release
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(TD, "download_url", release_redirect(
+        TD, (tmp_path / "release").as_uri()))
     with pytest.raises(FileNotFoundError):
         TH.create(name, weights="no/such/weights.pt", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

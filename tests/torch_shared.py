@@ -1,7 +1,8 @@
 """Helpers that the port's tests share with chip_smoke.py (which puts
-this directory on its import path): seeded in-memory face sets, and the
-tolerance ratios that hold a data-parallel train step against the
-one-process step at the sharded-step tolerances. Imports no JAX: the
+this directory on its import path): seeded in-memory face sets, a local
+stand-in for the weights release, and the tolerance ratios that hold a
+data-parallel train step against the one-process step at the
+sharded-step tolerances. Imports no JAX: the
 spawned ranks of tests/test_torch_mesh.py and of chip_smoke.py import it.
 """
 
@@ -111,3 +112,23 @@ def mesh_ratios(got: dict, want: dict) -> dict:
         out[what] = max(out[what], tolerance_ratio(
             got[k], w, **(MESH_BN_TOL if bn else MESH_PARAM_TOL)))
     return out
+
+
+def release_redirect(downloads, base: str, calls=None):
+    """A stand-in for `downloads.download_url` (either package's
+    utils/downloads module) that fetches what the release would serve
+    from `base`, a file:// URL, through the real function, and records
+    each requested URL in `calls`. Any other URL raises, so nothing
+    reaches the network."""
+    real = downloads.download_url
+
+    def fetch(url, dest, chunk=1 << 20):
+        if calls is not None:
+            calls.append(url)
+        if url.startswith(downloads.DEFAULT_RELEASE):
+            url = base + url[len(downloads.DEFAULT_RELEASE):]
+        if not url.startswith("file://"):
+            raise AssertionError(f"a fetch from the network: {url}")
+        return real(url, dest, chunk)
+
+    return fetch
