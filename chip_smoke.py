@@ -483,6 +483,7 @@ GROUPS = {"yolov7-w6-face": 11, "yolov7-tiny-face": 8, "yolov7-face": 8,
 NEW_MODELS = (("yolov7-face", 3), ("yolov7s-face", 4), ("yolov7-lite-t", 5),
               ("yolov7-lite-s", 6))  # (zoo name, seed of weights and frames)
 NEW_REQUESTS = 2
+INTERLEAVED_ROUNDS = 9  # phase 10's fused / unfused bf16 w6 requests
 # each counted path's run: {tag: {"seq": n, "fixpoint": n, "fused": n}},
 # and its median request ms (host clock, synchronized)
 PATH_LAUNCHES = {}
@@ -576,6 +577,12 @@ ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
 
 
+class ETMA:
+    """The bf16 TMA route's source as a build of its own (start_builds
+    runs one nvcc per source, all together)."""
+    SOURCE = E.TMA_SOURCE
+    build = staticmethod(E.build_tma)
+
 def stamp(what: str) -> None:
     """The seconds since the imports, after `what`."""
     print(f"[{time.perf_counter() - T_START:.1f} s] {what}", flush=True)
@@ -590,6 +597,7 @@ def zero_counters() -> None:
     """Every kernel wrapper's launch counts to 0."""
     K.nms_keep.launches = K.nms_keep.fixpoint_launches = 0
     E.fused_elan.launches = E.fused_elan.bf16_launches = 0
+    E.fused_elan.bf16_tma_launches = 0
     QK.qconv.launches = QK.qconv.depthwise_launches = 0
     QK.qconv.wgmma_launches = QK.qconv.split_launches = 0
     PMESH.spatial_infer.calls = PMESH.spatial_infer.exchanges = 0
@@ -656,7 +664,7 @@ def start_builds(pool):
         mod.build()
         return time.perf_counter() - t0
 
-    return {mod: pool.submit(timed, mod) for mod in (K, PM, E, QK)}
+    return {mod: pool.submit(timed, mod) for mod in (K, PM, E, ETMA, QK)}
 
 
 def built(builds, mod) -> None:
@@ -862,6 +870,12 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
           f"{tag}: fused_elan launched {fused} times in this dtype and "
           f"{other} in the other for {requests} engine calls, want "
           f"{want_fused} and 0")
+    # bf16: every group of the zoo and the extra cfg is planned onto the
+    # TMA route (csrc/fused_elan_bf16.cu), float32 never
+    tma = E.fused_elan.bf16_tma_launches
+    check(tma == (fused if bf16 else 0),
+          f"{tag}: {tma} of {fused} fused launches on the TMA route, want "
+          f"{fused if bf16 else 0}")
     if fuse_elan:
         pres = sum(b.pre is not None for b in det._elan_blocks)
         print(f"{tag}: {len(det._elan_blocks)} fused groups ({pres} with an "
@@ -870,7 +884,7 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
           f"max_candidates {det.max_candidates}, kept per image "
           f"{dets.valid.sum(1).cpu().tolist()}, nms_keep launches "
           f"{launches}, fixpoint launches {fixpoint}, fused_elan launches "
-          f"{fused} in {requests} requests")
+          f"{fused} ({tma} on the TMA route) in {requests} requests")
     check(max(n_gated) > det.max_candidates,
           f"{tag}: no image filled K = {det.max_candidates}")
     ms = [t * 1e3 for t in times]
@@ -920,7 +934,8 @@ def drive_path(name: str, smi: str, seed: int, frames: np.ndarray,
         rows, nc=det.spec.nc, conf_thres=det.conf_thres,
         k=min(det.max_candidates, rows.shape[1]))
     stamp(f"path {tag} done")
-    counts = {"seq": launches, "fixpoint": fixpoint, "fused": fused}
+    counts = {"seq": launches, "fixpoint": fixpoint, "fused": fused,
+              "fused_tma": tma}
     PATH_LAUNCHES[tag] = counts
     return (counts, (nms_boxes.float().contiguous(), valid, det.iou_thres),
             (rows_card, rows_cpu), det, raws)
@@ -1290,8 +1305,12 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
                  timed: bool):
     """Phase 6 (and 10 in bf16) for one fused detector: each group's
     kernel vs plain on the captured inputs; with `timed`, the kernel,
-    plain, library and bound times. Returns the worst abs and relative
-    errors and the time sums."""
+    plain, library and bound times. In bf16 every group's input must be
+    channels_last and take the TMA route (csrc/fused_elan_bf16.cu); the
+    cp.async kernel (csrc/fused_elan.cu's bf16 instantiation) runs on the
+    same values in NCHW beside it, held to the same bound and, with
+    `timed`, timed ("was_ms"). Returns the worst abs and relative errors
+    and the time sums."""
     bf16 = det.dtype == torch.bfloat16
     tol, rate, rate_name = ((BF16_ELAN_REL_TOL, BF16_OPS_PER_S, "bf16")
                             if bf16 else
@@ -1302,7 +1321,8 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst_abs = worst_rel = 0.0
     sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "t_bytes": 0.0,
-            "t_ops": 0.0, "t_simt": 0.0, "flops": 0.0}
+            "t_ops": 0.0, "t_simt": 0.0, "flops": 0.0, "was_ms": 0.0,
+            "library_nchw_ms": 0.0}
     for blk, (x, ws, shape) in zip(det._elan_blocks, calls):
         # NaN in the block the allocator hands the kernel's output next,
         # so an output the kernel failed to write cannot pass
@@ -1318,19 +1338,44 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
               f"{blk.trans}")
         diff = float((got.float() - want.float()).abs().max())
         rel = diff / float(want.float().abs().max())
+        if bf16:
+            route = E.elan_route(x, ws, shape)
+            check(route == "tma" and x.is_contiguous(
+                memory_format=torch.channels_last) and got.is_contiguous(
+                memory_format=torch.channels_last),
+                f"bf16 group at nodes {blk.start}-{blk.trans}: route "
+                f"{route}, not channels_last in and out on the TMA route")
+            xn = x.contiguous()
+            old = E.launch_route("cp.async", xn, ws, shape)
+            torch.cuda.synchronize()
+            old_rel = float((old.float() - want.float()).abs().max()) / \
+                float(want.float().abs().max())
+            check(bool(torch.isfinite(old).all()) and old_rel < tol,
+                  f"the cp.async bf16 kernel differs from reference_elan by "
+                  f"{old_rel:.3g} of max |plain| at nodes {blk.start}-"
+                  f"{blk.trans}")
         worst_abs, worst_rel = max(worst_abs, diff), max(worst_rel, rel)
-        plan = E.elan_plan(shape, x.shape[0], h, w, n_sm)
+        if bf16:
+            plan = E.elan_tma_plan(shape, x.shape[0], h, w, n_sm)
+            where = (f"TMA route, strips of {plan.th} rows halo "
+                     f"{plan.halo} grid {plan.grid} cluster {plan.cluster} "
+                     f"N tiles {[c.bn for c in plan.convs]}")
+        else:
+            plan = E.elan_plan(shape, x.shape[0], h, w, n_sm)
+            where = (f"tile {plan['tile_h']}x{plan['tile_w']} grid "
+                     f"{plan['grid']} cluster {plan['cluster']}")
         share = E.recompute_share(shape, plan, h, w)
         line = (f"fused_elan nodes {blk.start}-{blk.trans} {shape.cin}->"
                 f"{shape.ccv}/{shape.cch}x{shape.n_chain}->{shape.cout}"
                 f"{' pre ' + str(shape.pre_cin) if shape.has_pre else ''} "
-                f"at {x.shape[0]}x{h}x{w}, tile {plan['tile_h']}x"
-                f"{plan['tile_w']} grid {plan['grid']} cluster "
-                f"{plan['cluster']}, recompute "
+                f"at {x.shape[0]}x{h}x{w}, {where}, recompute "
                 + " ".join(f"{c} {v:.3f}" for c, v in share.items())
-                + f": max |diff| {diff:.3g}, / max |plain| {rel:.3g}")
+                + f": max |diff| {diff:.3g}, / max |plain| {rel:.3g}"
+                + (f" (cp.async {old_rel:.3g})" if bf16 else ""))
         if timed:
             ms = cuda_ms(lambda: E.fused_elan(x, ws, shape), 3)
+            was = (cuda_ms(lambda: E.launch_route("cp.async", xn, ws, shape),
+                           3) if bf16 else 0.0)
             with full_fp32():
                 plain = cuda_ms(lambda: E.reference_elan(x, ws, shape), 3)
                 lib = cuda_ms(lambda: unfused_group(det.model, blk, x), 3)
@@ -1338,13 +1383,24 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
             t_b = nbytes / HBM_BYTES_PER_S * 1e3
             t_o = flops / rate * 1e3
             t_s = flops / F32_OPS_PER_S * 1e3
+            # bf16: cuDNN's group also on NCHW input (the layout the groups
+            # get on the cp.async route)
+            lib_nchw = 0.0
+            if bf16:
+                with full_fp32():
+                    lib_nchw = cuda_ms(
+                        lambda: unfused_group(det.model, blk, xn), 3)
             for key, v in (("ms", ms), ("plain_ms", plain),
                            ("library_ms", lib), ("t_bytes", t_b),
-                           ("t_ops", t_o), ("t_simt", t_s), ("flops", flops)):
+                           ("t_ops", t_o), ("t_simt", t_s), ("flops", flops),
+                           ("was_ms", was), ("library_nchw_ms", lib_nchw)):
                 sums[key] += v
             line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s "
-                     f"effective), plain {plain:.3f} ms, library {lib:.3f} "
-                     f"ms, bound {max(t_b, t_o):.4f} ms at {rate_name} "
+                     f"effective)"
+                     + (f", cp.async route {was:.3f} ms" if bf16 else "")
+                     + f", plain {plain:.3f} ms, library {lib:.3f} ms"
+                     + (f" (NCHW {lib_nchw:.3f})" if bf16 else "")
+                     + f", bound {max(t_b, t_o):.4f} ms at {rate_name} "
                      f"({max(t_b, t_s):.4f} at f32 SIMT; {flops / 1e9:.2f} "
                      f"GFLOP, {nbytes / 1e6:.1f} MB)")
         print(("bf16 " if bf16 else "") + line)
@@ -1355,8 +1411,12 @@ def check_groups(det: FaceDetector, frames: np.ndarray, smi: str,
         print(f"fused_elan {x.dtype} {det.spec.name} b{BATCH}@{SIZE} on "
               f"{smi}, sums over {len(calls)} groups: kernel "
               f"{sums['ms']:.3f} ms ({sums['flops'] / sums['ms'] / 1e9:.2f} "
-              f"TFLOP/s effective), plain {sums['plain_ms']:.3f} ms, library "
-              f"{sums['library_ms']:.3f} ms, bound "
+              f"TFLOP/s effective)"
+              + (f", cp.async route {sums['was_ms']:.3f} ms" if bf16 else "")
+              + f", plain {sums['plain_ms']:.3f} ms, library "
+              f"{sums['library_ms']:.3f} ms"
+              + (f" (NCHW {sums['library_nchw_ms']:.3f})" if bf16 else "")
+              + ", bound "
               f"{max(sums['t_bytes'], sums['t_ops']):.4f} ms at {rate_name} "
               f"(the kernels line's; bytes {sums['t_bytes']:.4f}), "
               f"{max(sums['t_bytes'], sums['t_simt']):.4f} ms at f32 SIMT")
@@ -3619,8 +3679,13 @@ def drive_phase24(smi: str) -> dict:
             ref=ref if dtype == torch.float32 else None,
             ref_raws=[("the bf16 unfused card forward", raws16)],
             spec_fn=extra_spec)
-        w_abs, w_rel, _ = check_groups(det, frames[0], smi, timed=False)
+        # bf16: each group on the TMA route beside the cp.async route, the
+        # cuDNN group, the plain version and the bound
+        w_abs, w_rel, sums = check_groups(det, frames[0], smi,
+                                          timed=dtype == bf16)
         worst[DTYPE_NAMES[dtype]] = {"abs": w_abs, "rel": w_rel}
+        if dtype == bf16:
+            out["bf16_groups"] = group_entry(sums)
         del det
         torch.cuda.empty_cache()
     out["group_err"] = worst
@@ -4714,12 +4779,64 @@ def smi_line() -> str:
 
 
 def group_entry(s):
-    """The time fields of a kernels-line entry from check_groups' sums."""
-    return {"ms": s["ms"], "plain_ms": s["plain_ms"],
-            "library_ms": s["library_ms"],
-            "bound_ms": max(s["t_bytes"], s["t_ops"]),
-            "bound_by": "operations" if s["t_ops"] >= s["t_bytes"]
-            else "bytes"}
+    """The time fields of a kernels-line entry from check_groups' sums (in
+    bf16 also was_ms, the cp.async route's sum on the same inputs)."""
+    out = {"ms": s["ms"], "plain_ms": s["plain_ms"],
+           "library_ms": s["library_ms"],
+           "bound_ms": max(s["t_bytes"], s["t_ops"]),
+           "bound_by": "operations" if s["t_ops"] >= s["t_bytes"]
+           else "bytes"}
+    if s["was_ms"]:
+        out["was_ms"] = s["was_ms"]
+        out["library_nchw_ms"] = s["library_nchw_ms"]
+    return out
+
+
+def interleaved_bf16_requests(smi: str, frames: np.ndarray) -> dict:
+    """Phase 10's end: the bf16 w6 request (run_network, host clock,
+    synchronized) unfused, fused with channels_last groups on the TMA
+    route, and fused with NCHW groups on the cp.async kernel (the
+    executor's layout rule swapped for NCHW), interleaved round by round;
+    the medians in ms."""
+    bf16 = torch.bfloat16
+    dets = {mode: FaceDetector("yolov7-w6-face", img_sizes=(SIZE,),
+                               conf_thres=0.5, iou_thres=0.5,
+                               max_candidates=MAX_CANDIDATES, seed=0,
+                               fuse_elan=mode != "unfused", dtype=bf16,
+                               device="cuda")
+            for mode in ("unfused", "fused channels_last", "fused nchw")}
+    real = FUSED._group_input
+
+    def run(mode, batch):
+        if mode == "fused nchw":
+            FUSED._group_input = lambda inp, shape: inp.contiguous()
+        try:
+            t0 = time.perf_counter()
+            dets[mode].run_network(batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        finally:
+            FUSED._group_input = real
+
+    for mode, det in dets.items():
+        set_gate(det, frames[0])
+        det.warmup(SIZE, BATCH)
+        run(mode, frames[0])
+    ms = {mode: [] for mode in dets}
+    for r in range(INTERLEAVED_ROUNDS):
+        order = list(dets)[r % 3:] + list(dets)[:r % 3]
+        for mode in order:
+            ms[mode].append(run(mode, frames[r % len(frames)]))
+    med = {mode: float(np.median(v)) for mode, v in ms.items()}
+    print(f"yolov7-w6-face bf16 run_network b{BATCH}@{SIZE} on {smi}, "
+          f"{INTERLEAVED_ROUNDS} interleaved rounds (host clock, "
+          f"synchronized), median ms: "
+          + ", ".join(f"{m} {v:.3f}" for m, v in med.items())
+          + "; all: " + str({m: [round(t, 3) for t in v]
+                             for m, v in ms.items()}))
+    del dets
+    torch.cuda.empty_cache()
+    return med
 
 
 def main() -> None:
@@ -4752,6 +4869,7 @@ def main() -> None:
     tta_launches, tta_gate = drive_tta(smi)
     tiled_launches = drive_tiled(smi, tta_gate)
     built(builds, E)
+    built(builds, ETMA)
     built(builds, QK)
     pool.shutdown()
 
@@ -4802,9 +4920,12 @@ def main() -> None:
         bf16_elan["rel"] = max(bf16_elan["rel"], worst_rel)
         if name == w6 and flag is True:
             bf16_launches, bf16_sums = counts["fused"], sums
+        if name == tiny:
+            tiny_bf16_sums = sums
         del det
         torch.cuda.empty_cache()
         stamp(f"bf16 groups of {name} fuse_elan={flag!r} checked")
+    bf16_requests = interleaved_bf16_requests(smi, frames[w6])
 
     # phase 11: the bf16 pyramid and tiles, and the batch-1 3840 profile
     _, bf16_gate = drive_tta(smi, bf16)
@@ -4866,6 +4987,7 @@ def main() -> None:
     by_model = {d: {name: group_entry(new_sums[(name, d)])
                     for name, seed in NEW_MODELS if (name, d) in new_sums}
                 for d in (torch.float32, bf16)}
+    by_model[bf16][tiny] = group_entry(tiny_bf16_sums)
     total = {key: sum(c[key] for c in PATH_LAUNCHES.values())
              for key in ("seq", "fixpoint")}
     fused_by_path = {d: {tag: c["fused"] for tag, c in PATH_LAUNCHES.items()
@@ -5001,17 +5123,29 @@ def main() -> None:
         "per": "sum over the 11 w6 groups of one b8@640 forward",
         "by_model": by_model[torch.float32]})
     s = bf16_sums
+    tma_launches = sum(c.get("fused_tma", 0) for c in PATH_LAUNCHES.values())
     entries.append({
         "name": "fused_elan_bf16", "route": "cuda",
-        "source": "face_detection_multi_scale_tpu_torch/csrc/fused_elan.cu",
+        "source": "face_detection_multi_scale_tpu_torch/csrc/"
+                  "fused_elan_bf16.cu",
+        # the bf16 groups the TMA route does not take (NCHW inputs, ragged
+        # channels) launch csrc/fused_elan.cu's bf16 instantiation; was_ms
+        # is that kernel summed on the same inputs in this run
+        "cp_async_source": "face_detection_multi_scale_tpu_torch/csrc/"
+                           "fused_elan.cu",
         "replaces": "face_detection_multi_scale_tpu/ops/pallas_elan.py:194",
         "dtype": "bfloat16",
         "launches": sum(fused_by_path[bf16].values()),
+        "launches_by_route": {
+            "tma": tma_launches,
+            "cp.async": sum(fused_by_path[bf16].values()) - tma_launches},
         "launches_by_path": fused_by_path[bf16],
         "w6_launches": bf16_launches,
         "max_abs_err": bf16_elan["abs"], "max_rel_err": bf16_elan["rel"],
         **group_entry(s), "bound_rate": "bf16: 989 TFLOP/s, 3.35 TB/s",
         "per": "sum over the 11 w6 groups of one b8@640 bf16 forward",
+        "w6_request_ms": bf16_requests,
+        "extra_cfg": extra_fields.get("bf16_groups"),
         "by_model": by_model[bf16]})
     entries.append(qconv_entry)
     entries += probe_entries

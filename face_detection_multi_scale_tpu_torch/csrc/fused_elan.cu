@@ -79,8 +79,10 @@
 // moves 8 values; the NCHW group input and ragged channels, which a
 // 2-byte element cannot cp.async, are read with plain loads. The chunk's
 // products (two wgmma steps) are added into the f32 totals as in f32.
-// Later work: TMA staging with a producer warp, wider block steps,
-// intermediates in distributed shared memory.
+// A channels_last bf16 group whose channel counts are whole 16-byte runs
+// (every zoo group) takes csrc/fused_elan_bf16.cu instead, the TMA route
+// redesigned for Hopper (ops/elan_kernel.elan_route); this instantiation
+// serves NCHW inputs and ragged channel counts.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>

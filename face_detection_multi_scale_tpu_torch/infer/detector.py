@@ -218,10 +218,8 @@ class FaceDetector:
             self._elan_blocks = blocks
         # packed group weights from the float32 model, before the cast:
         # kernels in `dtype`, biases float32 (the JAX packer's)
-        self._elan_weights = {
-            blk: [t.to(self.device) for t in ws]
-            for blk, ws in elan_weights(net, self._elan_blocks,
-                                        dtype).items()}
+        self._elan_weights = elan_weights(net, self._elan_blocks, dtype,
+                                          self.device)
         # int8 serving calibrates and quantizes from the float32 model
         self._quantize = quantize
         self._qparams = None
@@ -233,7 +231,8 @@ class FaceDetector:
         self.model = cast_model(net.eval().to(self.device), dtype)
         if self._mesh is not None:
             replicated(self._mesh, [*self.model.state_dict().values(), *(
-                t for ws in self._elan_weights.values() for t in ws), *(
+                t for ws in self._elan_weights.values()
+                for t in ws.tensors()), *(
                 self._float_model.state_dict().values()
                 if self._float_model is not None else ())])
         if quantize:

@@ -28,7 +28,10 @@ every node outside a group, and each group gets bf16 conv kernels with
 float32 biases (`pack_elan_weights(..., dtype)`), packed from the
 float32 folded model so that the biases are the JAX package's float32
 ones (`elan_weights`, which the FaceDetector calls before it casts its
-model).
+model). On the card a bf16 group whose shape the kernel's TMA route
+takes gets a channels_last input and returns a channels_last output, so
+cuDNN's convs between such groups run channels_last too; float32 groups
+and the rest stay NCHW.
 
 Inference only: the fused kernel has no backward.
 """
@@ -45,7 +48,7 @@ from face_detection_multi_scale_tpu_torch.models.model import (
 from face_detection_multi_scale_tpu_torch.models.spec import (
     HEAD_OPS, ModelSpec, Node)
 from face_detection_multi_scale_tpu_torch.ops.elan_kernel import (
-    ElanShape, fused_elan)
+    ElanShape, ElanWeights, fused_elan, tma_shape_ok)
 
 
 def apply_variant(shape: ElanShape, expr: str) -> ElanShape:
@@ -261,34 +264,35 @@ def _conv_eff(model: YoloFace, idx: int, dtype: torch.dtype
 
 
 def pack_elan_weights(model: YoloFace, block: ElanBlock,
-                      dtype: Optional[torch.dtype] = None
-                      ) -> List[torch.Tensor]:
+                      dtype: Optional[torch.dtype] = None,
+                      device: Optional[torch.device] = None) -> ElanWeights:
     """The flat weight list of ops/elan_kernel.fused_elan for `block`, on
-    the model's device: [pre,] a, b, chain..., transition, each as
-    (OIHW kernel in `dtype`, (C,) float32 bias). `dtype` defaults to the
-    model's own."""
+    `device` (default the model's): [pre,] a, b, chain..., transition,
+    each as (OIHW kernel in `dtype`, (C,) float32 bias), with the bf16
+    TMA route's packing of the kernels where the route takes the group
+    (ElanWeights). `dtype` defaults to the model's own."""
     if dtype is None:
         dtype = next(model.parameters()).dtype
     idxs = ([block.pre] if block.pre is not None else []) + \
         [block.a, block.b, *block.chain, block.trans]
     ws: List[torch.Tensor] = []
     for idx in idxs:
-        ws += list(_conv_eff(model, idx, dtype))
-    return ws
+        ws += [t.to(device) for t in _conv_eff(model, idx, dtype)]
+    return ElanWeights(ws, block.shape)
 
 
 def elan_weights(model: YoloFace, blocks: Sequence[ElanBlock],
-                 dtype: torch.dtype
-                 ) -> Dict[ElanBlock, List[torch.Tensor]]:
-    """`fused_apply`'s weight cache filled for `blocks`: the packed weights
-    of every block and, for a block with an absorbed pre conv, of its bare
-    form too (the fall-back when the input does not divide by the pre
-    conv's stride)."""
-    out: Dict[ElanBlock, List[torch.Tensor]] = {}
+                 dtype: torch.dtype, device: Optional[torch.device] = None
+                 ) -> Dict[ElanBlock, ElanWeights]:
+    """`fused_apply`'s weight cache filled for `blocks`, on `device`
+    (default the model's): the packed weights of every block and, for a
+    block with an absorbed pre conv, of its bare form too (the fall-back
+    when the input does not divide by the pre conv's stride)."""
+    out: Dict[ElanBlock, ElanWeights] = {}
     for blk in blocks:
         for b in (blk, _bare(blk)):
             if b not in out:
-                out[b] = pack_elan_weights(model, b, dtype)
+                out[b] = pack_elan_weights(model, b, dtype, device)
     return out
 
 
@@ -301,6 +305,17 @@ def _bare(blk: ElanBlock) -> ElanBlock:
     return dataclasses.replace(
         blk, pre=None,
         shape=dataclasses.replace(blk.shape, pre_cin=0, pre_stride=1))
+
+
+def _group_input(inp: torch.Tensor, shape: ElanShape) -> torch.Tensor:
+    """A group's input in the layout of its kernel route: channels_last
+    for a bf16 group on the card whose shape the TMA route takes
+    (ops/elan_kernel.elan_route; the kernel then writes channels_last, so
+    the modules between groups run channels_last too), else NCHW."""
+    if (inp.device.type == "cuda" and inp.dtype == torch.bfloat16
+            and tma_shape_ok(shape)):
+        return inp.contiguous(memory_format=torch.channels_last)
+    return inp.contiguous()
 
 
 def fused_apply(model: YoloFace, x: torch.Tensor,
@@ -347,7 +362,8 @@ def fused_apply(model: YoloFace, x: torch.Tensor,
             if inp.shape[2] % s == 0 and inp.shape[3] % s == 0:
                 if blk not in weights:
                     weights[blk] = pack_elan_weights(model, blk)
-                x = fused_elan(inp.contiguous(), weights[blk], blk.shape)
+                x = fused_elan(_group_input(inp, blk.shape), weights[blk],
+                               blk.shape)
                 while i < blk.trans:
                     saved.append(None)
                     i += 1

@@ -7,10 +7,12 @@ of the kernel's launch plan, on one CUDA card.
 
 A variant is "base" (the plan as it stands) or comma-separated NAME=VALUE
 overrides of ops/elan_kernel.py's module constants, which `elan_plan` and
-the build read at call time (a Path constant such as SOURCE takes a file
-path, to time a changed kernel source). The group inputs are captured from
-one b8@640 forward of FaceDetector(model, fuse_elan=True, dtype=--dtype)
-with seeded weights and noise frames (bfloat16: the bf16 kernel). Each
+the build read at call time (a Path constant such as SOURCE or TMA_SOURCE
+takes a file path, to time a changed kernel source; TMA_STRIP_ROWS and
+TMA_SINGLE_ROWS change the TMA route's plan). The group inputs are
+captured from one b8@640 forward of FaceDetector(model, fuse_elan=True,
+dtype=--dtype) with seeded weights and noise frames (bfloat16: the
+channels_last inputs of the TMA route, csrc/fused_elan_bf16.cu). Each
 round times every variant, in an order
 that rotates from round to round, each group by CUDA events (mean of 3
 runs after one warm-up). Each block starts its K loop at a chunk that
@@ -103,6 +105,7 @@ def main() -> None:
         for name, value in {**defaults, **overrides}.items():
             setattr(E, name, value)
         E._library.cache_clear()
+        E._tma_library.cache_clear()
 
     frames = np.random.default_rng(0).integers(
         0, 256, (args.batch, args.size, args.size, 3), dtype=np.uint8)
@@ -114,6 +117,7 @@ def main() -> None:
         use(ov)
         t0 = time.perf_counter()
         E.build()
+        E.build_tma()
         print(f"{name}: build {time.perf_counter() - t0:.2f} s")
         for (x, ws, shape), ref in zip(calls, want):
             got = E.fused_elan(x, ws, shape)

@@ -5,6 +5,8 @@ one; on a machine with a card and without JAX run them with
 
 This file imports neither JAX nor the JAX package."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -534,6 +536,134 @@ def test_fused_elan_dtype_routes(cuda_device):
     with pytest.raises(TypeError):
         E.fused_elan(x.half(), [t.half() if t.dim() == 4 else t
                                 for t in ws], shape)
+
+
+@functools.cache
+def tma_shapes():
+    """Every distinct group shape of w6, tiny, yolov7-face and
+    yolov7s-face, bare and with the absorbed (stride-2) pre conv: the
+    shapes the bf16 TMA route (csrc/fused_elan_bf16.cu) takes."""
+    out = []
+    for name in ("yolov7-w6-face", "yolov7-tiny-face", "yolov7-face",
+                 "yolov7s-face"):
+        for pre in (False, True):
+            for blk in find_elan_blocks(zoo.get_spec(name), absorb_pre=pre):
+                if blk.shape not in out:
+                    out.append(blk.shape)
+    return out
+
+
+def check_tma_group(x, ws, shape):
+    """One launch on the TMA route (both bf16 counters, nothing else) into
+    a buffer the allocator hands out NaN-filled, a channels_last bf16
+    output within BF16_REL_TOL of max |plain|; the same x in NCHW goes to
+    the cp.async kernel, an NCHW output within the same bound."""
+    h, w = E._check(x, ws, shape)
+    xcl = x.contiguous(memory_format=torch.channels_last)
+    assert E.elan_route(xcl, ws, shape) == "tma"
+    assert E.elan_route(x.contiguous(), ws, shape) == "cp.async"
+    # NaN in the block the allocator hands the kernel's output next, so a
+    # position the kernel failed to write cannot pass
+    nan = torch.full((x.shape[0], shape.cout, h, w), float("nan"),
+                     dtype=x.dtype, device=x.device)
+    del nan
+    counts = (E.fused_elan.launches, E.fused_elan.bf16_launches,
+              E.fused_elan.bf16_tma_launches)
+    got = E.fused_elan(xcl, ws, shape)
+    torch.cuda.synchronize()
+    assert (E.fused_elan.launches, E.fused_elan.bf16_launches,
+            E.fused_elan.bf16_tma_launches) == (counts[0], counts[1] + 1,
+                                                 counts[2] + 1)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    old = E.fused_elan(x.contiguous(), ws, shape)
+    torch.cuda.synchronize()
+    assert E.fused_elan.bf16_tma_launches == counts[2] + 1
+    assert old.is_contiguous()
+    with full_fp32():
+        want = E.reference_elan(x.contiguous(), ws, shape)
+    for out in (got, old):
+        assert out.dtype == torch.bfloat16 and out.shape == want.shape
+        assert bool(torch.isfinite(out).all())
+        err = float((out.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        assert err < BF16_REL_TOL, err
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("hw", [(10, 10), (20, 24), (72, 76)])
+@pytest.mark.parametrize("idx", range(len(tma_shapes())))
+def test_fused_elan_bf16_tma_route(cuda_device, idx, hw, batch):
+    """The TMA route on every full-width group shape of four zoo models
+    (bare and with the stride-2 pre conv): the 10-px map and a 20 x 24
+    map as one strip an image, 72 x 76 as strips with a halo and a
+    ragged last strip; b1 and b8."""
+    shape = tma_shapes()[idx]
+    rng = np.random.default_rng(idx)
+    s = shape.pre_stride if shape.has_pre else 1
+    c = shape.pre_cin if shape.has_pre else shape.cin
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, c, hw[0] * s, hw[1] * s)).astype(np.float32))
+    ws = []
+    for shp in E.weight_shapes(shape):
+        fan_in = int(np.prod(shp[1:])) if len(shp) == 4 else 10
+        t = torch.from_numpy(rng.normal(0, 1 / np.sqrt(fan_in), shp)
+                             .astype(np.float32)).to(cuda_device)
+        ws.append(t.bfloat16() if t.dim() == 4 else t)
+    check_tma_group(x.to(cuda_device).bfloat16(), ws, shape)
+
+
+@pytest.mark.parametrize("case", [
+    # aligned shapes off the zoo: 16 and 24 channels (a 64-channel stage
+    # mostly zero fill), no member a, relu, pre at stride 1
+    (dict(cin=16, ccv=16, cch=16, cout=24, n_chain=2,
+          members=("y2", "y1", "b", "a"), act="relu"), (45, 7)),
+    (dict(cin=24, ccv=8, cch=16, cout=16, n_chain=3, members=("y3", "b"),
+          act="leaky", pre_cin=16, pre_stride=1), (41, 50)),
+    (dict(cin=64, ccv=32, cch=32, cout=64, n_chain=4,
+          members=("y4", "y1", "a"), pre_cin=32, pre_stride=2), (96, 33)),
+])
+def test_fused_elan_bf16_tma_aligned_cases(cuda_device, case):
+    """The TMA route on aligned shapes no zoo model has (b2)."""
+    kw, hw = case
+    shape = E.ElanShape(**kw)
+    x, ws = bf16_inputs(shape, *hw, seed=len(kw), device=cuda_device)
+    check_tma_group(x, ws, shape)
+
+
+@pytest.mark.parametrize("batch,size", [(1, 3840), (8, 2176)])
+def test_fused_elan_bf16_tma_serving_sizes(cuda_device, batch, size):
+    """The TMA route at the serving sizes with the largest workspaces it
+    plans: w6's first group with its pre conv absorbed (the detector's
+    "pre:" mode) at b1@3840^2, the pyramid's top level, and at b8@2176^2,
+    the tiled call's tiles (x shapes from the executor's walk on the meta
+    device). The workspace is teams x full-width windows of every region,
+    1.2 and 1.8 GB here."""
+    from test_torch_elan_bf16_route import group_calls
+    xs, shape = group_calls("yolov7-w6-face", True, batch, size, size)[0]
+    plan = E.elan_tma_plan(shape, batch, xs[2] // 2, xs[3] // 2,
+                           torch.cuda.get_device_properties(
+                               cuda_device).multi_processor_count)
+    assert shape.pre_stride == 2 and plan.ws_elems * 2 < 2e9
+    _, ws = bf16_inputs(shape, 1, 1, seed=batch, device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(batch)
+    x = torch.randn(xs, generator=gen, device=cuda_device)
+    check_tma_group(x.bfloat16(), ws, shape)
+
+
+def test_fused_elan_bf16_tma_refuses(cuda_device):
+    """A channels_last input the TMA route does not take raises (no
+    fallback), as does a launch of the cp.async route on it."""
+    shape = E.ElanShape(**GROUP_CASES[0])   # 12 channels: no 16-byte run
+    x, ws = bf16_inputs(shape, 16, 16, seed=0, device=cuda_device)
+    xcl = x.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):
+        E.fused_elan(xcl, ws, shape)
+    with pytest.raises(ValueError):
+        E.launch_route("cp.async", xcl, ws, shape)
+    with pytest.raises(ValueError):
+        E.launch_route("tma", x.float().contiguous(
+            memory_format=torch.channels_last),
+            [t.float() for t in ws], shape)
 
 
 @pytest.mark.parametrize("fuse_elan", [False, True])
